@@ -1,0 +1,761 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--report PATH]
+
+Run from the root of a checkout on a machine with a CUDA card and nvcc.
+It imports the port (``src/repro_torch``) and nothing of JAX, and:
+
+1. builds the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+   (one nvcc per source, all started together) and prints the build time;
+2. holds every kernel, for every metric and input type it serves, against
+   its plain torch version on the card: the main path's shapes plus edge
+   cases (ragged n and m, d = 130, k = 2048, duplicate centers, 1e30 rows,
+   bf16);
+3. drives the main path through the user's entry points with every launch
+   counter at 0: one-shot Algorithm 3 (``_run_oneshot``) on the kddFull-like
+   data at the paper's size (4,898,431 x 34, k = 3, t = 45,540, 20 sites)
+   and on gauss-0.1 at the paper's size (1M x 5, k = 100, t = 5,000), the
+   serving model (``_model_from_result``) and >= 200 micro-batches of 256
+   queries through ``_score_batch``; it checks the paper's invariants and
+   fails unless every kernel was launched;
+4. re-runs gauss with ``backend="blocked"`` (the plain torch path) from the
+   same seed, and on the kernels from another seed as the yardstick of two
+   independent draws, and compares the results;
+5. times each kernel at the main path's shapes beside its plain version,
+   a PyTorch yardstick and its roofline bound.
+
+It prints the card (``nvidia-smi``), one ``{"kernels": [...]}`` line and, as
+its last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises:
+the script then exits non-zero and prints no result.  Without a CUDA card
+it exits non-zero at once.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+# H100 SXM peaks (NVIDIA data sheet, at the 700 W limit): fp32 outside the
+# tensor cores, and HBM3 bandwidth.  The kernels use neither TF32 nor bf16
+# tensor cores, so fp32 CUDA-core FLOP/s is the compute roof.
+PEAK_FP32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+
+KDD = dict(n=4_898_431, d=34, k=3, sites=20, second_iters=25, seed=0)
+GAUSS = dict(n_centers=100, per_center=10_000, d=5, sigma=0.1, t=5_000,
+             k=100, sites=20, second_iters=25, seed=0)
+MICRO_BATCH = 256
+SERVE_BATCHES = 400
+
+KERNELS = {
+    "min_argmin": ("src/repro_torch/kernels/csrc/pdist.cu",
+                   "src/repro/kernels/pdist/kernel.py:96"),
+    "lloyd_step": ("src/repro_torch/kernels/csrc/lloyd.cu",
+                   "src/repro/kernels/lloyd/kernel.py:77"),
+    "score": ("src/repro_torch/kernels/csrc/score.cu",
+              "src/repro/kernels/score/kernel.py:115"),
+}
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+# ----------------------------------------------------------------- timing
+def time_ms(fn, reps: int) -> float:
+    """Mean ms per call over ``reps`` calls, by CUDA events after a warm-up
+    (by the host clock off the card, for rehearsals only)."""
+    fn()
+    if not torch.cuda.is_available():
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def bound_ms(nbytes: float, flops: float):
+    """Least time for the work: bytes over HBM rate vs FLOPs over fp32 rate."""
+    tb, tf = nbytes / PEAK_BYTES_S * 1e3, flops / PEAK_FP32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def pdist_work(n, m, d, metric, in_bytes=4, extra_out=0):
+    nbytes = in_bytes * (n + m) * d + (8 + extra_out) * n
+    flops = (3 * n * m * d + n * m) if metric == "l1" else \
+        (2 * n * m * d + 4 * n * m + 2 * (n + m) * d)
+    return nbytes, flops
+
+
+def lloyd_work(n, k, d):
+    nbytes = 4 * (n * d + n + k * d) + 4 * (k * d + k) + 8 * n
+    flops = 2 * n * k * d + 4 * n * k + 2 * n * (d + 1)
+    return nbytes, flops
+
+
+# ------------------------------------------------------- kernel checks
+# Tolerances.  Both sides compute in f32 (bf16 inputs are upcast first), but
+# the kernel sums each dot product sequentially and the plain version in
+# cuBLAS's order, and l2sq is the reference's expansion x2 + c2 - 2 x.c,
+# which loses bits to cancellation for near points.  So an error is scaled
+# by the magnitude the expansion works at: x2 + c2 for l2sq (the squared
+# distances for l2), |x|_1 + |c|_1 for l1.  TOL = 1e-5 of that is ~80 f32
+# ulps; a sum of d <= 300 products in another order stays far inside it.
+# The reports call this scaled error max_rel_err.
+TOL = 1e-5
+
+
+def _scale(x, c, metric):
+    """Per-row magnitude of the expansion, in float64, clamped at 1."""
+    x, c = x.double(), c.double()
+    if metric == "l1":
+        s = x.abs().sum(-1) + c.abs().sum(-1)
+    else:
+        s = (x * x).sum(-1) + (c * c).sum(-1)
+    return s.clamp(min=1.0)
+
+
+def _d64(x, c, metric):
+    """Row-wise squared-or-l1 distance of x[i] to c[i] in float64."""
+    x, c = x.double(), c.double()
+    if metric == "l1":
+        return (x - c).abs().sum(-1)
+    return ((x - c) ** 2).sum(-1)
+
+
+def dist_err(x, c, dk, dp, ap, metric):
+    """Max scaled error of the kernel's distances against the plain ones.
+    l2 is compared squared (the sqrt of a rounding error near 0 is not a
+    rounding error of the distance)."""
+    if metric == "l2":
+        dk, dp = dk.double() ** 2, dp.double() ** 2
+    err = (dk.double() - dp.double()).abs()
+    same = dk.double() == dp.double()          # e.g. both +inf
+    err = torch.where(same, 0.0, err)
+    scaled = err / _scale(x, c[ap.long()], metric)
+    scaled = torch.where(torch.isfinite(dp), scaled,
+                         torch.where(same, 0.0, float("inf")))
+    return float(scaled.max())
+
+
+def argmin_verdict(x, c, a_k, a_p, metric):
+    """(mismatches, bad): rows whose argmins differ, and those of them that
+    are not near-ties.  A mismatch is allowed only where the two chosen
+    centers are within TOL (scaled as above) of each other in float64, and
+    never on an exact tie (both must then pick the smaller index)."""
+    diff = (a_k != a_p).nonzero().flatten()
+    if diff.numel() == 0:
+        return 0, 0
+    xs = x[diff]
+    ck, cp = c[a_k[diff].long()], c[a_p[diff].long()]
+    gap = (_d64(xs, ck, metric) - _d64(xs, cp, metric)).abs()
+    bad = (gap > TOL * _scale(xs, cp, metric)) | \
+        ((gap == 0) & (a_k[diff] > a_p[diff]))
+    return int(diff.numel()), int(bad.sum())
+
+
+def _rec(kernel, name, metric, x, c, **kw):
+    return dict(kernel=kernel, case=name, metric=metric,
+                dtype=str(x.dtype).replace("torch.", ""),
+                shape=[x.shape[0], c.shape[0], x.shape[1]], tol=TOL, **kw)
+
+
+def check_pdist(dev, name, x, c, metric, fail):
+    from repro_torch.kernels.pdist.kernel import min_argmin_cuda
+    from repro_torch.kernels.pdist.ops import min_argmin_blocked
+    dk, ak = min_argmin_cuda(x, c, metric=metric)
+    dp, ap = min_argmin_blocked(x, c, metric=metric)
+    sync(dev)
+    fin = torch.isfinite(dp)
+    err = torch.where(fin, (dk - dp).abs(), 0.0)
+    scaled = dist_err(x, c, dk, dp, ap, metric)
+    mis, bad = argmin_verdict(x, c, ak, ap, metric)
+    rec = _rec("min_argmin", name, metric, x, c,
+               max_abs_err=float(err.max()), max_rel_err=scaled,
+               argmin_mismatch=mis, argmin_bad=bad)
+    if bad or not scaled <= TOL:
+        fail.append(rec)
+    return rec
+
+
+def check_score(dev, name, x, c, thr, metric, fail):
+    from repro_torch.kernels.pdist.kernel import min_argmin_cuda
+    from repro_torch.kernels.score.kernel import score_cuda
+    from repro_torch.kernels.score.ops import score_blocked
+    dk, ak, sk = score_cuda(x, c, thr, metric=metric)
+    da, aa = min_argmin_cuda(x, c, metric=metric)
+    composed = da / torch.clamp(thr, min=1e-30)
+    dp, ap, sp = score_blocked(x, c, thr, metric=metric)
+    sync(dev)
+    bitwise = bool(torch.equal(dk, da) and torch.equal(ak, aa)
+                   and torch.equal(sk, composed))
+    scaled = dist_err(x, c, dk, dp, ap, metric)
+    mis, bad = argmin_verdict(x, c, ak, ap, metric)
+    rec = _rec("score", name, metric, x, c,
+               max_abs_err=float((sk - sp).abs().max()),
+               max_rel_err=scaled, argmin_mismatch=mis, argmin_bad=bad,
+               fused_equals_composed_bitwise=bitwise)
+    if bad or not bitwise or not scaled <= TOL:
+        fail.append(rec)
+    return rec
+
+
+def check_lloyd(dev, name, x, w, c, metric, fail):
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.kernels.lloyd.kernel import lloyd_step_cuda
+    from repro_torch.kernels.lloyd.ops import (accumulate_by_assignment,
+                                               lloyd_step_blocked)
+    s1, c1, a1, d1 = lloyd_step_cuda(x, w, c, metric=metric)
+    s2, c2, _, _ = lloyd_step_cuda(x, w, c, metric=metric)
+    sp, cp, ap, dp = lloyd_step_blocked(
+        x, w, c, metric=metric, policy=KernelPolicy(backend="blocked"))
+    sync(dev)
+    deterministic = bool(torch.equal(s1, s2) and torch.equal(c1, c2))
+    mis, bad = argmin_verdict(x, c, a1, ap, metric)
+    scaled = dist_err(x, c, d1, dp, ap, metric)
+    # sums are compared on the kernel's own assignment, so a permitted
+    # near-tie flip is not a sum error; the scale is the sum of magnitudes
+    # (a sum of signed terms may cancel to ~0).  1e-4: the kernel adds up to
+    # n / 256 rows in order per block, the plain matmul in cuBLAS's order.
+    s_ref, c_ref = accumulate_by_assignment(x, w, a1, c.shape[0])
+    s_abs, c_abs = accumulate_by_assignment(x.abs(), w.abs(), a1, c.shape[0])
+    serr = float(((s1 - s_ref).abs() / s_abs.clamp(min=1e-6)).max())
+    cerr = float(((c1 - c_ref).abs() / c_abs.clamp(min=1e-6)).max())
+    rec = _rec("lloyd_step", name, metric, x, c,
+               max_abs_err=max(float((d1 - dp).abs().max()),
+                               float((s1 - s_ref).abs().max()),
+                               float((c1 - c_ref).abs().max())),
+               max_rel_err=scaled, sums_rel_err=serr,
+               counts_rel_err=cerr, argmin_mismatch=mis, argmin_bad=bad,
+               deterministic=deterministic)
+    if (bad or not deterministic or not scaled <= TOL or not serr <= 1e-4
+            or not cerr <= 1e-4):
+        fail.append(rec)
+    return rec
+
+
+def path_shapes(n, k, t, sites):
+    """The main path's distance-call shapes for one data set, from the
+    reference's static plan: per-site rows, Alg. 1's sample size m, Alg. 2's
+    center capacity, and a bound on the records the coordinator gathers."""
+    from repro_torch.core.distributed import local_budget
+    from repro_torch.core.summary import _plan
+    n_site = -(-n // sites)
+    t_i = local_budget(t, sites, "random")
+    _, m, rounds, _ = _plan(n_site, k, t_i, 2.0, 0.45)
+    center_cap = rounds * m + 8 * t_i + 1
+    return dict(n_site=n_site, t_i=t_i, m=m, rounds=rounds,
+                center_cap=center_cap,
+                n_rec=sites * (center_cap + 8 * t_i + 1))
+
+
+def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
+    """Every kernel x metric x dtype against its plain version on the card
+    (tolerances: see TOL)."""
+    from repro_torch.kernels.pdist.kernel import min_argmin_cuda
+    g = torch.Generator(device="cpu").manual_seed(0)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)   # noqa: E731
+    recs, fail = [], []
+    site = kdd_x[:ks["n_site"]]
+    gsite = gauss_x[:gs["n_site"]]
+    cap = ks["center_cap"]
+    pick = torch.randperm(ks["n_site"], generator=g)[:cap].to(dev)
+    gpick = torch.randperm(gs["n_site"],
+                           generator=g)[:gs["center_cap"]].to(dev)
+    # Alg. 2's centers: data rows plus 40 invalid slots at 1e30, shuffled
+    far = torch.full((40, KDD["d"]), 1e30, device=dev)
+    c_re = torch.cat([site[pick[:cap - 40]], far])[
+        torch.randperm(cap, generator=g).to(dev)].contiguous()
+    # main-path shapes (kdd: Alg. 1 round, Alg. 2 reassignment, losses;
+    # gauss: round and reassignment), with the metric the path runs
+    cases = [
+        ("kdd_alg1_round", site, site[pick[:ks["m"]]].contiguous(), "l2sq"),
+        ("kdd_alg2_reassign_far_rows", site, c_re, "l2sq"),
+        ("kdd_losses", kdd_x, site[pick[:KDD["k"]]].contiguous(), "l2"),
+        ("gauss_alg1_round", gsite, gsite[gpick[:gs["m"]]].contiguous(),
+         "l2sq"),
+        ("gauss_alg2_reassign", gsite, gsite[gpick].contiguous(), "l2sq"),
+    ]
+    for name, x, c, metric in cases:
+        recs.append(check_pdist(dev, name, x, c, metric, fail))
+    # edge cases x every metric x dtype
+    dup = torch.ones((133, 4), device=dev)
+    for metric in ("l2sq", "l2", "l1"):
+        for dt in (torch.float32, torch.bfloat16):
+            for name, (n, m, d) in (("ragged", (1000, 37, 18)),
+                                    ("d130", (1025, 200, 130)),
+                                    ("m2048_d130", (3001, 2048, 130)),
+                                    ("d300_generic", (517, 65, 300))):
+                x, c = rnd(n, d).to(dt), rnd(m, d).to(dt)
+                recs.append(check_pdist(dev, name, x, c, metric, fail))
+                recs.append(check_score(dev, name, x[:300].contiguous(), c,
+                                        torch.tensor(0.7, device=dev),
+                                        metric, fail))
+            x = torch.zeros((8, 4), device=dev, dtype=dt)
+            rec = check_pdist(dev, "duplicate_centers", x, dup.to(dt),
+                              metric, fail)
+            _, a = min_argmin_cuda(x, dup.to(dt), metric=metric)
+            if not bool((a == 0).all()):
+                fail.append(dict(rec, why="tie did not pick index 0"))
+            recs.append(rec)
+        if metric != "l1":
+            x = rnd(2000, 34)
+            c = torch.cat([rnd(5, 34), torch.full((7, 34), 1e30, device=dev)])
+            recs.append(check_pdist(dev, "far_rows", x, c, metric, fail))
+    # serving shape: a micro-batch against kdd's and gauss's centers
+    thr = torch.tensor(3.5, device=dev)
+    recs.append(check_score(dev, "serve_kdd", kdd_x[:MICRO_BATCH],
+                            site[pick[:KDD["k"]]].contiguous(), thr, "l2sq",
+                            fail))
+    recs.append(check_score(dev, "serve_gauss", gauss_x[:MICRO_BATCH],
+                            gsite[gpick[:GAUSS["k"]]].contiguous(), thr,
+                            "l2sq", fail))
+    # Lloyd: second-level shapes plus k = 2048 x d = 130 (global partials)
+    for name, (n, k, d) in (("kdd_second_level",
+                             (ks["n_rec"], KDD["k"], KDD["d"])),
+                            ("gauss_second_level",
+                             (gs["n_rec"], GAUSS["k"], GAUSS["d"])),
+                            ("ragged", (1000, 37, 18)),
+                            ("k2048_d130", (3001, 2048, 130))):
+        for metric in ("l2sq", "l2"):
+            for dt in (torch.float32, torch.bfloat16):
+                if dt == torch.bfloat16 and n > 10_000:
+                    continue
+                x = rnd(n, d).to(dt)
+                w = torch.rand(n, generator=g).to(dev) * 3
+                c = rnd(k, d).to(dt)
+                recs.append(check_lloyd(dev, name, x, w, c, metric, fail))
+    return recs, fail
+
+
+# --------------------------------------------------------------- main path
+def run_oneshot(dev, x_dev, truth, *, k, t, sites, second_iters, seed,
+                policy, label):
+    from repro_torch.api.session import _run_oneshot
+    from repro_torch.core.distributed import local_budget
+    from repro_torch.core.metrics import clustering_losses, outlier_scores
+    from repro_torch.core.summary import _plan
+
+    sync(dev)
+    t0 = time.perf_counter()
+    res = _run_oneshot(x_dev, k=k, t=t, sites=sites, partition="random",
+                       metric="l2sq", second_iters=second_iters, seed=seed,
+                       policy=policy, device=dev)
+    t1 = time.perf_counter()
+    mask = torch.zeros((x_dev.shape[0],), dtype=torch.bool, device=dev)
+    mask[torch.as_tensor(res["outlier_ids"], device=dev)] = True
+    l1, l2 = clustering_losses(x_dev, torch.as_tensor(res["centers"],
+                                                      device=dev), mask,
+                               policy=policy)
+    l1, l2 = float(l1), float(l2)
+    t2 = time.perf_counter()
+    sc = outlier_scores(truth, res["summary_ids"], res["outlier_ids"])
+
+    # the paper's invariants, per site
+    n = x_dev.shape[0]
+    sizes = [len(a) for a in np.array_split(np.arange(n), sites)]
+    offs = np.cumsum([0] + sizes)
+    t_i = local_budget(t, sites, "random")
+    gid, w = res["summary_ids"], res["summary_weights"]
+    for i in range(sites):
+        sel = (gid >= offs[i]) & (gid < offs[i + 1])
+        mass = float(w[sel].sum())
+        if mass != sizes[i]:
+            raise AssertionError(f"{label} site {i}: summary mass {mass} != "
+                                 f"{sizes[i]} points")
+        rounds_cap = _plan(sizes[i], k, t_i, 2.0, 0.45)[2]
+        if res["site_rounds"][i] > rounds_cap:
+            raise AssertionError(f"{label} site {i}: {res['site_rounds'][i]}"
+                                 f" rounds > plan {rounds_cap}")
+    # |X_r| <= 8 t_i: candidates are the weight-1 records Alg. 1 kept; the
+    # coordinator reports them per record, so count per site
+    cand = res.get("summary_candidates")
+    if cand is not None:
+        for i in range(sites):
+            sel = (gid >= offs[i]) & (gid < offs[i + 1])
+            if int(cand[sel].sum()) > 8 * t_i:
+                raise AssertionError(f"{label} site {i}: |X_r| > 8 t_i")
+    d = x_dev.shape[1]
+    rec_bytes = 4 * d + 4 + 8 + 1      # point + weight + global id + flag
+    out = {
+        "run": label, "n": n, "d": d, "k": k, "t": t, "sites": sites,
+        "t_i": t_i, "site_rounds": res["site_rounds"],
+        "phase_s": {**res["phase_s"], "losses": t2 - t1,
+                    "oneshot_total": t1 - t0},
+        "comm_records": res["comm_records"],
+        "comm_bytes": int(res["comm_records"]) * rec_bytes,
+        "comm_frac_of_data": res["comm_records"] / n,
+        "site_records_min_max": [min(res["site_records"]),
+                                 max(res["site_records"])],
+        "preRec": sc.pre_recall, "prec": sc.precision, "recall": sc.recall,
+        "n_outliers": int(len(res["outlier_ids"])),
+        "l1_loss": l1, "l2_loss": l2, "cost": res["cost"],
+    }
+    return res, out
+
+
+def serve_model(dev, x_dev, x_np, truth, res, policy):
+    """The serving model from a fit (``_model_from_result``), then the
+    serving read; returns (model, serving report)."""
+    from repro_torch.api.session import _model_from_result
+    model = _model_from_result(x_dev, res, metric="l2sq", policy=policy,
+                               version=1, device=dev)
+    return model, serve(dev, x_np, truth, model, policy)
+
+
+def serve(dev, x_np, truth, model, policy):
+    from repro_torch.stream.service import _score_batch
+    rng = np.random.default_rng(1)
+    clean = np.setdiff1d(np.arange(x_np.shape[0]), truth)
+    lat, planted_hits, planted_n, clean_hits, clean_n = [], 0, 0, 0, 0
+    for b in range(SERVE_BATCHES):
+        n_pl = 32
+        rows = np.concatenate([rng.choice(truth, n_pl),
+                               rng.choice(clean, MICRO_BATCH - n_pl)])
+        is_pl = np.arange(MICRO_BATCH) < n_pl
+        xb = x_np[rows]
+        t0 = time.perf_counter()
+        dist, idx, score = _score_batch(
+            torch.from_numpy(xb).to(dev), model.centers, model.threshold,
+            metric="l2sq", policy=policy)
+        score = score.cpu().numpy()
+        lat.append(time.perf_counter() - t0)
+        flagged = score > 1.0
+        planted_hits += int(flagged[is_pl].sum())
+        planted_n += int(is_pl.sum())
+        clean_hits += int(flagged[~is_pl].sum())
+        clean_n += int((~is_pl).sum())
+        if not np.isfinite(score).all():
+            raise AssertionError("non-finite scores")
+    lat_ms = np.asarray(lat) * 1e3
+    return {"batches": SERVE_BATCHES, "micro_batch": MICRO_BATCH,
+            "p50_ms": float(np.percentile(lat_ms, 50)),
+            "p99_ms": float(np.percentile(lat_ms, 99)),
+            "outlier_rate_planted": planted_hits / planted_n,
+            "outlier_rate_clean": clean_hits / clean_n}
+
+
+# --------------------------------------------------------------- timings
+def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
+    """Kernel, plain and yardstick times at the main path's shapes, with
+    inputs from this run (kdd site 0, its summary records, its model)."""
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.kernels.lloyd.kernel import lloyd_step_cuda
+    from repro_torch.kernels.lloyd.ops import lloyd_step_blocked
+    from repro_torch.kernels.pdist.kernel import min_argmin_cuda
+    from repro_torch.kernels.pdist.ops import min_argmin_blocked
+    from repro_torch.kernels.score.kernel import score_cuda
+    from repro_torch.kernels.score.ops import score_blocked
+
+    def cdist_min(x, c, chunk=16_384):
+        # yardstick only: row-chunked torch.cdist + min (never in the port)
+        for i in range(0, x.shape[0], chunk):
+            torch.cdist(x[i:i + chunk], c).min(dim=1)
+
+    g = torch.Generator(device="cpu").manual_seed(1)
+    n_site, cap, m, d = ks["n_site"], ks["center_cap"], ks["m"], kdd_x.shape[1]
+    site = kdd_x[:n_site]
+    pick = torch.randperm(n_site, generator=g)[:cap].to(dev)
+    rows = []
+
+    def row(kernel, shape_name, shape, work, k_fn, p_fn, lib_fn, reps):
+        ms = time_ms(k_fn, reps)
+        plain = time_ms(p_fn, max(1, reps // 2))
+        lib = None if lib_fn is None else time_ms(lib_fn, max(1, reps // 2))
+        b, by = bound_ms(*work)
+        rows.append(dict(kernel=kernel, shape_name=shape_name, shape=shape,
+                         ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                         bound_by=by, bytes=work[0], flops=work[1]))
+        log(f"timing {kernel} {shape_name} {shape}: kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, library "
+            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms "
+            f"({by})")
+
+    c = site[pick].contiguous()
+    row("min_argmin", "kdd_alg2_reassign", [n_site, cap, d],
+        pdist_work(n_site, cap, d, "l2sq"),
+        lambda: min_argmin_cuda(site, c), lambda: min_argmin_blocked(site, c),
+        lambda: cdist_min(site, c), 5)
+    cm = site[pick[:m]].contiguous()
+    row("min_argmin", "kdd_alg1_round", [n_site, m, d],
+        pdist_work(n_site, m, d, "l2sq"),
+        lambda: min_argmin_cuda(site, cm),
+        lambda: min_argmin_blocked(site, cm), lambda: cdist_min(site, cm),
+        50)
+    cen = kdd_model.centers
+    k = cen.shape[0]
+    row("min_argmin", "kdd_losses_l2", [kdd_x.shape[0], k, d],
+        pdist_work(kdd_x.shape[0], k, d, "l2"),
+        lambda: min_argmin_cuda(kdd_x, cen, metric="l2"),
+        lambda: min_argmin_blocked(kdd_x, cen, metric="l2"),
+        lambda: cdist_min(kdd_x, cen, 1 << 20), 20)
+    ids = torch.as_tensor(kdd_res["summary_ids"], device=dev)
+    pts = kdd_x[ids].contiguous()
+    wts = torch.as_tensor(kdd_res["summary_weights"], device=dev)
+    blocked = KernelPolicy(backend="blocked")
+    row("lloyd_step", "kdd_second_level", [pts.shape[0], k, d],
+        lloyd_work(pts.shape[0], k, d),
+        lambda: lloyd_step_cuda(pts, wts, cen),
+        lambda: lloyd_step_blocked(pts, wts, cen, policy=blocked), None, 20)
+    gx = gauss_x[:gs["n_rec"]].contiguous()
+    gk, gd = GAUSS["k"], GAUSS["d"]
+    gc = gx[torch.randperm(gx.shape[0], generator=g)[:gk].to(dev)]
+    gw = torch.ones((gx.shape[0],), device=dev)
+    row("lloyd_step", "gauss_second_level_like", [gx.shape[0], gk, gd],
+        lloyd_work(gx.shape[0], gk, gd),
+        lambda: lloyd_step_cuda(gx, gw, gc),
+        lambda: lloyd_step_blocked(gx, gw, gc, policy=blocked), None, 20)
+    xb = kdd_x[:MICRO_BATCH].contiguous()
+    thr = kdd_model.threshold
+    row("score", "kdd_micro_batch", [MICRO_BATCH, k, d],
+        pdist_work(MICRO_BATCH, k, d, "l2sq", extra_out=4),
+        lambda: score_cuda(xb, cen, thr), lambda: score_blocked(xb, cen, thr),
+        lambda: torch.cdist(xb, cen).min(dim=1), 200)
+    return rows
+
+
+# ------------------------------------------------------------------- main
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def compare_runs(dev, x, ra, rb) -> dict:
+    """How far apart two fits are: each center's distance to the other
+    run's nearest center (max, and weighted by the mass of ``x`` each center
+    serves), the outlier sets' Jaccard overlap, and the costs."""
+    from repro_torch.kernels.pdist.ops import min_argmin_blocked
+    ca, cb = ra["centers"], rb["centers"]
+    pair = np.sqrt(((ca[:, None, :] - cb[None, :, :]) ** 2).sum(-1))
+    wmean = []
+    for c, nn in ((ca, pair.min(1)), (cb, pair.min(0))):
+        _, idx = min_argmin_blocked(x, torch.as_tensor(c, device=dev))
+        mass = np.bincount(idx.cpu().numpy(), minlength=len(c))
+        wmean.append(float((mass * nn).sum() / mass.sum()))
+    oa, ob = set(ra["outlier_ids"].tolist()), set(rb["outlier_ids"].tolist())
+    return {"centers_max_matched_diff": float(max(pair.min(1).max(),
+                                                  pair.min(0).max())),
+            "centers_mass_weighted_matched_diff": max(wmean),
+            "outlier_jaccard": len(oa & ob) / max(len(oa | ob), 1),
+            "cost_rel_diff": abs(ra["cost"] - rb["cost"])
+            / max(abs(ra["cost"]), 1e-30)}
+
+
+def run(dev: torch.device, card: str) -> dict:
+    """Every phase on ``dev``; returns the report.  Raises on any failure."""
+    from repro_torch.data.synthetic import gauss, kdd_like
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.kernels.lloyd.kernel import lloyd_step_cuda
+    from repro_torch.kernels.pdist.kernel import min_argmin_cuda
+    from repro_torch.kernels.score.kernel import score_cuda
+
+    t_start = time.perf_counter()
+    log(f"card: {card}")
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}")
+    t0 = time.perf_counter()
+    _build.build_all()
+    build_s = time.perf_counter() - t0
+    log(f"build_s {build_s:.2f} (nvcc, sm_90a, 3 sources in parallel)")
+
+    t0 = time.perf_counter()
+    kdd_np, kdd_truth = kdd_like(n=KDD["n"], d=KDD["d"], seed=KDD["seed"])
+    gauss_np, gauss_truth = gauss(
+        n_centers=GAUSS["n_centers"], per_center=GAUSS["per_center"],
+        d=GAUSS["d"], sigma=GAUSS["sigma"], t=GAUSS["t"], seed=GAUSS["seed"])
+    kdd_x = torch.from_numpy(kdd_np).to(dev)
+    gauss_x = torch.from_numpy(gauss_np).to(dev)
+    log(f"data_s {time.perf_counter() - t0:.2f} kdd {tuple(kdd_x.shape)} "
+        f"({kdd_x.numel() * 4 / 1e6:.0f} MB on the card, "
+        f"{len(kdd_truth)} planted outliers), gauss {tuple(gauss_x.shape)}")
+
+    ks = path_shapes(kdd_x.shape[0], KDD["k"], len(kdd_truth), KDD["sites"])
+    gs = path_shapes(gauss_x.shape[0], GAUSS["k"], GAUSS["t"], GAUSS["sites"])
+    log("path_shapes", json.dumps({"kdd": ks, "gauss": gs}))
+
+    # ---- 2. kernels against their plain versions
+    t0 = time.perf_counter()
+    checks, failed = kernel_checks(dev, kdd_x, gauss_x, ks, gs)
+    log(f"kernel_checks_s {time.perf_counter() - t0:.2f}: {len(checks)} "
+        f"checks, {len(failed)} failed")
+    for r in failed:
+        log("FAILED CHECK", json.dumps(r))
+    if failed:
+        raise AssertionError(f"{len(failed)} kernel checks failed")
+
+    # ---- 3. the main path: each run driven with every counter at 0 just
+    # before it and read just after it
+    kernels = (min_argmin_cuda, lloyd_step_cuda, score_cuda)
+    per_run = {}
+
+    def counted(label, needs, fn):
+        for kern in kernels:
+            kern.launches = 0
+        out = fn()
+        per_run[label] = {k.name: k.launches for k in kernels}
+        log("launches", label, json.dumps(per_run[label]))
+        for name in needs:
+            if per_run[label][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by "
+                                     f"the {label} run")
+        return out
+
+    auto = KernelPolicy()
+    kdd_res, kdd_out = counted("kddFull_like_fit", ("min_argmin",
+                                                    "lloyd_step"),
+                               lambda: run_oneshot(
+        dev, kdd_x, kdd_truth, k=KDD["k"], t=len(kdd_truth),
+        sites=KDD["sites"], second_iters=KDD["second_iters"],
+        seed=KDD["seed"], policy=auto, label="kddFull_like"))
+    log("main_path", json.dumps(kdd_out))
+    t0 = time.perf_counter()
+    kdd_model, serve_out = counted("kddFull_like_serve", ("min_argmin",
+                                                          "score"),
+                                   lambda: serve_model(dev, kdd_x, kdd_np,
+                                                       kdd_truth, kdd_res,
+                                                       auto))
+    log("serve", json.dumps(serve_out),
+        f"(model + serving {time.perf_counter() - t0:.2f} s)")
+    g_res, g_out = counted("gauss_0.1_fit", ("min_argmin", "lloyd_step"),
+                           lambda: run_oneshot(
+        dev, gauss_x, gauss_truth, k=GAUSS["k"], t=GAUSS["t"],
+        sites=GAUSS["sites"], second_iters=GAUSS["second_iters"],
+        seed=GAUSS["seed"], policy=auto, label="gauss_0.1"))
+    log("main_path", json.dumps(g_out))
+    launches = {k.name: sum(r[k.name] for r in per_run.values())
+                for k in kernels}
+    log("main_path_launches", json.dumps(launches))
+    for out in (kdd_out, g_out):
+        if not (np.isfinite([out["l1_loss"], out["l2_loss"]]).all()
+                and out["recall"] > 0.5 and out["preRec"] > 0.5):
+            raise AssertionError(f"{out['run']}: implausible result {out}")
+    if not np.isfinite(kdd_res["centers"]).all() or \
+            kdd_res["centers"].shape != (KDD["k"], KDD["d"]):
+        raise AssertionError("kdd centers malformed")
+
+    # ---- 4. gauss again on the plain torch path, same seed, and on the
+    # kernel path with another seed (the yardstick of two independent draws)
+    for kern in kernels:
+        kern.launches = 0
+    gkw = dict(k=GAUSS["k"], t=GAUSS["t"], sites=GAUSS["sites"],
+               second_iters=GAUSS["second_iters"])
+    b_res, b_out = run_oneshot(dev, gauss_x, gauss_truth, seed=GAUSS["seed"],
+                               policy=KernelPolicy(backend="blocked"),
+                               label="gauss_0.1_blocked", **gkw)
+    if any(k.launches for k in kernels):
+        raise AssertionError("backend='blocked' launched a kernel")
+    s_res, s_out = run_oneshot(dev, gauss_x, gauss_truth,
+                               seed=GAUSS["seed"] + 1, policy=auto,
+                               label="gauss_0.1_seed+1", **gkw)
+    cmp = {"identical_summaries_and_outliers": bool(
+               np.array_equal(g_res["summary_ids"], b_res["summary_ids"])
+               and np.array_equal(g_res["outlier_ids"],
+                                  b_res["outlier_ids"])),
+           "centers_max_same_index_diff": float(
+               np.abs(g_res["centers"] - b_res["centers"]).max()),
+           "kernel_vs_blocked": compare_runs(dev, gauss_x, g_res, b_res),
+           "kernel_vs_other_seed": compare_runs(dev, gauss_x, g_res, s_res),
+           "blocked": b_out, "other_seed": s_out}
+    log("kernel_vs_blocked", json.dumps(cmp))
+    # Tolerances.  The kernels and the plain path sum distances in different
+    # orders, so a point within an ulp of a round's ball radius can fall on
+    # either side of it; from there the sampler draws from a different
+    # remainder and the two runs are two draws of the same randomized
+    # algorithm.  So: if they never parted, the centers must agree to 1e-4
+    # (only Lloyd sums in another order differ); if they did, they must be
+    # no further apart than two runs from independent seeds (x1.5 for the
+    # spread of that yardstick), in the mass-weighted distance from each
+    # center to the other run's nearest (a max is meaningless here: k-means--
+    # parks a few low-mass centers on planted outliers, differently per
+    # draw), with outlier sets overlapping by Jaccard >= 0.9 and costs within
+    # 5% (the planted outliers are shifted by U[-2, 2]^5; only those shifted
+    # by little are borderline).
+    kb, ks_ = cmp["kernel_vs_blocked"], cmp["kernel_vs_other_seed"]
+    ok = (cmp["centers_max_same_index_diff"] <= 1e-4
+          if cmp["identical_summaries_and_outliers"] else
+          kb["centers_mass_weighted_matched_diff"]
+          <= 1.5 * ks_["centers_mass_weighted_matched_diff"])
+    if not (ok and kb["outlier_jaccard"] >= 0.9
+            and kb["cost_rel_diff"] <= 0.05):
+        raise AssertionError(f"kernel path and blocked path disagree: {cmp}")
+
+    # ---- 5. timings at the main path's shapes
+    timings = kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs)
+
+    entries = []
+    for name, (src, replaces) in KERNELS.items():
+        mine = [r for r in checks if r["kernel"] == name]
+        main_row = next(r for r in timings if r["kernel"] == name)
+        entries.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "max_rel_err": max(r["max_rel_err"] for r in mine),
+            "ms": main_row["ms"], "kernel_ms": main_row["ms"],
+            "plain_ms": main_row["plain_ms"],
+            "bound_ms": main_row["bound_ms"],
+            "bound_by": main_row["bound_by"],
+            "library_ms": main_row["library_ms"],
+            "timed_shape": main_row["shape_name"],
+            "checks": len(mine),
+            "argmin_mismatches": sum(r["argmin_mismatch"] for r in mine),
+        })
+    report = {"card": card, "build_s": build_s, "checks": checks,
+              "main_path": [kdd_out, g_out], "serve": serve_out,
+              "kernel_vs_blocked": cmp, "timings": timings,
+              "launches": launches, "launches_per_run": per_run,
+              "kernels": entries,
+              "total_s": time.perf_counter() - t_start}
+    log(f"total_s {report['total_s']:.1f}")
+    return report
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--report", default=None,
+                    help="also write every measurement to this JSON file")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    card = nvidia_smi()
+    report = run(torch.device("cuda", 0), card)
+    if args.report:
+        Path(args.report).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.report).write_text(json.dumps(report, indent=1) + "\n")
+    print(card)
+    print(json.dumps({"kernels": report["kernels"]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""The one seam every random draw of the port goes through.
+
+The reference threads a ``jax.random`` key through its algorithms; JAX's
+threefry and torch's Philox give different numbers from the same seed, so
+the port passes a :class:`Sampler` wherever the reference passes its key,
+and calls it in the reference's key schedule:
+
+  * ``split`` once per round (``summary.py``), ``split(3)`` in Alg. 2
+    (after ``fold_in(17)`` on the compact path), ``split`` per k-means++
+    pick;
+  * ``fold_in(i)`` per site and ``fold_in(2**31 - 1)`` for the second level
+    (``distributed.py``).
+
+A test-side adapter that maps the same four methods onto ``jax.random``
+therefore replays the reference's draws exactly; production uses
+:class:`TorchSampler`.  A sampler is a value, like a key: drawing from the
+same sampler twice gives the same numbers.
+"""
+from __future__ import annotations
+
+import abc
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+
+class Sampler(abc.ABC):
+    """Key-like source of random draws (see module docstring)."""
+
+    @abc.abstractmethod
+    def split(self, n: int = 2) -> list["Sampler"]:
+        """``n`` independent child samplers (``jax.random.split``)."""
+
+    @abc.abstractmethod
+    def fold_in(self, i: int) -> "Sampler":
+        """A child sampler derived from the integer ``i``
+        (``jax.random.fold_in``)."""
+
+    @abc.abstractmethod
+    def categorical(self, logits: torch.Tensor,
+                    shape: Sequence[int] = ()) -> torch.Tensor:
+        """int64 ids of ``shape`` drawn with replacement with probability
+        ``softmax(logits)``; ``-inf`` entries are never drawn
+        (``jax.random.categorical``).  On ``logits``' device."""
+
+    @abc.abstractmethod
+    def randint(self, high: int, shape: Sequence[int],
+                device=None) -> torch.Tensor:
+        """int64 ids of ``shape``, uniform in ``[0, high)``
+        (``jax.random.randint(key, shape, 0, high)``)."""
+
+
+class TorchSampler(Sampler):
+    """Production sampler over ``torch.Generator``.
+
+    Child seeds derive deterministically from ``(seed, path)`` through
+    numpy's ``SeedSequence``.  Draws are made by a CPU generator and the
+    ids moved to the logits' device, so a run's draws do not depend on
+    whether it ran on the card.
+    """
+
+    _SPLIT, _FOLD = 1, 2
+
+    def __init__(self, seed: int, path: tuple = ()):
+        self.seed = int(seed)
+        self.path = tuple(path)
+
+    def __repr__(self) -> str:
+        return f"TorchSampler(seed={self.seed}, path={self.path})"
+
+    def split(self, n: int = 2) -> list["TorchSampler"]:
+        return [TorchSampler(self.seed, self.path + (self._SPLIT, j))
+                for j in range(n)]
+
+    def fold_in(self, i: int) -> "TorchSampler":
+        return TorchSampler(self.seed, self.path + (self._FOLD, int(i)))
+
+    def _generator(self) -> torch.Generator:
+        ss = np.random.SeedSequence(entropy=self.seed, spawn_key=self.path)
+        g = torch.Generator(device="cpu")
+        g.manual_seed(int(ss.generate_state(1, np.uint64)[0]))
+        return g
+
+    def categorical(self, logits, shape=()):
+        lg = logits.detach().to("cpu", torch.float64)
+        probs = torch.softmax(lg, dim=0)
+        count = math.prod(shape) if len(shape) else 1
+        ids = torch.multinomial(probs, count, replacement=True,
+                                generator=self._generator())
+        return ids.reshape(tuple(shape)).to(logits.device)
+
+    def randint(self, high, shape, device=None):
+        ids = torch.randint(0, int(high), tuple(shape),
+                            generator=self._generator())
+        return ids if device is None else ids.to(device)

@@ -1,0 +1,6 @@
+"""Compute hot-spot ops (pdist / lloyd / score): each has a hand-written
+CUDA kernel for Hopper, a chunked blocked torch path and a torch oracle.
+Backend selection is centralized in `dispatch` — see KernelPolicy."""
+from repro_torch.kernels.dispatch import (  # noqa: F401
+    KernelPolicy, get_default_policy, set_default_policy, using_policy,
+)

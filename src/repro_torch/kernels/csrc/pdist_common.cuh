@@ -1,0 +1,221 @@
+// Shared core of the pdist, score and lloyd kernels: one thread owns one row
+// of x and keeps a running (min, argmin) over every center.
+//
+// Design (see pdist.cu for the bound this is written against):
+//   * a CTA of NT threads owns NT consecutive rows, one row per thread, the
+//     row held in registers (DP floats, zero-padded past d);
+//   * centers are staged TM at a time into shared memory with their squared
+//     norms; every thread of a warp reads the same center word at the same
+//     time, so the shared-memory reads are broadcasts;
+//   * four centers are scored at once (four independent FMA chains) and then
+//     compared in index order with a strict `<`, so ties keep the smallest
+//     index exactly as the reference's argmin does;
+//   * columns >= m are never scored (the loop stops at m) instead of being
+//     padded with a far-away sentinel.
+//
+// All arithmetic goes through the *_rn intrinsics, so the compiler cannot
+// contract or reorder it: pdist, score and lloyd produce bitwise-identical
+// distances for the same inputs (the fused score must equal the composed
+// min_argmin + divide bitwise).  l2sq/l2 use the reference's expansion
+// max((x2 + c2) - 2 x.c, 0), not sum((x - c)^2); l2 takes the sqrt of each
+// distance before the comparison, as the reference kernel does.  A center
+// row at 1e30 (Alg. 2's invalid slots) has c2 = +inf, hence distance +inf,
+// and is never selected.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+namespace rt {
+
+enum Metric { L2SQ = 0, L2 = 1, L1 = 2 };
+enum DType { F32 = 0, BF16 = 1 };
+
+__device__ __forceinline__ float load_f(const float* p, long long i) {
+  return p[i];
+}
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p, long long i) {
+  return __bfloat162float(p[i]);
+}
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// Tile shape per padded width DP (DP == 0: the generic path for any d).
+template <int DP>
+struct Tile {
+  static constexpr int NT = DP > 128 ? 128 : 256;                 // rows/CTA
+  static constexpr int TM = DP <= 64 ? 64 : (DP <= 128 ? 32 : 16);  // centers
+};
+
+// Distance epilogue shared by every path.
+template <int METRIC>
+__device__ __forceinline__ float finish_l2(float x2, float c2, float dot) {
+  float v = __fsub_rn(__fadd_rn(x2, c2), __fmul_rn(2.0f, dot));
+  v = fmaxf(v, 0.0f);
+  if (METRIC == L2) v = __fsqrt_rn(v);
+  return v;
+}
+
+// One row's running (min, argmin) against all m centers.  Every thread of
+// the CTA must call this (it synchronises while staging centers), live row
+// or not.
+template <int DP, int METRIC, typename T>
+struct RowScan {
+  float xr[DP > 0 ? DP : 1];
+  float x2;
+  float best;
+  int bidx;
+
+  __device__ __forceinline__ void run(const T* __restrict__ x,
+                                      const T* __restrict__ c, long long row,
+                                      int n, int m, int d) {
+    constexpr int NT = Tile<DP>::NT;
+    constexpr int TM = Tile<DP>::TM;
+    __shared__ __align__(16) float cs[TM * DP];
+    __shared__ float c2s[TM];
+
+    const bool live = row < n;
+#pragma unroll
+    for (int f = 0; f < DP; ++f)
+      xr[f] = (live && f < d) ? load_f(x, row * d + f) : 0.0f;
+    x2 = 0.0f;
+#pragma unroll
+    for (int f = 0; f < DP; ++f) x2 = __fmaf_rn(xr[f], xr[f], x2);
+    best = inf_f();
+    bidx = 0;
+
+    for (int j0 = 0; j0 < m; j0 += TM) {
+      __syncthreads();  // previous tile fully consumed
+      for (int e = threadIdx.x; e < TM * DP; e += NT) {
+        const int jj = e / DP, f = e - jj * DP, j = j0 + jj;
+        cs[e] = (j < m && f < d) ? load_f(c, (long long)j * d + f) : 0.0f;
+      }
+      __syncthreads();
+      if (METRIC != L1 && threadIdx.x < TM) {
+        float s = 0.0f;
+#pragma unroll
+        for (int f = 0; f < DP; ++f)
+          s = __fmaf_rn(cs[threadIdx.x * DP + f], cs[threadIdx.x * DP + f], s);
+        c2s[threadIdx.x] = s;
+      }
+      __syncthreads();
+      const int jn = min(TM, m - j0);
+      int jj = 0;
+      for (; jj + 4 <= jn; jj += 4) {
+        float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+        const float* p = cs + jj * DP;
+#pragma unroll
+        for (int f = 0; f < DP; ++f) {
+          if (METRIC == L1) {
+            a0 = __fadd_rn(a0, fabsf(__fsub_rn(xr[f], p[f])));
+            a1 = __fadd_rn(a1, fabsf(__fsub_rn(xr[f], p[DP + f])));
+            a2 = __fadd_rn(a2, fabsf(__fsub_rn(xr[f], p[2 * DP + f])));
+            a3 = __fadd_rn(a3, fabsf(__fsub_rn(xr[f], p[3 * DP + f])));
+          } else {
+            a0 = __fmaf_rn(xr[f], p[f], a0);
+            a1 = __fmaf_rn(xr[f], p[DP + f], a1);
+            a2 = __fmaf_rn(xr[f], p[2 * DP + f], a2);
+            a3 = __fmaf_rn(xr[f], p[3 * DP + f], a3);
+          }
+        }
+        if (METRIC != L1) {
+          a0 = finish_l2<METRIC>(x2, c2s[jj], a0);
+          a1 = finish_l2<METRIC>(x2, c2s[jj + 1], a1);
+          a2 = finish_l2<METRIC>(x2, c2s[jj + 2], a2);
+          a3 = finish_l2<METRIC>(x2, c2s[jj + 3], a3);
+        }
+        if (a0 < best) { best = a0; bidx = j0 + jj; }
+        if (a1 < best) { best = a1; bidx = j0 + jj + 1; }
+        if (a2 < best) { best = a2; bidx = j0 + jj + 2; }
+        if (a3 < best) { best = a3; bidx = j0 + jj + 3; }
+      }
+      for (; jj < jn; ++jj) {
+        float a = 0.f;
+        const float* p = cs + jj * DP;
+#pragma unroll
+        for (int f = 0; f < DP; ++f) {
+          if (METRIC == L1)
+            a = __fadd_rn(a, fabsf(__fsub_rn(xr[f], p[f])));
+          else
+            a = __fmaf_rn(xr[f], p[f], a);
+        }
+        if (METRIC != L1) a = finish_l2<METRIC>(x2, c2s[jj], a);
+        if (a < best) { best = a; bidx = j0 + jj; }
+      }
+    }
+  }
+};
+
+// Generic path for d above the widest register tile: the row and the centers
+// are read from global memory (through L1) in the same order the staged path
+// sums them, so both paths give the same bits for the same d.
+template <int METRIC, typename T>
+struct RowScan<0, METRIC, T> {
+  float xr[1];
+  float x2;
+  float best;
+  int bidx;
+
+  __device__ __forceinline__ void run(const T* __restrict__ x,
+                                      const T* __restrict__ c, long long row,
+                                      int n, int m, int d) {
+    best = inf_f();
+    bidx = 0;
+    if (row >= n) return;
+    const long long xo = row * d;
+    x2 = 0.0f;
+    for (int f = 0; f < d; ++f) {
+      const float v = load_f(x, xo + f);
+      x2 = __fmaf_rn(v, v, x2);
+    }
+    for (int j = 0; j < m; ++j) {
+      const long long co = (long long)j * d;
+      float a = 0.f, c2 = 0.f;
+      for (int f = 0; f < d; ++f) {
+        const float xv = load_f(x, xo + f), cv = load_f(c, co + f);
+        if (METRIC == L1) {
+          a = __fadd_rn(a, fabsf(__fsub_rn(xv, cv)));
+        } else {
+          a = __fmaf_rn(xv, cv, a);
+          c2 = __fmaf_rn(cv, cv, c2);
+        }
+      }
+      if (METRIC != L1) a = finish_l2<METRIC>(x2, c2, a);
+      if (a < best) { best = a; bidx = j; }
+    }
+  }
+};
+
+// Compile-time dispatch over the padded width, metric and input type.
+template <typename F>
+void dispatch_dp(int d, F&& f) {
+  if (d <= 8) f(std::integral_constant<int, 8>{});
+  else if (d <= 16) f(std::integral_constant<int, 16>{});
+  else if (d <= 24) f(std::integral_constant<int, 24>{});
+  else if (d <= 32) f(std::integral_constant<int, 32>{});
+  else if (d <= 40) f(std::integral_constant<int, 40>{});
+  else if (d <= 48) f(std::integral_constant<int, 48>{});
+  else if (d <= 64) f(std::integral_constant<int, 64>{});
+  else if (d <= 96) f(std::integral_constant<int, 96>{});
+  else if (d <= 128) f(std::integral_constant<int, 128>{});
+  else if (d <= 160) f(std::integral_constant<int, 160>{});
+  else if (d <= 256) f(std::integral_constant<int, 256>{});
+  else f(std::integral_constant<int, 0>{});
+}
+
+template <typename F>
+void dispatch_metric(int metric, F&& f) {
+  if (metric == L2SQ) f(std::integral_constant<int, L2SQ>{});
+  else if (metric == L2) f(std::integral_constant<int, L2>{});
+  else f(std::integral_constant<int, L1>{});
+}
+
+template <typename F>
+void dispatch_dtype(int dtype, F&& f) {
+  if (dtype == BF16) f(__nv_bfloat16{});
+  else f(float{});
+}
+
+}  // namespace rt
