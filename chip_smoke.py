@@ -5,24 +5,34 @@
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX, and:
 
-1. builds the three CUDA kernels from ``src/repro_torch/kernels/csrc``
+1. builds the four CUDA kernels from ``src/repro_torch/kernels/csrc``
    (one nvcc per source, all started together) and prints the build time;
 2. holds every kernel, for every metric and input type it serves, against
    its plain torch version on the card: the main path's shapes plus edge
    cases (ragged n and m, d = 130, k = 2048, duplicate centers, 1e30 rows,
-   bf16);
-3. drives the main path through the user's entry points with every launch
-   counter at 0: one-shot Algorithm 3 (``_run_oneshot``) on the kddFull-like
-   data at the paper's size (4,898,431 x 34, k = 3, t = 45,540, 20 sites)
-   and on gauss-0.1 at the paper's size (1M x 5, k = 100, t = 5,000), the
-   serving model (``_model_from_result``) and >= 200 micro-batches of 256
-   queries through ``_score_batch``; it checks the paper's invariants and
-   fails unless every kernel was launched;
+   bf16); the WKV6 kernel also against the step oracle in float64, at the
+   rwkv6 prefill's shape and at edge cases (c = 64, c = T = 7, one chunk,
+   B = 1, strong decays, non-zero u in both layouts and s0), plus one
+   gradient check of its autograd Function;
+3. drives the main paths through the user's entry points, each with every
+   launch counter at 0 just before it and read just after: one-shot
+   Algorithm 3 (``_run_oneshot``) on the kddFull-like data at the paper's
+   size (4,898,431 x 34, k = 3, t = 45,540, 20 sites) and on gauss-0.1 at
+   the paper's size (1M x 5, k = 100, t = 5,000), the serving model
+   (``_model_from_result``) and >= 200 micro-batches of 256 queries through
+   ``_score_batch``; then rwkv6-7b at full width (32 layers, d = 4096, bf16,
+   random weights from a seed) serving batch 4: a prefill of 4096-token
+   prompts (``make_prefill_step``, WKV on the kernel: 32 launches) and 32
+   greedy decode steps (``make_serve_step``: no WKV launch); it checks the
+   paper's invariants and fails unless every kernel was launched;
 4. re-runs gauss with ``backend="blocked"`` (the plain torch path) from the
    same seed, and on the kernels from another seed as the yardstick of two
-   independent draws, and compares the results;
+   independent draws, and compares the results; re-runs the rwkv6 prefill
+   on the plain chunked WKV and compares logits, state and decoded tokens,
+   and checks prefill(S) + decode(token S) against prefill(S + 1);
 5. times each kernel at the main path's shapes beside its plain version,
-   a PyTorch yardstick and its roofline bound.
+   a PyTorch yardstick and its roofline bound, and the rwkv6 prefill's
+   tokens/s and decode step latency.
 
 It prints the card (``nvidia-smi``), one ``{"kernels": [...]}`` line and, as
 its last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises:
@@ -52,6 +62,12 @@ GAUSS = dict(n_centers=100, per_center=10_000, d=5, sigma=0.1, t=5_000,
              k=100, sites=20, second_iters=25, seed=0)
 MICRO_BATCH = 256
 SERVE_BATCHES = 400
+# rwkv6-7b serving at full width; batch and prompt cut from the reference's
+# prefill_32k shape (batch 32 x 32,768 on a pod) to fit one card's time
+RWKV = dict(arch="rwkv6-7b", smoke=False, batch=4, prompt=4096, gen=32,
+            compare_tokens=8, seed=0)
+# the WKV call of that prefill: BH = batch * heads rows
+WKV_MAIN = dict(BH=256, T=4096, K=64, chunk=16)
 
 KERNELS = {
     "min_argmin": ("src/repro_torch/kernels/csrc/pdist.cu",
@@ -60,6 +76,8 @@ KERNELS = {
                    "src/repro/kernels/lloyd/kernel.py:77"),
     "score": ("src/repro_torch/kernels/csrc/score.cu",
               "src/repro/kernels/score/kernel.py:115"),
+    "wkv_forward": ("src/repro_torch/kernels/csrc/wkv.cu",
+                    "src/repro/kernels/wkv/kernel.py:82"),
 }
 
 
@@ -347,6 +365,163 @@ def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
     return recs, fail
 
 
+# ------------------------------------------------------- WKV6 kernel checks
+# Tolerances.  The kernel and the plain chunked version do the same f32
+# arithmetic in other orders, and compute the chunk's cumulative log-decays
+# lin with different scans (a loop per column vs torch.cumsum).  An error is
+# scaled by the output's magnitude, max(1, max |out|), and allowed
+#   WKV_TOL + |lin|max * 2^-18
+# where |lin|max is the largest cumulative log-decay inside a chunk: exp of
+# a difference of two such sums carries their f32 ulp (|lin| * 2^-24) as a
+# relative error, and 2^-18 leaves 64 of those for the sums over tau and i.
+# WKV_TOL = 1e-4 is ~800 f32 ulps, for sums of up to c + K = 128 products in
+# another order.  o in bf16 adds one bf16 rounding (2^-8) of the output: the
+# two sides round f32 values that differ in the last bits.  Against the step
+# oracle in float64 (same inputs, upcast) the chunked f32 evaluation is
+# allowed WKV_TOL_F64 = 1e-3 (the reference's own atol for its kernel) plus
+# the same decay term and bf16 rounding.
+WKV_TOL = 1e-4
+WKV_TOL_F64 = 1e-3
+
+
+def wkv_work(BH, T, K, in_bytes, chunk):
+    """(bytes, flops) of one WKV call: each input read once (r, k, v in
+    their dtype, lw f32, u, s0), each output written once (o, sT); the
+    operations the chunked evaluation needs for these shapes (only the
+    tau < t exponents, an exp counted as one operation)."""
+    c = min(chunk, T)
+    nc = T // c
+    nbytes = (3 * in_bytes + 4) * BH * T * K + 4 * BH * K \
+        + 4 * 2 * BH * K * K + in_bytes * BH * T * K
+    pairs = c * (c - 1) // 2
+    per_chunk = (c * K                        # cumsum
+                 + pairs * K * 5              # sub, exp, 2 mul, add
+                 + c * K * 3                  # bonus
+                 + 2 * c * K                  # r exp(lprev), k exp(..)
+                 + 2 * (pairs + c) * K        # w_ts v over tau <= t
+                 + 2 * c * K * K              # (r exp(lprev)) S
+                 + K * K * (2 + 2 * c))       # S update
+    return nbytes, BH * nc * per_chunk
+
+
+def _lin_max(lw, chunk):
+    BH, T, K = lw.shape
+    c = min(chunk, T)
+    return float(lw.reshape(BH, T // c, c, K).sum(2).abs().max())
+
+
+def _scaled(a, b):
+    """max |a - b| / max(1, max |b|), in float64."""
+    a, b = a.double(), b.double()
+    return float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+
+
+def wkv_inputs(dev, g, BH, T, K, dtype, *, per_row_u, decay):
+    """r, k, v ~ N(0, 1) in ``dtype``; lw f32 from ``decay``: "strong" is
+    -exp(U(-8, 4)) (tests/test_models.py's extreme decays), "init" is
+    -exp(-1 + N(0, 0.5^2)) around the model's init (w0 = -1); u and s0
+    non-zero N(0, 1), u as (K,) or per row (BH, K)."""
+    r, k, v = (torch.randn(BH, T, K, generator=g).to(dev, dtype)
+               for _ in range(3))
+    if decay == "strong":
+        lw = -torch.exp(torch.rand(BH, T, K, generator=g) * 12 - 8)
+    else:
+        lw = -torch.exp(torch.randn(BH, T, K, generator=g) * 0.5 - 1)
+    u = torch.randn((BH, K) if per_row_u else (K,), generator=g)
+    s0 = torch.randn(BH, K, K, generator=g)
+    return r, k, v, lw.to(dev), u.to(dev), s0.to(dev)
+
+
+def check_wkv(dev, name, args, chunk, fail, *, ref64=True):
+    from repro_torch.kernels.wkv.kernel import (wkv_forward_cuda,
+                                                wkv_forward_plain)
+    from repro_torch.kernels.wkv.ref import wkv_ref
+    r = args[0]
+    ok, sk = wkv_forward_cuda(*args, chunk=chunk)
+    op, sp = wkv_forward_plain(*args, chunk=chunk)
+    sync(dev)
+    cond = _lin_max(args[3], chunk) * 2.0 ** -18
+    rnd = 2.0 ** -8 if r.dtype == torch.bfloat16 else 0.0
+    tol_o, tol_s = WKV_TOL + cond + rnd, WKV_TOL + cond
+    rec = dict(kernel="wkv_forward", case=name,
+               dtype=str(r.dtype).replace("torch.", ""),
+               shape=list(r.shape), chunk=min(chunk, r.shape[1]),
+               u_layout="BHxK" if args[4].dim() == 2 else "K",
+               lin_max=_lin_max(args[3], chunk),
+               max_abs_err=float((ok.float() - op.float()).abs().max()),
+               o_err=_scaled(ok, op), s_err=_scaled(sk, sp),
+               tol_o=tol_o, tol_s=tol_s,
+               finite=bool(torch.isfinite(ok.float()).all()
+                           and torch.isfinite(sk).all()))
+    bad = not (rec["finite"] and rec["o_err"] <= tol_o
+               and rec["s_err"] <= tol_s)
+    if ref64:
+        o64, s64 = wkv_ref(*(a.double() for a in args))
+        rec.update(o_err_f64=_scaled(ok, o64), s_err_f64=_scaled(sk, s64),
+                   tol_f64_o=WKV_TOL_F64 + cond + rnd,
+                   tol_f64_s=WKV_TOL_F64 + cond)
+        bad = bad or not (rec["o_err_f64"] <= rec["tol_f64_o"]
+                          and rec["s_err_f64"] <= rec["tol_f64_s"])
+    rec["max_rel_err"] = max(rec["o_err"], rec["s_err"])
+    if bad:
+        fail.append(rec)
+    return rec
+
+
+def wkv_grad_check(dev, fail):
+    """``wkv_forward`` (kernel forward, oracle recompute backward) against
+    autograd through the plain oracle, every input, at a small shape;
+    rtol/atol 1e-3 as the reference's custom-VJP test."""
+    from repro_torch.kernels.wkv.ops import wkv_forward
+    from repro_torch.kernels.wkv.ref import wkv_ref
+    g = torch.Generator(device="cpu").manual_seed(5)
+    args = wkv_inputs(dev, g, 8, 64, 64, torch.float32, per_row_u=False,
+                      decay="init")
+    grads = []
+    for fn in (lambda *a: wkv_forward(*a, 16), wkv_ref):
+        leaves = [a.clone().requires_grad_(True) for a in args]
+        o, sT = fn(*leaves)
+        ((o.float() ** 2).sum() + (sT * 0.5).sum()).backward()
+        grads.append([a.grad for a in leaves])
+    sync(dev)
+    errs = [float(((a - b).abs() - 1e-3 * b.abs()).max())
+            for a, b in zip(*grads)]
+    rec = dict(kernel="wkv_forward_grad", case="grad_vs_oracle_autograd",
+               dtype="float32", shape=[8, 64, 64], chunk=16,
+               max_abs_err=max(float((a - b).abs().max())
+                               for a, b in zip(*grads)),
+               max_rel_err=0.0, grad_excess_over_rtol=max(errs), tol=1e-3)
+    if not max(errs) <= 1e-3:
+        fail.append(rec)
+    return rec
+
+
+def wkv_checks(dev):
+    """The WKV kernel against its plain version and the f64 oracle."""
+    g = torch.Generator(device="cpu").manual_seed(2)
+    BH, T, K, c = (WKV_MAIN[n] for n in ("BH", "T", "K", "chunk"))
+    bf16, f32 = torch.bfloat16, torch.float32
+    # (name, BH, T, K, chunk, dtype, per-row u, decay, f64 oracle)
+    cases = [
+        ("main_bf16_strong", BH, T, K, c, bf16, True, "strong", True),
+        ("main_f32_init", BH, T, K, c, f32, False, "init", True),
+        ("main_bf16_init", BH, T, K, c, bf16, True, "init", False),
+        ("chunk64_bf16_strong", BH, T, K, 64, bf16, True, "strong", True),
+        ("c_eq_T_7", BH, 7, K, c, f32, True, "strong", True),
+        ("one_chunk", BH, c, K, c, bf16, False, "strong", True),
+        ("B1_bf16", BH // 4, T, K, c, bf16, True, "init", True),
+        ("K32_c24_ragged", 96, 96, 32, 24, f32, True, "strong", True),
+        ("K16_c5", 64, 40, 16, 5, bf16, False, "strong", True),
+    ]
+    recs, fail = [], []
+    for name, bh, t, k, ch, dt, per_row, decay, ref64 in cases:
+        args = wkv_inputs(dev, g, bh, t, k, dt, per_row_u=per_row,
+                          decay=decay)
+        recs.append(check_wkv(dev, name, args, ch, fail, ref64=ref64))
+    recs.append(wkv_grad_check(dev, fail))
+    return recs, fail
+
+
 # --------------------------------------------------------------- main path
 def run_oneshot(dev, x_dev, truth, *, k, t, sites, second_iters, seed,
                 policy, label):
@@ -454,6 +629,236 @@ def serve(dev, x_np, truth, model, policy):
             "outlier_rate_clean": clean_hits / clean_n}
 
 
+# ----------------------------------------------------- rwkv6 serving path
+# Tolerances.  The kernel route and the plain chunked route differ only in
+# WKV's summation order.  In float32 that leaves ~1e-6 of the output, and
+# the full-width model, run in f32 from the same weights (upcast), must
+# agree between the routes within RWKV_TOL_F32 = 1e-3 of the logits' and
+# state's magnitude (a 1000x margin for the growth of a difference through
+# 32 random layers), and decode against teacher forcing within RWKV_TOL =
+# 2e-2, the tolerance tests/test_models.py holds it to.  In bf16 every
+# activation is rounded, and an ulp of difference in one layer grows through
+# the later ones, so the bf16 routes are held to the f32 run as their
+# yardstick: each route's distance to the f32 result is its bf16 error; the
+# kernel route's may be at most twice the plain route's, and the two routes
+# (and decode vs teacher forcing) may differ by at most twice the larger
+# bf16 error (two evaluations with independent rounding lie up to the sum
+# of their errors apart).  A greedy token may differ only where the two top
+# logits are within the tolerance of each other (a near tie); after it the
+# two sequences have different contexts.
+RWKV_TOL = 2e-2
+RWKV_TOL_F32 = 1e-3
+
+
+def _greedy(serve, model, cache, tok, steps, dev):
+    """``steps`` decode steps from ``tok`` (B, 1); returns (tokens (B,
+    steps), logits per step, per-step seconds, cache)."""
+    toks, logits, lat = [], [], []
+    for _ in range(steps):
+        sync(dev)
+        t0 = time.perf_counter()
+        lg, cache = serve(model, cache, tok)
+        tok = lg.argmax(-1, keepdim=True)
+        sync(dev)
+        lat.append(time.perf_counter() - t0)
+        toks.append(tok)
+        logits.append(lg)
+    return torch.cat(toks, 1), logits, lat, cache
+
+
+def _route(dev, model, cfg, prompts, steps):
+    """Prefill on cfg's WKV route and ``steps`` greedy steps: (prefill
+    logits, prefill cache, tokens (B, steps + 1), logits of each token)."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    lg, cache = make_prefill_step(cfg, device=dev)(model, {"tokens": prompts})
+    tok = lg.argmax(-1, keepdim=True)
+    toks, lgs, _, _ = _greedy(make_serve_step(cfg, device=dev), model, cache,
+                              tok, steps, dev)
+    return lg, cache, torch.cat([tok, toks], 1), [lg] + lgs
+
+
+def _teacher(dev, model, cfg, cache, toks):
+    """(decode of token S after prefill(S), last logits of prefill(S + 1));
+    S + 1 is no chunk multiple, so that prefill takes the padded plain
+    route."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    S = toks.shape[1] - 1
+    step, _ = make_serve_step(cfg, device=dev)(
+        model, cache, torch.as_tensor(toks[:, S:], device=dev))
+    full, _ = make_prefill_step(cfg.replace(wkv_use_pallas=False),
+                                device=dev)(
+        model, {"tokens": torch.as_tensor(toks, device=dev)})
+    return step, full
+
+
+def _token_verdict(ta, tb, logits_a, tol):
+    """(first mismatches, bad): per sequence, the first step where the two
+    greedy runs pick different tokens is allowed only on a near tie of run
+    a's logits there (gap within ``tol`` of their magnitude)."""
+    mism = bad = 0
+    for b in range(ta.shape[0]):
+        diff = (ta[b] != tb[b]).nonzero().flatten()
+        if diff.numel() == 0:
+            continue
+        i = int(diff[0])
+        mism += 1
+        lg = logits_a[i][b].double()
+        gap = abs(float(lg[ta[b, i]] - lg[tb[b, i]]))
+        if gap > tol * max(1.0, float(lg.abs().max())):
+            bad += 1
+    return mism, bad
+
+
+def _route_errs(ka, pa, ref=None):
+    """Scaled differences of logits and cache leaves between two routes'
+    (logits, cache) pairs, and (with ``ref``) of each to the reference."""
+    out = {}
+    for name in ("logits", "s", "ts_t", "ts_c"):
+        pick = (lambda r: r[0]) if name == "logits" else \
+            (lambda r, n=name: r[1][n])
+        out[name] = {"kernel_vs_plain": _scaled(pick(ka), pick(pa))}
+        if ref is not None:
+            out[name].update(kernel_vs_f32=_scaled(pick(ka), pick(ref)),
+                             plain_vs_f32=_scaled(pick(pa), pick(ref)))
+    return out
+
+
+def rwkv_serving(dev, counted):
+    """rwkv6-7b at full width through ``make_prefill_step`` (WKV on the
+    kernel) and ``make_serve_step``; then the plain-WKV route and the
+    teacher-forcing check, in bf16 and, from the same weights upcast, in
+    f32.  Returns the report; raises on a failure."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.wkv.kernel import wkv_forward_cuda
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    from repro_torch.models.transformer import init_cache, init_params
+
+    cfg = get_config(RWKV["arch"], smoke=RWKV["smoke"]).replace(
+        wkv_use_pallas=True)
+    B, S, gen = RWKV["batch"], RWKV["prompt"], RWKV["gen"]
+    sync(dev)
+    t0 = time.perf_counter()
+    model = init_params(cfg, RWKV["seed"], device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = np.random.default_rng(RWKV["seed"]).integers(
+        2, cfg.vocab, size=(B, S + 1))
+    prompts = torch.as_tensor(toks[:, :S], device=dev)
+    prefill = make_prefill_step(cfg, device=dev)
+    serve = make_serve_step(cfg, device=dev)
+    # warm-up (cuBLAS handles, the kernel's library), outside any count
+    prefill(model, {"tokens": prompts[:, :2 * cfg.wkv_chunk]})
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def run_prefill():
+        sync(dev)
+        t0 = time.perf_counter()
+        out = prefill(model, {"tokens": prompts})
+        sync(dev)
+        return out, time.perf_counter() - t0
+
+    (lg, cache0), prefill_s = counted("rwkv6_7b_prefill", ("wkv_forward",),
+                                      run_prefill)
+    n_wkv = wkv_forward_cuda.launches
+    if n_wkv != cfg.n_layers:
+        raise AssertionError(f"prefill launched the WKV kernel {n_wkv} "
+                             f"times, expected one per layer "
+                             f"({cfg.n_layers})")
+    tok0 = lg.argmax(-1, keepdim=True)
+    gen_toks, gen_logits, lat, cache = counted(
+        "rwkv6_7b_decode", (), lambda: _greedy(serve, model, cache0, tok0,
+                                               gen, dev))
+    if wkv_forward_cuda.launches != 0:
+        raise AssertionError("decode launched the WKV kernel; T == 1 takes "
+                             "the plain recurrence")
+    peak_gb = (torch.cuda.max_memory_allocated(dev) / 1e9
+               if dev.type == "cuda" else None)
+    want = init_cache(cfg, B, S + gen, device=dev)
+    for name, z in want.items():
+        for c in (cache0, cache):
+            if c[name].shape != z.shape or c[name].dtype != z.dtype:
+                raise AssertionError(f"cache {name}: {tuple(c[name].shape)} "
+                                     f"{c[name].dtype}, init_cache gives "
+                                     f"{tuple(z.shape)} {z.dtype}")
+    if int(cache0["pos"]) != S or int(cache["pos"]) != S + gen:
+        raise AssertionError("cache position is wrong")
+    finite = all(bool(torch.isfinite(x).all()) for x in [lg, *gen_logits])
+    if not finite or lg.shape != (B, cfg.vocab):
+        raise AssertionError("prefill/decode logits not finite or malformed")
+
+    # the plain chunked WKV route from the same weights, then teacher
+    # forcing, in bf16 ...
+    k_ = RWKV["compare_tokens"]
+    toks_k = torch.cat([tok0, gen_toks[:, :k_ - 1]], 1)
+    lgs_k = [lg] + gen_logits[:k_ - 1]
+    cfg_p = cfg.replace(wkv_use_pallas=False)
+    wkv_forward_cuda.launches = 0
+    lg_p, cache_p, toks_p, _ = _route(dev, model, cfg_p, prompts, k_ - 1)
+    if wkv_forward_cuda.launches:
+        raise AssertionError("wkv_use_pallas=False launched the kernel")
+    tf16 = _teacher(dev, model, cfg, cache0, toks)
+    # ... and in f32 from the same weights upcast (the yardstick of bf16
+    # rounding); the bf16 model is not used after this
+    model.float()
+    cfg32 = cfg.replace(dtype="float32")
+    r32k = _route(dev, model, cfg32, prompts, k_ - 1)
+    r32p = _route(dev, model, cfg32.replace(wkv_use_pallas=False), prompts,
+                  k_ - 1)
+    tf32 = _teacher(dev, model, cfg32, r32k[1], toks)
+
+    f32 = _route_errs(r32k[:2], r32p[:2])
+    f32["teacher_forcing"] = _scaled(*tf32)
+    f32["tokens_first_mismatches"], f32["tokens_bad"] = _token_verdict(
+        r32k[2], r32p[2], r32k[3], RWKV_TOL_F32)
+    bf16 = _route_errs((lg, cache0), (lg_p, cache_p), r32k[:2])
+    yard = max(bf16["logits"]["kernel_vs_f32"],
+               bf16["logits"]["plain_vs_f32"])
+    bf16["teacher_forcing"] = {"decode_vs_prefill": _scaled(*tf16),
+                               "decode_vs_f32": _scaled(tf16[0], tf32[1]),
+                               "prefill_vs_f32": _scaled(tf16[1], tf32[1])}
+    bf16["tokens_first_mismatches"], bf16["tokens_bad"] = _token_verdict(
+        toks_k, toks_p, lgs_k, 2 * yard)
+    lat_ms = np.asarray(lat) * 1e3
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.d_model // cfg.rwkv_head_dim, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab, "dtype": cfg.dtype, "wkv_chunk": cfg.wkv_chunk,
+           "params": n_params, "batch": B, "prompt": S, "gen": gen,
+           "init_s": init_s, "prefill_s": prefill_s,
+           "prefill_tokens_per_s": B * S / prefill_s,
+           "decode_p50_ms": float(np.percentile(lat_ms, 50)),
+           "decode_p99_ms": float(np.percentile(lat_ms, 99)),
+           "decode_tokens_per_s": B * gen / float(np.sum(lat)),
+           "peak_mem_gb": peak_gb, "wkv_launches_prefill": n_wkv,
+           "first_tokens": toks_k[:, :4].tolist(),
+           "tokens_compared": k_, "f32": f32, "bf16": bf16,
+           "tol_f32": RWKV_TOL_F32, "tol_teacher": RWKV_TOL}
+    log("rwkv6_serving", json.dumps(out))
+
+    why = []
+    for name in ("logits", "s", "ts_t", "ts_c"):
+        if not f32[name]["kernel_vs_plain"] <= RWKV_TOL_F32:
+            why.append(f"f32 {name}: kernel vs plain route")
+        e = bf16[name]
+        if not (e["kernel_vs_plain"] <= 2 * max(e["kernel_vs_f32"],
+                                                e["plain_vs_f32"])
+                and e["kernel_vs_f32"] <= 2 * e["plain_vs_f32"]):
+            why.append(f"bf16 {name}: routes apart beyond their bf16 error")
+    if not f32["teacher_forcing"] <= RWKV_TOL:
+        why.append("f32 decode vs teacher forcing")
+    t = bf16["teacher_forcing"]
+    if not t["decode_vs_prefill"] <= 2 * max(t["decode_vs_f32"],
+                                             t["prefill_vs_f32"]):
+        why.append("bf16 decode vs teacher forcing beyond their bf16 error")
+    if f32["tokens_bad"] or bf16["tokens_bad"]:
+        why.append("greedy tokens differ off a near tie")
+    if why:
+        raise AssertionError(f"rwkv6 serving disagrees: {why}")
+    return out
+
+
 # --------------------------------------------------------------- timings
 def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
     """Kernel, plain and yardstick times at the main path's shapes, with
@@ -533,6 +938,30 @@ def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
     return rows
 
 
+def wkv_timings(dev):
+    """The WKV kernel at the rwkv6 prefill's call shape (bf16 r/k/v, f32 lw,
+    per-row u, as the model hands them) beside its plain version and its
+    bound.  No single PyTorch call computes a chunked WKV, so there is no
+    library time."""
+    from repro_torch.kernels.wkv.kernel import (wkv_forward_cuda,
+                                                wkv_forward_plain)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    BH, T, K, c = (WKV_MAIN[n] for n in ("BH", "T", "K", "chunk"))
+    args = wkv_inputs(dev, g, BH, T, K, torch.bfloat16, per_row_u=True,
+                      decay="init")
+    ms = time_ms(lambda: wkv_forward_cuda(*args, chunk=c), 20)
+    plain = time_ms(lambda: wkv_forward_plain(*args, chunk=c), 2)
+    work = wkv_work(BH, T, K, 2, c)
+    b, by = bound_ms(*work)
+    log(f"timing wkv_forward rwkv6_prefill [{BH}, {T}, {K}] c={c}: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, library n/a, bound {b:.4f} ms "
+        f"({by})")
+    return [dict(kernel="wkv_forward", shape_name="rwkv6_prefill_bf16",
+                 shape=[BH, T, K, c], ms=ms, plain_ms=plain, library_ms=None,
+                 library_note="no single PyTorch call computes a chunked WKV",
+                 bound_ms=b, bound_by=by, bytes=work[0], flops=work[1])]
+
+
 # ------------------------------------------------------------------- main
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -571,6 +1000,7 @@ def run(dev: torch.device, card: str) -> dict:
     from repro_torch.kernels.lloyd.kernel import lloyd_step_cuda
     from repro_torch.kernels.pdist.kernel import min_argmin_cuda
     from repro_torch.kernels.score.kernel import score_cuda
+    from repro_torch.kernels.wkv.kernel import wkv_forward_cuda
 
     t_start = time.perf_counter()
     log(f"card: {card}")
@@ -580,7 +1010,8 @@ def run(dev: torch.device, card: str) -> dict:
     t0 = time.perf_counter()
     _build.build_all()
     build_s = time.perf_counter() - t0
-    log(f"build_s {build_s:.2f} (nvcc, sm_90a, 3 sources in parallel)")
+    log(f"build_s {build_s:.2f} (nvcc, sm_90a, {len(_build.SOURCES)} "
+        f"sources in parallel)")
 
     t0 = time.perf_counter()
     kdd_np, kdd_truth = kdd_like(n=KDD["n"], d=KDD["d"], seed=KDD["seed"])
@@ -600,6 +1031,11 @@ def run(dev: torch.device, card: str) -> dict:
     # ---- 2. kernels against their plain versions
     t0 = time.perf_counter()
     checks, failed = kernel_checks(dev, kdd_x, gauss_x, ks, gs)
+    wkv_recs, wkv_failed = wkv_checks(dev)
+    checks += wkv_recs
+    failed += wkv_failed
+    for r in wkv_recs:
+        log("wkv_check", json.dumps(r))
     log(f"kernel_checks_s {time.perf_counter() - t0:.2f}: {len(checks)} "
         f"checks, {len(failed)} failed")
     for r in failed:
@@ -609,7 +1045,8 @@ def run(dev: torch.device, card: str) -> dict:
 
     # ---- 3. the main path: each run driven with every counter at 0 just
     # before it and read just after it
-    kernels = (min_argmin_cuda, lloyd_step_cuda, score_cuda)
+    kernels = (min_argmin_cuda, lloyd_step_cuda, score_cuda,
+               wkv_forward_cuda)
     per_run = {}
 
     def counted(label, needs, fn):
@@ -646,9 +1083,6 @@ def run(dev: torch.device, card: str) -> dict:
         sites=GAUSS["sites"], second_iters=GAUSS["second_iters"],
         seed=GAUSS["seed"], policy=auto, label="gauss_0.1"))
     log("main_path", json.dumps(g_out))
-    launches = {k.name: sum(r[k.name] for r in per_run.values())
-                for k in kernels}
-    log("main_path_launches", json.dumps(launches))
     for out in (kdd_out, g_out):
         if not (np.isfinite([out["l1_loss"], out["l2_loss"]]).all()
                 and out["recall"] > 0.5 and out["preRec"] > 0.5):
@@ -703,8 +1137,16 @@ def run(dev: torch.device, card: str) -> dict:
             and kb["cost_rel_diff"] <= 0.05):
         raise AssertionError(f"kernel path and blocked path disagree: {cmp}")
 
+    # ---- 3b and 4b. rwkv6-7b serving (prefill + decode), then its
+    # plain-WKV twin and the teacher-forcing check
+    rwkv_out = rwkv_serving(dev, counted)
+    launches = {k.name: sum(r[k.name] for r in per_run.values())
+                for k in kernels}
+    log("main_path_launches", json.dumps(launches))
+
     # ---- 5. timings at the main path's shapes
     timings = kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs)
+    timings += wkv_timings(dev)
 
     entries = []
     for name, (src, replaces) in KERNELS.items():
@@ -722,10 +1164,12 @@ def run(dev: torch.device, card: str) -> dict:
             "library_ms": main_row["library_ms"],
             "timed_shape": main_row["shape_name"],
             "checks": len(mine),
-            "argmin_mismatches": sum(r["argmin_mismatch"] for r in mine),
+            "argmin_mismatches": sum(r.get("argmin_mismatch", 0)
+                                     for r in mine),
         })
     report = {"card": card, "build_s": build_s, "checks": checks,
               "main_path": [kdd_out, g_out], "serve": serve_out,
+              "rwkv6_serving": rwkv_out,
               "kernel_vs_blocked": cmp, "timings": timings,
               "launches": launches, "launches_per_run": per_run,
               "kernels": entries,

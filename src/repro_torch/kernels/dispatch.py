@@ -16,6 +16,10 @@ platform-dependent auto-selection priority:
 The platform is the tensor's device type (``"cuda"`` / ``"cpu"``), so one
 policy serves both.  The reference's block-size autotuner is not ported
 yet: ``KernelPolicy(autotune=True)`` raises ``NotImplementedError``.
+
+The fourth kernel, the chunked WKV6 forward (``kernels/wkv``), is not an op
+of this registry, as in the reference: the RWKV6 block routes to it by
+``cfg.wkv_use_pallas`` (``models/rwkv6.py``).
 """
 from __future__ import annotations
 

@@ -1,0 +1,124 @@
+"""Wrapper of the CUDA chunked WKV6 forward kernel (``csrc/wkv.cu``), and
+its plain torch version.
+
+Counterpart of ``repro.kernels.wkv.kernel.wkv_forward_pallas``.  Per
+(batch * head) row it sweeps the chunks of c = min(chunk, T) tokens in
+order, carrying the state S (K, V) in f32:
+
+    lin   = cumsum(lw)            lprev = lin - lw
+    w_ts  = sum_i r[t,i] exp(lprev[t,i] - lin[tau,i]) k[tau,i]   (tau < t)
+    o     = w_ts v + (sum_i r u k) v + (r exp(lprev)) S
+    S     = exp(lin[-1]) S + (k exp(lin[-1] - lin))^T v
+
+On a CUDA tensor ``wkv_forward_cuda`` launches the kernel on the current
+stream (or raises); on a CPU tensor it runs :func:`wkv_forward_plain`,
+since there is no kernel to launch.  ``wkv_forward_cuda.launches`` counts
+kernel launches.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _build
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (16, 32, 64)       # K (= V) the kernel is instantiated for
+MAX_CHUNK = 64                 # c the kernel's shared-memory tiles hold
+
+
+def _check_shapes(r, k, v, lw, u, s0, chunk: int) -> int:
+    """Raise unless the operands are a WKV problem; returns c."""
+    if r.dim() != 3 or any(a.shape != r.shape for a in (k, v, lw)):
+        raise ValueError(f"wkv_forward: r, k, v, lw must share one "
+                         f"(BH, T, K) shape, got {[tuple(a.shape) for a in (r, k, v, lw)]}")
+    BH, T, K = r.shape
+    if s0.dim() != 3 or s0.shape[:2] != (BH, K):
+        raise ValueError(f"wkv_forward: s0 must be (BH, K, V) = ({BH}, {K}, "
+                         f"V), got {tuple(s0.shape)}")
+    if s0.shape[2] != K:
+        # the reference allocates o as (BH, T, K) (kernel.py:114), so it
+        # serves V == K only
+        raise ValueError(f"wkv_forward: V = {s0.shape[2]} != K = {K}; the "
+                         f"output is (BH, T, K), as the reference's, so V "
+                         f"must equal K")
+    if tuple(u.shape) not in ((K,), (BH, K)):
+        raise ValueError(f"wkv_forward: u must be (K,) or (BH, K), got "
+                         f"{tuple(u.shape)}")
+    if chunk < 1 or T < 1:
+        raise ValueError(f"wkv_forward: need chunk >= 1 and T >= 1, got "
+                         f"chunk={chunk}, T={T}")
+    c = min(chunk, T)
+    if T % c:
+        # as the reference's Pallas route (kernel.py:91): the caller pads
+        raise ValueError(f"wkv_forward: T = {T} is not a multiple of the "
+                         f"chunk c = {c}; pad T to a chunk multiple")
+    return c
+
+
+def wkv_forward_plain(r, k, v, lw, u, s0, *, chunk: int = 16):
+    """The chunked evaluation in plain torch, in the same math as the
+    reference's Pallas body (f32 inside); returns (o in r's dtype, sT f32)."""
+    c = _check_shapes(r, k, v, lw, u, s0, chunk)
+    BH, T, K = r.shape
+    u2 = (u.reshape(1, K) if u.dim() == 1 else u).float()      # (1|BH, K)
+    s = s0.float()
+    # tau < t; exp of the masked-out entries may be inf, and where() drops
+    # it (never multiply by a mask: inf * 0 is NaN)
+    mask = torch.ones((c, c), dtype=torch.bool, device=r.device).tril(-1)
+    outs = []
+    for j in range(T // c):
+        sl = slice(j * c, (j + 1) * c)
+        rr, kk, vv, ll = (a[:, sl].float() for a in (r, k, v, lw))
+        lin = torch.cumsum(ll, dim=1)
+        lprev = lin - ll
+        a = torch.exp(lprev[:, :, None, :] - lin[:, None, :, :])  # (BH,c,c,K)
+        a = torch.where(mask[None, :, :, None], a, 0.0)
+        w_ts = torch.einsum("bti,btsi,bsi->bts", rr, a, kk)
+        o = w_ts @ vv
+        o = o + (rr * u2[:, None, :] * kk).sum(-1, keepdim=True) * vv
+        o = o + (rr * torch.exp(lprev)) @ s
+        last = lin[:, -1:, :]                                     # (BH, 1, K)
+        s = s * torch.exp(last).transpose(1, 2) + \
+            (kk * torch.exp(last - lin)).transpose(1, 2) @ vv
+        outs.append(o)
+    return torch.cat(outs, dim=1).to(r.dtype), s
+
+
+def _launch(kern, r, k, v, lw, u, s0, *, chunk: int = 16):
+    if r.device.type == "cpu":
+        return wkv_forward_plain(r, k, v, lw, u, s0, chunk=chunk)
+    c = _check_shapes(r, k, v, lw, u, s0, chunk)
+    BH, T, K = r.shape
+    if any(a.device != r.device for a in (k, v, lw, u, s0)) or \
+            r.device.type != "cuda":
+        raise ValueError(f"wkv_forward_cuda: every operand must lie on one "
+                         f"CUDA device, got r on {r.device}")
+    if r.dtype not in DTYPE_CODES or k.dtype != r.dtype or v.dtype != r.dtype:
+        raise TypeError(f"wkv_forward_cuda: r, k, v must share a dtype in "
+                        f"(float32, bfloat16), got {r.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if any(a.dtype != torch.float32 for a in (lw, u, s0)):
+        raise TypeError(f"wkv_forward_cuda: lw, u and s0 must be float32, "
+                        f"got {lw.dtype}, {u.dtype}, {s0.dtype}")
+    if K not in HEAD_DIMS:
+        raise ValueError(f"wkv_forward_cuda: K = {K}; the kernel is built "
+                         f"for K in {HEAD_DIMS}")
+    if c > MAX_CHUNK:
+        raise ValueError(f"wkv_forward_cuda: chunk c = {c} > {MAX_CHUNK}")
+    if r.numel() > 2**31 - 1:
+        raise ValueError("wkv_forward_cuda: more than 2**31 - 1 elements")
+    # the model hands transposed views; the kernel reads rows contiguously
+    r, k, v, lw, u, s0 = (a.contiguous() for a in (r, k, v, lw, u, s0))
+    o = torch.empty((BH, T, K), dtype=r.dtype, device=r.device)
+    sT = torch.empty((BH, K, K), dtype=torch.float32, device=r.device)
+    fn = _build.bind("wkv", "rt_wkv_forward", 8, 6)
+    err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
+             u.data_ptr(), s0.data_ptr(), o.data_ptr(), sT.data_ptr(),
+             BH, T, K, c, int(u.dim() == 2), DTYPE_CODES[r.dtype],
+             _build.stream_ptr(r))
+    kern.launches += 1
+    _build.check(err, "wkv_forward_cuda")
+    return o, sT
+
+
+wkv_forward_cuda = _build.CudaKernel("wkv_forward", _launch)
