@@ -10,10 +10,15 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
 2. holds every kernel, for every metric and input type it serves, against
    its plain torch version on the card: the main path's shapes plus edge
    cases (ragged n and m, d = 130, k = 2048, duplicate centers, 1e30 rows,
-   bf16); the WKV6 kernel also against the step oracle in float64, at the
-   rwkv6 prefill's shape and at edge cases (c = 64, c = T = 7, one chunk,
-   B = 1, strong decays, non-zero u in both layouts and s0), plus one
-   gradient check of its autograd Function;
+   bf16); min_argmin's large-m (tiled) route also on both sides of its
+   threshold, with m off its tile, ties across tiles and threads, 1e30 rows,
+   bf16 and l1, each bit for bit against the rowscan route and the fused
+   score kernel, and at the kdd reassignment shape and gauss's site calls;
+   the WKV6 kernel also against the step oracle in float64, at the rwkv6
+   prefill's shape and at edge cases (c = 64, c = T = 7, one chunk, B = 1,
+   BH = 1 and 3, strong decays, non-zero u in both layouts and s0), its
+   first pass against that pass's plain version, plus one gradient check
+   of its autograd Function;
 3. drives the main paths through the user's entry points, each with every
    launch counter at 0 just before it and read just after: one-shot
    Algorithm 3 (``_run_oneshot``) on the kddFull-like data at the paper's
@@ -31,8 +36,11 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    on the plain chunked WKV and compares logits, state and decoded tokens,
    and checks prefill(S) + decode(token S) against prefill(S + 1);
 5. times each kernel at the main path's shapes beside its plain version,
-   a PyTorch yardstick and its roofline bound, and the rwkv6 prefill's
-   tokens/s and decode step latency.
+   a PyTorch yardstick and its roofline bound (min_argmin's calls of both
+   fits on both of its routes; WKV also its first pass alone, and at
+   B = 1), both min_argmin routes over a ladder of m at d = 5, 16, 34 and
+   64 (the routing threshold), and the rwkv6 prefill's tokens/s and decode
+   step latency.
 
 It prints the card (``nvidia-smi``), one ``{"kernels": [...]}`` line and, as
 its last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises:
@@ -286,6 +294,98 @@ def path_shapes(n, k, t, sites):
                 n_rec=sites * (center_cap + 8 * t_i + 1))
 
 
+def route_bitwise(dev, name, x, c, metric, fail):
+    """min_argmin's two CUDA routes on the same inputs: distances and
+    indices must be equal bit for bit (pdist.cu: same per-pair arithmetic,
+    same tie rule)."""
+    from repro_torch.kernels.pdist.kernel import _launch_route
+    dt_, it_ = _launch_route("tiled", x, c, metric=metric)
+    dr, ir = _launch_route("rowscan", x, c, metric=metric)
+    sync(dev)
+    same = bool(torch.equal(dt_, dr) and torch.equal(it_, ir))
+    fin = torch.isfinite(dr)
+    rec = _rec("min_argmin", f"{name}_tiled_vs_rowscan", metric, x, c,
+               max_abs_err=float(torch.where(fin, (dt_ - dr).abs(),
+                                             0.0).max()),
+               max_rel_err=0.0, routes_bitwise_equal=same,
+               index_mismatches=int((it_ != ir).sum()))
+    if not same:
+        fail.append(rec)
+    return rec
+
+
+def large_m_checks(dev, rnd, site, c_re, fail):
+    """The large-m (tiled) route of min_argmin: both sides of the routing
+    threshold, m not a multiple of the 64-center tile, ties spread across
+    column tiles and threads, 1e30 rows inside the route, bf16 and l1, each
+    against the plain version, against the rowscan route bit for bit, and
+    against the fused score kernel (which keeps RowScan) bit for bit; then
+    the fused-vs-composed check at the kdd reassignment shape."""
+    from repro_torch.kernels.pdist.kernel import (min_argmin_cuda, route,
+                                                  tiled_min_m)
+    recs = []
+    d = KDD["d"]
+    thr = torch.tensor(0.7, device=dev)
+    least = tiled_min_m(d)
+    cases = (("below_threshold", 3001, least - 1, d),
+             ("at_threshold", 3001, least, d),
+             ("m1000_ragged_tile", 5000, 1000, d),
+             ("m4096", 5000, 4096, d),
+             ("m300_d5", 4099, 300, 5),
+             ("m777_d64", 2000, 777, 64))
+    for name, n, m, dd in cases:
+        want = "tiled" if m >= tiled_min_m(dd) else "rowscan"
+        if route(n, m, dd) != want:
+            fail.append(dict(kernel="min_argmin", case=name,
+                             why=f"route {route(n, m, dd)} != {want}"))
+        for metric in ("l2sq", "l2", "l1"):
+            for dt in (torch.float32, torch.bfloat16):
+                x, c = rnd(n, dd).to(dt), rnd(m, dd).to(dt)
+                recs.append(check_pdist(dev, name, x, c, metric, fail))
+                recs.append(check_score(dev, name, x, c, thr, metric, fail))
+                recs.append(route_bitwise(dev, name, x, c, metric, fail))
+    # ties across tiles and threads: row 5's two exact copies sit at
+    # j = 17 and j = 4095 of 4096 centers (answer 17); an all-equal set of
+    # 4096 (answer 0 for every row)
+    for metric in ("l2sq", "l2", "l1"):
+        for dt in (torch.float32, torch.bfloat16):
+            x = rnd(257, d).to(dt)
+            c = (rnd(4096, d) * 10).to(dt)
+            c[17] = x[5]
+            c[4095] = x[5]
+            rec = check_pdist(dev, "tie_j17_j4095", x, c, metric, fail)
+            _, a = min_argmin_cuda(x, c, metric=metric)
+            if int(a[5]) != 17:
+                fail.append(dict(rec, why=f"tie picked {int(a[5])}, not 17"))
+            recs.append(rec)
+            recs.append(route_bitwise(dev, "tie_j17_j4095", x, c, metric,
+                                      fail))
+            ones = torch.ones((4096, d), device=dev, dtype=dt)
+            rec = check_pdist(dev, "all_equal_4096", x, ones, metric, fail)
+            _, a = min_argmin_cuda(x, ones, metric=metric)
+            if not bool((a == 0).all()):
+                fail.append(dict(rec, why="all-equal set did not pick 0"))
+            recs.append(rec)
+    # Alg. 2's invalid slots inside the large-m route
+    for metric in ("l2sq", "l2"):
+        x = rnd(3000, d)
+        c = torch.cat([rnd(600, d), torch.full((100, d), 1e30, device=dev)])
+        c = c[torch.randperm(700).to(dev)].contiguous()
+        rec = check_pdist(dev, "m700_far_rows", x, c, metric, fail)
+        _, a = min_argmin_cuda(x, c, metric=metric)
+        if not bool((c[a.long(), 0] < 1e29).all()):
+            fail.append(dict(rec, why="a 1e30 row won"))
+        recs.append(rec)
+        recs.append(route_bitwise(dev, "m700_far_rows", x, c, metric, fail))
+    # the fused score (RowScan) against the tiled route at the reassignment
+    # shape, bit for bit
+    recs.append(check_score(dev, "kdd_alg2_reassign", site, c_re,
+                            torch.tensor(3.5, device=dev), "l2sq", fail))
+    recs.append(route_bitwise(dev, "kdd_alg2_reassign", site, c_re, "l2sq",
+                              fail))
+    return recs
+
+
 def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
     """Every kernel x metric x dtype against its plain version on the card
     (tolerances: see TOL)."""
@@ -315,6 +415,9 @@ def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
     ]
     for name, x, c, metric in cases:
         recs.append(check_pdist(dev, name, x, c, metric, fail))
+    # gauss-0.1's site calls (d = 5) on both routes, bit for bit
+    for name, x, c, metric in cases[3:]:
+        recs.append(route_bitwise(dev, name, x, c, metric, fail))
     # edge cases x every metric x dtype
     dup = torch.ones((133, 4), device=dev)
     for metric in ("l2sq", "l2", "l1"):
@@ -339,6 +442,7 @@ def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
             x = rnd(2000, 34)
             c = torch.cat([rnd(5, 34), torch.full((7, 34), 1e30, device=dev)])
             recs.append(check_pdist(dev, "far_rows", x, c, metric, fail))
+    recs += large_m_checks(dev, rnd, site, c_re, fail)
     # serving shape: a micro-batch against kdd's and gauss's centers
     thr = torch.tensor(3.5, device=dev)
     recs.append(check_score(dev, "serve_kdd", kdd_x[:MICRO_BATCH],
@@ -512,6 +616,10 @@ def wkv_checks(dev):
         ("B1_bf16", BH // 4, T, K, c, bf16, True, "init", True),
         ("K32_c24_ragged", 96, 96, 32, 24, f32, True, "strong", True),
         ("K16_c5", 64, 40, 16, 5, bf16, False, "strong", True),
+        # grids that do not fill a tile of rows or the card
+        ("BH1_bf16_strong", 1, T, K, c, bf16, True, "strong", True),
+        ("BH3_f32", 3, 512, K, c, f32, False, "init", True),
+        ("BH3_K32_c16_strong", 3, 256, 32, c, bf16, True, "strong", True),
     ]
     recs, fail = [], []
     for name, bh, t, k, ch, dt, per_row, decay, ref64 in cases:
@@ -519,7 +627,38 @@ def wkv_checks(dev):
                           decay=decay)
         recs.append(check_wkv(dev, name, args, ch, fail, ref64=ref64))
     recs.append(wkv_grad_check(dev, fail))
+    for name, bh, t, k, ch, dt, per_row, decay in (
+            ("first_pass_main", 16, T, K, c, bf16, True, "init"),
+            ("first_pass_strong", 16, 512, K, c, f32, False, "strong"),
+            ("first_pass_K32_c24", 8, 96, 32, 24, f32, True, "strong")):
+        args = wkv_inputs(dev, g, bh, t, k, dt, per_row_u=per_row,
+                          decay=decay)
+        recs.append(check_wkv_first_pass(dev, name, args, ch, fail))
     return recs, fail
+
+
+def check_wkv_first_pass(dev, name, args, chunk, fail):
+    """The kernel's first pass (w = w_ts + bonus of every chunk) against
+    its plain version, with check_wkv's tolerance for o (w is a sum of the
+    same exp-weighted products, evaluated as products of exp(lw) there and
+    as exp of differences of cumulative sums here)."""
+    from repro_torch.kernels.wkv.kernel import (wkv_chunk_w_cuda,
+                                                wkv_chunk_w_plain)
+    r, k, v, lw, u, s0 = args
+    wk = wkv_chunk_w_cuda(r, k, lw, u, chunk=chunk)
+    wp = wkv_chunk_w_plain(r, k, lw, u, chunk=chunk)
+    sync(dev)
+    tol = WKV_TOL + _lin_max(lw, chunk) * 2.0 ** -18
+    err = _scaled(wk, wp)
+    rec = dict(kernel="wkv_forward", case=name,
+               dtype=str(r.dtype).replace("torch.", ""),
+               shape=list(r.shape), chunk=min(chunk, r.shape[1]),
+               max_abs_err=float((wk - wp).abs().max()), w_err=err,
+               max_rel_err=err, tol_w=tol,
+               finite=bool(torch.isfinite(wk).all()))
+    if not (rec["finite"] and err <= tol):
+        fail.append(rec)
+    return rec
 
 
 # --------------------------------------------------------------- main path
@@ -866,7 +1005,8 @@ def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
     from repro_torch.kernels.dispatch import KernelPolicy
     from repro_torch.kernels.lloyd.kernel import lloyd_step_cuda
     from repro_torch.kernels.lloyd.ops import lloyd_step_blocked
-    from repro_torch.kernels.pdist.kernel import min_argmin_cuda
+    from repro_torch.kernels.pdist.kernel import (_launch_route,
+                                                  min_argmin_cuda, route)
     from repro_torch.kernels.pdist.ops import min_argmin_blocked
     from repro_torch.kernels.score.kernel import score_cuda
     from repro_torch.kernels.score.ops import score_blocked
@@ -895,24 +1035,38 @@ def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
             f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms "
             f"({by})")
 
+    def pdist_row(shape_name, x, c, metric, reps, chunk=16_384):
+        """A min_argmin row, with both routes timed beside the routed call
+        (the rowscan route is the one-row-per-thread kernel, PR 11's)."""
+        n, d = x.shape
+        row("min_argmin", shape_name, [n, c.shape[0], d],
+            pdist_work(n, c.shape[0], d, metric),
+            lambda: min_argmin_cuda(x, c, metric=metric),
+            lambda: min_argmin_blocked(x, c, metric=metric),
+            lambda: cdist_min(x, c, chunk), reps)
+        r = rows[-1]
+        r["route"] = route(n, c.shape[0], d, metric)
+        for how in ("rowscan", "tiled"):
+            r[f"{how}_ms"] = time_ms(
+                lambda: _launch_route(how, x, c, metric=metric), reps)
+        log(f"timing min_argmin {shape_name} routed {r['route']}: rowscan "
+            f"{r['rowscan_ms']:.4f} ms, tiled {r['tiled_ms']:.4f} ms")
+
     c = site[pick].contiguous()
-    row("min_argmin", "kdd_alg2_reassign", [n_site, cap, d],
-        pdist_work(n_site, cap, d, "l2sq"),
-        lambda: min_argmin_cuda(site, c), lambda: min_argmin_blocked(site, c),
-        lambda: cdist_min(site, c), 5)
-    cm = site[pick[:m]].contiguous()
-    row("min_argmin", "kdd_alg1_round", [n_site, m, d],
-        pdist_work(n_site, m, d, "l2sq"),
-        lambda: min_argmin_cuda(site, cm),
-        lambda: min_argmin_blocked(site, cm), lambda: cdist_min(site, cm),
-        50)
+    pdist_row("kdd_alg2_reassign", site, c, "l2sq", 5)
+    rows[-1]["blocks_per_sm"] = _blocks_per_sm("pdist", d)
+    pdist_row("kdd_alg1_round", site, site[pick[:m]].contiguous(), "l2sq", 50)
     cen = kdd_model.centers
     k = cen.shape[0]
-    row("min_argmin", "kdd_losses_l2", [kdd_x.shape[0], k, d],
-        pdist_work(kdd_x.shape[0], k, d, "l2"),
-        lambda: min_argmin_cuda(kdd_x, cen, metric="l2"),
-        lambda: min_argmin_blocked(kdd_x, cen, metric="l2"),
-        lambda: cdist_min(kdd_x, cen, 1 << 20), 20)
+    pdist_row("kdd_losses_l2", kdd_x, cen, "l2", 20, 1 << 20)
+    # gauss-0.1's site calls: Alg. 2 reassignment and Alg. 1 round (d = 5)
+    gsite = gauss_x[:gs["n_site"]]
+    gpick = torch.randperm(gsite.shape[0], generator=g)[:gs["center_cap"]]
+    gpick = gpick.to(dev)
+    pdist_row("gauss_alg2_reassign", gsite, gsite[gpick].contiguous(),
+              "l2sq", 20)
+    pdist_row("gauss_alg1_round", gsite, gsite[gpick[:gs["m"]]].contiguous(),
+              "l2sq", 50)
     ids = torch.as_tensor(kdd_res["summary_ids"], device=dev)
     pts = kdd_x[ids].contiguous()
     wts = torch.as_tensor(kdd_res["summary_weights"], device=dev)
@@ -938,12 +1092,54 @@ def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
     return rows
 
 
+def _blocks_per_sm(lib, *args):
+    """Resident CTAs per SM of a new kernel (the occupancy calculator's
+    answer): pdist's tiled route at width d (l2sq, f32), or the WKV chunk
+    sweep at (K, c, dtype code)."""
+    import ctypes
+    from repro_torch.kernels import _build
+    if lib == "pdist":
+        fn = _build.load("pdist").rt_min_argmin_tiled_blocks_per_sm
+        fn.argtypes, call = [ctypes.c_int] * 3, (args[0], 0, 0)
+    else:
+        fn = _build.load("wkv").rt_wkv_blocks_per_sm
+        fn.argtypes, call = [ctypes.c_int] * 3, args
+    fn.restype = ctypes.c_int
+    return fn(*call)
+
+
+def route_ladder(dev, kdd_x, gauss_x, ks, gs):
+    """Both min_argmin routes over a ladder of m, the measurement behind
+    kernel.py's route: at the kdd site's rows (n = 244,922, d = 34), the
+    gauss site's (n = 50,250, d = 5), and normal rows at d = 16 and 64."""
+    from repro_torch.kernels.pdist.kernel import _launch_route
+    g = torch.Generator(device="cpu").manual_seed(4)
+    wide = torch.randn((ks["n_site"], 64), generator=g).to(dev)
+    sites = (("kdd", kdd_x[:ks["n_site"]]), ("gauss", gauss_x[:gs["n_site"]]),
+             ("normal16", wide[:, :16].contiguous()), ("normal64", wide))
+    out = []
+    for label, site in sites:
+        for m in (26, 48, 64, 96, 128, 200, 256, 512, 1024, 1536, 2048,
+                  5001):
+            c = site[torch.randperm(site.shape[0], generator=g)[:m].to(dev)]
+            rec = {"site": label, "n": site.shape[0], "m": m,
+                   "d": site.shape[1]}
+            for how in ("rowscan", "tiled"):
+                rec[f"{how}_ms"] = time_ms(
+                    lambda: _launch_route(how, site, c), 30)
+            out.append(rec)
+            log(f"route_ladder {label} d={rec['d']} m={m}: rowscan "
+                f"{rec['rowscan_ms']:.4f} ms, tiled {rec['tiled_ms']:.4f} ms")
+    return out
+
+
 def wkv_timings(dev):
     """The WKV kernel at the rwkv6 prefill's call shape (bf16 r/k/v, f32 lw,
     per-row u, as the model hands them) beside its plain version and its
     bound.  No single PyTorch call computes a chunked WKV, so there is no
     library time."""
-    from repro_torch.kernels.wkv.kernel import (wkv_forward_cuda,
+    from repro_torch.kernels.wkv.kernel import (wkv_chunk_w_cuda,
+                                                wkv_forward_cuda,
                                                 wkv_forward_plain)
     g = torch.Generator(device="cpu").manual_seed(3)
     BH, T, K, c = (WKV_MAIN[n] for n in ("BH", "T", "K", "chunk"))
@@ -953,13 +1149,24 @@ def wkv_timings(dev):
     plain = time_ms(lambda: wkv_forward_plain(*args, chunk=c), 2)
     work = wkv_work(BH, T, K, 2, c)
     b, by = bound_ms(*work)
+    # the first pass alone; B = 1 (BH = 64)
+    first = time_ms(lambda: wkv_chunk_w_cuda(args[0], args[1], args[3],
+                                             args[4], chunk=c), 10)
+    b1 = [a[:BH // 4].contiguous() for a in args]
+    b1_ms = time_ms(lambda: wkv_forward_cuda(*b1, chunk=c), 20)
+    b1_bound = bound_ms(*wkv_work(BH // 4, T, K, 2, c))[0]
+    occ = _blocks_per_sm("wkv", K, c, 1)
     log(f"timing wkv_forward rwkv6_prefill [{BH}, {T}, {K}] c={c}: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, library n/a, bound {b:.4f} ms "
-        f"({by})")
+        f"{ms:.4f} ms (first pass alone {first:.4f} ms), plain "
+        f"{plain:.4f} ms, library n/a, "
+        f"bound {b:.4f} ms ({by}); B = 1 ({BH // 4} rows) {b1_ms:.4f} ms, "
+        f"bound {b1_bound:.4f} ms; CTAs/SM {occ}")
     return [dict(kernel="wkv_forward", shape_name="rwkv6_prefill_bf16",
                  shape=[BH, T, K, c], ms=ms, plain_ms=plain, library_ms=None,
                  library_note="no single PyTorch call computes a chunked WKV",
-                 bound_ms=b, bound_by=by, bytes=work[0], flops=work[1])]
+                 bound_ms=b, bound_by=by, bytes=work[0], flops=work[1],
+                 first_pass_ms=first,
+                 b1_ms=b1_ms, b1_bound_ms=b1_bound, blocks_per_sm=occ)]
 
 
 # ------------------------------------------------------------------- main
@@ -1147,6 +1354,7 @@ def run(dev: torch.device, card: str) -> dict:
     # ---- 5. timings at the main path's shapes
     timings = kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs)
     timings += wkv_timings(dev)
+    ladder = route_ladder(dev, kdd_x, gauss_x, ks, gs)
 
     entries = []
     for name, (src, replaces) in KERNELS.items():
@@ -1171,6 +1379,7 @@ def run(dev: torch.device, card: str) -> dict:
               "main_path": [kdd_out, g_out], "serve": serve_out,
               "rwkv6_serving": rwkv_out,
               "kernel_vs_blocked": cmp, "timings": timings,
+              "route_ladder": ladder,
               "launches": launches, "launches_per_run": per_run,
               "kernels": entries,
               "total_s": time.perf_counter() - t_start}

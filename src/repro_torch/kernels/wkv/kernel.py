@@ -13,7 +13,15 @@ order, carrying the state S (K, V) in f32:
 On a CUDA tensor ``wkv_forward_cuda`` launches the kernel on the current
 stream (or raises); on a CPU tensor it runs :func:`wkv_forward_plain`,
 since there is no kernel to launch.  ``wkv_forward_cuda.launches`` counts
-kernel launches.
+calls that launch: each launches two kernels, the first pass and the chunk
+sweep.
+
+``w = w_ts + bonus`` depends on neither S nor V, so a first pass computes
+it for every (row, chunk) into scratch (:func:`wkv_chunk_w_plain` is that
+pass in plain torch).  The chunk sweep then runs as (V / 16, BH) CTAs, each
+sweeping the chunks of one row for 16 columns of S and o
+(:func:`wkv_forward_plain` on a V-slice of s0 and v gives that slice of the
+whole).
 """
 from __future__ import annotations
 
@@ -24,6 +32,13 @@ from repro_torch.kernels import _build
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64)       # K (= V) the kernel is instantiated for
 MAX_CHUNK = 64                 # c the kernel's shared-memory tiles hold
+MAX_ROWS = 65535               # BH: the grid's second dimension
+
+
+def _cw(c: int) -> int:
+    """Floats of w per chunk in the first pass's scratch (c * c, padded to
+    a multiple of 4 so that each chunk's block is 16-byte aligned)."""
+    return (c * c + 3) // 4 * 4
 
 
 def _check_shapes(r, k, v, lw, u, s0, chunk: int) -> int:
@@ -84,6 +99,28 @@ def wkv_forward_plain(r, k, v, lw, u, s0, *, chunk: int = 16):
     return torch.cat(outs, dim=1).to(r.dtype), s
 
 
+def wkv_chunk_w_plain(r, k, lw, u, *, chunk: int = 16):
+    """The first pass in plain torch: per (row, chunk) the c x c matrix
+    w[t, tau] = sum_i r[t,i] exp(lprev[t,i] - lin[tau,i]) k[tau,i] for
+    tau < t, sum_i r[t,i] u[i] k[t,i] on the diagonal, 0 above it; returns
+    (BH, T // c, c, c) f32.  The chunk sweep then adds w v to o."""
+    BH, T, K = r.shape
+    c = min(chunk, T)
+    if T % c:
+        raise ValueError(f"wkv_chunk_w_plain: T = {T} is not a multiple of "
+                         f"the chunk c = {c}")
+    rr, kk, ll = (a.float().reshape(BH, T // c, c, K) for a in (r, k, lw))
+    u2 = (u.reshape(1, K) if u.dim() == 1 else u).float()[:, None, None, :]
+    lin = torch.cumsum(ll, dim=2)
+    lprev = lin - ll
+    mask = torch.ones((c, c), dtype=torch.bool, device=r.device).tril(-1)
+    a = torch.exp(lprev[:, :, :, None, :] - lin[:, :, None, :, :])
+    a = torch.where(mask[None, None, :, :, None], a, 0.0)
+    w = torch.einsum("bjti,bjtsi,bjsi->bjts", rr, a, kk)
+    bonus = (rr * u2 * kk).sum(-1)                        # (BH, nc, c)
+    return w + torch.diag_embed(bonus)
+
+
 def _launch(kern, r, k, v, lw, u, s0, *, chunk: int = 16):
     if r.device.type == "cpu":
         return wkv_forward_plain(r, k, v, lw, u, s0, chunk=chunk)
@@ -107,18 +144,52 @@ def _launch(kern, r, k, v, lw, u, s0, *, chunk: int = 16):
         raise ValueError(f"wkv_forward_cuda: chunk c = {c} > {MAX_CHUNK}")
     if r.numel() > 2**31 - 1:
         raise ValueError("wkv_forward_cuda: more than 2**31 - 1 elements")
-    # the model hands transposed views; the kernel reads rows contiguously
-    r, k, v, lw, u, s0 = (a.contiguous() for a in (r, k, v, lw, u, s0))
+    if BH > MAX_ROWS:
+        raise ValueError(f"wkv_forward_cuda: BH = {BH} > {MAX_ROWS} rows")
+    # the model hands transposed views; the kernel reads rows contiguously,
+    # in 16-byte pieces (cp.async), so every base must be 16-byte aligned
+    r, k, v, lw, u, s0 = (a.contiguous() if a.data_ptr() % 16 == 0
+                          else a.clone(memory_format=torch.contiguous_format)
+                          for a in (r, k, v, lw, u, s0))
     o = torch.empty((BH, T, K), dtype=r.dtype, device=r.device)
     sT = torch.empty((BH, K, K), dtype=torch.float32, device=r.device)
-    fn = _build.bind("wkv", "rt_wkv_forward", 8, 6)
+    wbuf = torch.empty((BH * (T // c) * _cw(c),), dtype=torch.float32,
+                       device=r.device)
+    fn = _build.bind("wkv", "rt_wkv_forward", 9, 6)
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), lw.data_ptr(),
-             u.data_ptr(), s0.data_ptr(), o.data_ptr(), sT.data_ptr(),
-             BH, T, K, c, int(u.dim() == 2), DTYPE_CODES[r.dtype],
-             _build.stream_ptr(r))
+             u.data_ptr(), s0.data_ptr(), wbuf.data_ptr(), o.data_ptr(),
+             sT.data_ptr(), BH, T, K, c, int(u.dim() == 2),
+             DTYPE_CODES[r.dtype], _build.stream_ptr(r))
     kern.launches += 1
     _build.check(err, "wkv_forward_cuda")
     return o, sT
 
 
 wkv_forward_cuda = _build.CudaKernel("wkv_forward", _launch)
+
+
+def wkv_chunk_w_cuda(r, k, lw, u, *, chunk: int = 16):
+    """The kernel's first pass alone (w of every (row, chunk), as
+    :func:`wkv_chunk_w_plain` returns it), for checking and timing it on the
+    card; no launch counter, since no entry point calls it.  On a CPU tensor
+    it is the plain version."""
+    if r.device.type == "cpu":
+        return wkv_chunk_w_plain(r, k, lw, u, chunk=chunk)
+    BH, T, K = r.shape
+    c = min(chunk, T)
+    if T % c or K not in HEAD_DIMS or not 1 <= c <= MAX_CHUNK:
+        raise ValueError(f"wkv_chunk_w_cuda: shape {tuple(r.shape)} with "
+                         f"chunk {chunk} is not one the kernel takes")
+    if r.dtype not in DTYPE_CODES or k.dtype != r.dtype or \
+            lw.dtype != torch.float32 or u.dtype != torch.float32:
+        raise TypeError("wkv_chunk_w_cuda: r, k in float32 or bfloat16, "
+                        "lw and u in float32")
+    r, k, lw, u = (a.contiguous() for a in (r, k, lw, u))
+    nc = T // c
+    wbuf = torch.zeros((BH, nc, _cw(c)), dtype=torch.float32, device=r.device)
+    fn = _build.bind("wkv", "rt_wkv_w_pass", 5, 6)
+    err = fn(r.data_ptr(), k.data_ptr(), lw.data_ptr(), u.data_ptr(),
+             wbuf.data_ptr(), BH, T, K, c, int(u.dim() == 2),
+             DTYPE_CODES[r.dtype], _build.stream_ptr(r))
+    _build.check(err, "wkv_chunk_w_cuda")
+    return wbuf[:, :, :c * c].reshape(BH, nc, c, c)

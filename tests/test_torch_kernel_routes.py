@@ -1,0 +1,226 @@
+"""The CPU-visible parts of the redesigned CUDA kernels (``csrc/pdist.cu``'s
+large-m route, ``csrc/wkv.cu``'s V-sliced chunk sweep and first pass),
+against the reference where there is one.
+
+* ``route``: the plain Python choice between min_argmin's two CUDA routes.
+* The tiled route's tie rule: per-thread strict-``<`` scans over the
+  thread's columns, then a lexicographic (dist, idx) minimum over the
+  threads, is the sequential strict-``<`` scan (emulated here in numpy with
+  the kernel's column partition; the kernel itself is held to the rowscan
+  route bit for bit on the card by ``chip_smoke.py``).
+* The WKV grid's decomposition: the columns of S and o along V are
+  independent, so the plain version on each V-slice of s0 and v (the other
+  columns zero) gives that slice of the whole; held against
+  ``wkv_forward_pallas`` in interpret mode, strong decays at c = 64.
+* The first pass: ``wkv_chunk_w_plain`` against the reference kernel's own
+  w_ts + bonus, read off ``wkv_forward_pallas`` with one chunk per row,
+  s0 = 0 and v the identity (then o = w v = w).
+
+Tolerances are ``tests/test_torch_wkv.py``'s: atol 1e-3 against the
+reference (f32 sums in other orders), with rtol 1e-4 where exp of
+cumulative log-decays of up to ~1,000 sets the conditioning.
+"""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.kernels.wkv.kernel import wkv_forward_pallas
+from repro_torch.kernels.pdist.kernel import (TILED_MAX_D, _launch_route,
+                                              min_argmin_cuda, route,
+                                              tiled_min_m)
+from repro_torch.kernels.pdist.ops import min_argmin_blocked
+from repro_torch.kernels.wkv.kernel import (wkv_chunk_w_cuda,
+                                            wkv_chunk_w_plain,
+                                            wkv_forward_cuda,
+                                            wkv_forward_plain)
+
+torch.set_num_threads(1)
+
+
+# ------------------------------------------------------------ pdist route
+@pytest.mark.parametrize("n, m, d, metric, want", [
+    (244_922, 36_537, 34, "l2sq", "tiled"),     # Alg. 2 reassignment
+    (244_922, 26, 34, "l2sq", "rowscan"),       # Alg. 1 round
+    (4_898_431, 3, 34, "l2", "rowscan"),        # losses
+    (256, 3, 34, "l2sq", "rowscan"),            # serving micro-batch
+    (10, 64, 34, "l1", "tiled"),
+    (10, 63, 34, "l2", "rowscan"),
+    (50_000, 5001, 5, "l2sq", "tiled"),         # gauss-0.1 reassignment
+    (50_000, 200, 5, "l2sq", "rowscan"),        # gauss-0.1 Alg. 1 round
+    (10, 256, 16, "l2sq", "tiled"),
+    (10, 255, 33, "l2sq", "rowscan"),
+    (10, 64, 64, "l2sq", "tiled"),
+    (10, 1536, 1, "l2sq", "tiled"),
+    (10, 1535, 15, "l1", "rowscan"),
+    (10, 5000, TILED_MAX_D, "l2sq", "tiled"),
+    (10, 5000, TILED_MAX_D + 1, "l2sq", "rowscan"),
+    (10, 5000, 130, "l1", "rowscan"),
+    (0, 5000, 34, "l2sq", "rowscan"),
+    (10, 5000, 34, "cosine", None),             # no CUDA kernel at all
+])
+def test_pdist_route_picks_tiled_only_above_threshold(n, m, d, metric, want):
+    assert route(n, m, d, metric) == want
+
+
+def test_pdist_tiled_threshold_never_rises_with_d():
+    """More coordinates make a pair cost more on both routes and save more
+    on the tiled one, so its threshold must not rise with d."""
+    least = [tiled_min_m(d) for d in range(1, TILED_MAX_D + 1)]
+    assert all(a >= b for a, b in zip(least, least[1:]))
+    assert tiled_min_m(0) is None and tiled_min_m(TILED_MAX_D + 1) is None
+
+
+def test_force_route_on_cpu_is_the_plain_version():
+    rng = np.random.default_rng(3)
+    x = torch.as_tensor(rng.normal(size=(300, 34)).astype(np.float32))
+    c = torch.as_tensor(rng.normal(size=(700, 34)).astype(np.float32))
+    before = min_argmin_cuda.launches
+    dp, ap = min_argmin_blocked(x, c)
+    for how in ("tiled", "rowscan", None):
+        d, a = _launch_route(how, x, c)
+        assert torch.equal(a, ap) and torch.equal(d, dp)
+    d, a = min_argmin_cuda(x, c)
+    assert torch.equal(a, ap) and torch.equal(d, dp)
+    assert min_argmin_cuda.launches == before
+
+
+def _sequential_scan(dist):
+    """Row-wise strict-< scan in index order: RowScan's rule."""
+    best = np.full(dist.shape[0], np.inf, np.float32)
+    idx = np.zeros(dist.shape[0], np.int64)
+    for j in range(dist.shape[1]):
+        take = dist[:, j] < best
+        best[take], idx[take] = dist[take, j], j
+    return best, idx
+
+
+def _tiled_scan(dist, tile=64, per_thread=4):
+    """The tiled kernel's order: thread tx owns columns tx * 4 .. tx * 4 + 3
+    of every tile of 64, scans them in index order with a strict <, and the
+    16 threads of a row are reduced by the lexicographic (dist, idx)
+    minimum (index sentinel: none found, then 0)."""
+    n, m = dist.shape
+    threads = tile // per_thread
+    sentinel = np.iinfo(np.int64).max
+    bests, idxs = [], []
+    for tx in range(threads):
+        cols = [j for j in range(m) if (j % tile) // per_thread == tx]
+        b = np.full(n, np.inf, np.float32)
+        i = np.full(n, sentinel)
+        for j in cols:
+            take = dist[:, j] < b
+            b[take], i[take] = dist[take, j], j
+        bests.append(b)
+        idxs.append(i)
+    best, idx = bests[0], idxs[0]
+    for b, i in zip(bests[1:], idxs[1:]):
+        take = (b < best) | ((b == best) & (i < idx))
+        best, idx = np.where(take, b, best), np.where(take, i, idx)
+    return best, np.where(idx == sentinel, 0, idx)
+
+
+@pytest.mark.parametrize("case", ["ties", "inf_rows", "nan", "ragged"])
+def test_tiled_reduction_is_the_sequential_scan(case):
+    rng = np.random.default_rng(7)
+    m = 1000 if case == "ragged" else 4096
+    dist = rng.integers(0, 50, size=(64, m)).astype(np.float32)  # many ties
+    if case == "ties":
+        dist[:, [17, 4095]] = -1.0          # the nearest, twice: answer 17
+        dist[3] = 5.0                       # all equal: answer 0
+    if case == "inf_rows":
+        dist[:, ::7] = np.inf               # Alg. 2's invalid slots
+        dist[5] = np.inf                    # nothing finite: index 0
+    if case == "nan":
+        dist[rng.random(dist.shape) < 0.2] = np.nan   # a NaN never wins
+        dist[9] = np.nan
+    want_d, want_i = _sequential_scan(dist)
+    got_d, got_i = _tiled_scan(dist)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_d, want_d)
+    if case == "ties":
+        assert want_i[0] == 17 and want_i[3] == 0
+
+
+# ------------------------------------------------------------------ WKV
+def _inputs(BH, T, K, seed, per_row_u=True, decay=(-6, 3)):
+    rng = np.random.default_rng(seed)
+    r, k, v = (rng.normal(size=(BH, T, K)).astype(np.float32)
+               for _ in range(3))
+    lw = (-np.exp(rng.uniform(*decay, size=(BH, T, K)))).astype(np.float32)
+    u = rng.normal(size=(BH, K) if per_row_u else (K,)).astype(np.float32)
+    s0 = rng.normal(size=(BH, K, K)).astype(np.float32)
+    return r, k, v, lw, u, s0
+
+
+@pytest.mark.parametrize("BH, T, K, c, vb", [
+    (4, 128, 64, 64, 16),      # strong decays at c = 64: |lw| up to e^3
+    (3, 64, 64, 16, 16),       # the serving shape's chunk and slice
+    (2, 48, 32, 24, 16),
+    (5, 40, 16, 5, 8),
+])
+def test_wkv_v_slices_compose_the_whole(BH, T, K, c, vb):
+    arrs = _inputs(BH, T, K, BH + T + c)
+    r, k, v, lw, u, s0 = (torch.from_numpy(a) for a in arrs)
+    ok, sk = wkv_forward_pallas(*(jnp.asarray(a) for a in arrs), chunk=c,
+                                interpret=True)
+    o_whole, s_whole = wkv_forward_plain(r, k, v, lw, u, s0, chunk=c)
+    o_cat, s_cat = [], []
+    for x0 in range(0, K, vb):
+        keep = torch.zeros(K, dtype=torch.bool)
+        keep[x0:x0 + vb] = True
+        o, s = wkv_forward_plain(r, k, v * keep, lw, u, s0 * keep, chunk=c)
+        # the other columns see zero v and zero state: they stay zero
+        assert not o[..., ~keep].any() and not s[..., ~keep].any()
+        o_cat.append(o[..., keep])
+        s_cat.append(s[..., keep])
+    o_cat, s_cat = torch.cat(o_cat, -1), torch.cat(s_cat, -1)
+    torch.testing.assert_close(o_cat, o_whole, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(s_cat, s_whole, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(o_cat.numpy(), np.asarray(ok), atol=1e-3,
+                               rtol=1e-4)
+    np.testing.assert_allclose(s_cat.numpy(), np.asarray(sk), atol=1e-3,
+                               rtol=1e-4)
+
+
+@pytest.mark.parametrize("BH, T, K, c, per_row_u, decay", [
+    (4, 64, 64, 16, True, (-1.5, 0.5)),     # around the model's init
+    (3, 128, 64, 64, False, (-6, 3)),       # strong decays at c = 64
+    (6, 48, 32, 24, True, (-6, 3)),
+    (2, 35, 16, 7, False, (-6, 3)),
+])
+def test_first_pass_matches_reference_kernels_w(BH, T, K, c, per_row_u,
+                                                decay):
+    """The reference kernel's w_ts + bonus, one chunk per row: with s0 = 0
+    and v = [I_c | 0] the Pallas kernel's o is w itself."""
+    r, k, _, lw, u, _ = _inputs(BH, T, K, 2 * T + c, per_row_u, decay)
+    nc = T // c
+    chunks = lambda a: a.reshape(BH * nc, c, K)        # noqa: E731
+    u_rows = np.repeat(u if per_row_u else u[None].repeat(BH, 0), nc, 0)
+    eye = np.zeros((BH * nc, c, K), np.float32)
+    eye[:, np.arange(c), np.arange(c)] = 1.0
+    o, _ = wkv_forward_pallas(jnp.asarray(chunks(r)), jnp.asarray(chunks(k)),
+                              jnp.asarray(eye), jnp.asarray(chunks(lw)),
+                              jnp.asarray(u_rows),
+                              jnp.zeros((BH * nc, K, K), jnp.float32),
+                              chunk=c, block_bh=1, interpret=True)
+    want = np.asarray(o)[:, :, :c].reshape(BH, nc, c, c)
+    args = [torch.from_numpy(a) for a in (r, k, lw, u)]
+    got = wkv_chunk_w_plain(*args, chunk=c)
+    assert got.shape == (BH, nc, c, c)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-3, rtol=1e-4)
+    assert not np.triu(got.numpy(), 1).any()           # nothing above
+    # on a CPU tensor the kernel's entry is the plain version
+    before = wkv_forward_cuda.launches
+    assert torch.equal(wkv_chunk_w_cuda(*args, chunk=c), got)
+    assert wkv_forward_cuda.launches == before
+
+
+@pytest.mark.parametrize("per_row_u", [True, False])
+def test_wkv_forward_cuda_on_cpu_is_the_plain_version(per_row_u):
+    arrs = [torch.from_numpy(a) for a in _inputs(3, 32, 16, 1, per_row_u)]
+    o, s = wkv_forward_plain(*arrs, chunk=16)
+    before = wkv_forward_cuda.launches
+    o2, s2 = wkv_forward_cuda(*arrs, chunk=16)
+    assert torch.equal(o, o2) and torch.equal(s, s2)
+    assert wkv_forward_cuda.launches == before
