@@ -14,6 +14,10 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    threshold, with m off its tile, ties across tiles and threads, 1e30 rows,
    bf16 and l1, each bit for bit against the rowscan route and the fused
    score kernel, and at the kdd reassignment shape and gauss's site calls;
+   the fused score at the edges of its CTA split (n = 1 to 33,793 at
+   k x d = 3 x 34, 100 x 5, 2,048 x 130 and 64 x 64, every metric, f32
+   and bf16, 1e30 center rows, tied centers), each bit for bit min_argmin
+   plus the divide, and two calls whose results must not share storage;
    the WKV6 kernel also against the step oracle in float64, at the rwkv6
    prefill's shape and at edge cases (c = 64, c = T = 7, one chunk, B = 1,
    BH = 1 and 3, strong decays, non-zero u in both layouts and s0), its
@@ -39,8 +43,10 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    a PyTorch yardstick and its roofline bound (min_argmin's calls of both
    fits on both of its routes; WKV also its first pass alone, and at
    B = 1), both min_argmin routes over a ladder of m at d = 5, 16, 34 and
-   64 (the routing threshold), and the rwkv6 prefill's tokens/s and decode
-   step latency.
+   64 (the routing threshold), the serving score at 256 x 3 x 34 and
+   256 x 100 x 5 split into device time per launch (a CUDA graph), host
+   time per call and a host breakdown, and the rwkv6 prefill's tokens/s
+   and decode step latency.
 
 It prints the card (``nvidia-smi``), one ``{"kernels": [...]}`` line and, as
 its last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises:
@@ -386,6 +392,67 @@ def large_m_checks(dev, rnd, site, c_re, fail):
     return recs
 
 
+SCORE_EDGE_N = (1, 31, 32, 33, 255, 256, 257, 4_224, 4_225, 33_793)
+# (k, d): kdd's and gauss's serving widths, a wide one past d = 128 (128-row
+# CTAs), and d = 64 (f32 rows in 16-byte pieces: the cp.async staging)
+SCORE_EDGE_KD = ((3, 34), (100, 5), (2_048, 130), (64, 64))
+
+
+def score_edge_checks(dev, rnd, fail):
+    """The fused score at the edges of its CTA split (launch_plan: 32-row
+    CTAs up to n = 4,224 = 132 x 32, then 64, ..., 256), each against
+    min_argmin_cuda plus the divide bit for bit and against the plain
+    version; then 1e30 center rows, tied centers, and two calls whose
+    results must not share storage."""
+    from repro_torch.kernels.score.kernel import score_cuda
+    recs = []
+    thr = torch.tensor(0.7, device=dev)
+    for k, d in SCORE_EDGE_KD:
+        c32 = rnd(k, d)
+        x32 = rnd(max(SCORE_EDGE_N), d)
+        for dt in (torch.float32, torch.bfloat16):
+            c = c32.to(dt)
+            for n in SCORE_EDGE_N:
+                x = x32[:n].to(dt).contiguous()
+                for metric in ("l2sq", "l2", "l1"):
+                    recs.append(check_score(dev, f"edge_n{n}", x, c, thr,
+                                            metric, fail))
+    x = rnd(4_225, 34)
+    for metric in ("l2sq", "l2"):
+        c = torch.cat([rnd(60, 34), torch.full((40, 34), 1e30, device=dev)])
+        c = c[torch.randperm(100).to(dev)].contiguous()
+        rec = check_score(dev, "edge_far_rows", x, c, thr, metric, fail)
+        _, a, _ = score_cuda(x, c, thr, metric=metric)
+        if not bool((c[a.long(), 0] < 1e29).all()):
+            fail.append(dict(rec, why="a 1e30 row won"))
+        recs.append(rec)
+    # ties: center 99 copies center 0, and rows 0..31 are center 0 itself
+    c = rnd(100, 34)
+    c[99] = c[0]
+    xt = torch.cat([c[:1].expand(32, 34), rnd(225, 34)]).contiguous()
+    for metric in ("l2sq", "l2", "l1"):
+        rec = check_score(dev, "edge_tied_centers", xt, c, thr, metric, fail)
+        _, a, _ = score_cuda(xt, c, thr, metric=metric)
+        if not bool((a[:32] == 0).all()):
+            fail.append(dict(rec, why="a tie did not pick index 0"))
+        recs.append(rec)
+    # aliasing: the second call's results get storage of their own
+    first = score_cuda(x[:256].contiguous(), c, thr)
+    kept = [t.clone() for t in first]
+    second = score_cuda(x[256:512].contiguous(), c, thr)
+    sync(dev)
+    same = all(torch.equal(a, b) for a, b in zip(first, kept))
+    apart = first[0].untyped_storage().data_ptr() != \
+        second[0].untyped_storage().data_ptr()
+    rec = dict(kernel="score", case="aliasing_two_calls",
+               first_unchanged=same, distinct_storage=apart,
+               max_abs_err=0.0, max_rel_err=0.0)
+    if not (same and apart):
+        fail.append(rec)
+    recs.append(rec)
+    return recs
+
+
 def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
     """Every kernel x metric x dtype against its plain version on the card
     (tolerances: see TOL)."""
@@ -443,6 +510,7 @@ def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
             c = torch.cat([rnd(5, 34), torch.full((7, 34), 1e30, device=dev)])
             recs.append(check_pdist(dev, "far_rows", x, c, metric, fail))
     recs += large_m_checks(dev, rnd, site, c_re, fail)
+    recs += score_edge_checks(dev, rnd, fail)
     # serving shape: a micro-batch against kdd's and gauss's centers
     thr = torch.tensor(3.5, device=dev)
     recs.append(check_score(dev, "serve_kdd", kdd_x[:MICRO_BATCH],
@@ -1083,13 +1151,156 @@ def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
         lloyd_work(gx.shape[0], gk, gd),
         lambda: lloyd_step_cuda(gx, gw, gc),
         lambda: lloyd_step_blocked(gx, gw, gc, policy=blocked), None, 20)
-    xb = kdd_x[:MICRO_BATCH].contiguous()
+    # the serving read: kdd's model, and a micro-batch of gauss rows against
+    # 100 of its rows (k = 100, d = 5); the "ms" column stays CUDA events
+    # around back-to-back calls, beside the device/host split
     thr = kdd_model.threshold
-    row("score", "kdd_micro_batch", [MICRO_BATCH, k, d],
-        pdist_work(MICRO_BATCH, k, d, "l2sq", extra_out=4),
-        lambda: score_cuda(xb, cen, thr), lambda: score_blocked(xb, cen, thr),
-        lambda: torch.cdist(xb, cen).min(dim=1), 200)
+    gcen = gauss_x[torch.randperm(gauss_x.shape[0],
+                                  generator=g)[:gk].to(dev)].contiguous()
+    for name, xb, cc in (("kdd_micro_batch", kdd_x[:MICRO_BATCH], cen),
+                         ("gauss_micro_batch", gauss_x[:MICRO_BATCH], gcen)):
+        xb = xb.contiguous()
+        kk, dd = cc.shape
+        row("score", name, [MICRO_BATCH, kk, dd],
+            pdist_work(MICRO_BATCH, kk, dd, "l2sq", extra_out=4),
+            lambda: score_cuda(xb, cc, thr),
+            lambda: score_blocked(xb, cc, thr),
+            lambda: torch.cdist(xb, cc).min(dim=1), 200)
+        rows[-1].update(score_split(dev, xb, cc, thr))
     return rows
+
+
+def _host_us(fn, reps=2000):
+    """Host microseconds per call: the host clock over ``reps`` calls with no
+    synchronise inside the loop, one after it (valid while the device keeps
+    up, which the graph reading shows)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / reps
+
+
+def _graph_device_us(fn, reps=200, replays=5):
+    """Device microseconds per launch: ``reps`` calls captured in one CUDA
+    graph, replayed between CUDA events (the ctypes launch takes the
+    current stream, the capture stream inside ``torch.cuda.graph``); if the
+    capture fails, the profiler's device time of the score kernel.
+    Returns (us, method)."""
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(replays):
+            graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) * 1e3 / (replays * reps), "cuda_graph"
+    except RuntimeError as exc:
+        log(f"graph capture failed ({exc}); profiler device time instead")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages() if "score_kernel" in e.key]
+    total = sum(getattr(e, "device_time_total", None)
+                or getattr(e, "cuda_time_total", 0) for e in evs)
+    return total / max(1, sum(e.count for e in evs)), "profiler"
+
+
+def _spy_launch(call):
+    """(C entry, arguments) that one call of a wrapper hands to ctypes, read
+    by wrapping ``_build.bind`` for the call; the call's outputs are kept
+    alive with them, so the pointers stay valid."""
+    from repro_torch.kernels import _build
+    seen, real = {}, _build.bind
+
+    def spy(*a, **kw):
+        fn = real(*a, **kw)
+
+        def rec(*args):
+            seen["fn"], seen["args"] = fn, args
+            return fn(*args)
+        return rec
+    _build.bind = spy
+    try:
+        seen["out"] = call()
+    finally:
+        _build.bind = real
+    return seen["fn"], seen["args"], seen["out"]
+
+
+def score_split(dev, x, c, thr, metric="l2sq"):
+    """The serving read's time split at one micro-batch shape: device us per
+    launch (CUDA graph), host us per call through ``score`` (the op
+    ``_score_batch`` calls) and through the wrapper ``score_cuda``, and a
+    host breakdown, each step its own loop of 2,000 calls."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.pdist.kernel import check_operands
+    from repro_torch.kernels.score.kernel import score_cuda
+    from repro_torch.kernels.score.ops import score
+    n, d = x.shape
+    m = c.shape[0]
+    kw = dict(metric=metric, n=n, m=m, d=d, dtype=x.dtype)
+    reg, bn, bm = dispatch.resolve_tiles(
+        "score", None, platform=dispatch.platform_of(x), **kw)
+    fn, args, _keep = _spy_launch(lambda: score_cuda(x, c, thr, metric=metric))
+    dev_us, method = _graph_device_us(lambda: score_cuda(x, c, thr,
+                                                         metric=metric))
+    buf = torch.empty((3, n), dtype=torch.float32, device=x.device)
+    steps = {
+        "score_op": lambda: score(x, c, thr, metric=metric),
+        "backend": lambda: reg.impl(x, c, thr, metric=metric, block_n=bn,
+                                    block_m=bm),
+        "wrapper": lambda: score_cuda(x, c, thr, metric=metric),
+        "resolve": lambda: dispatch.resolve_tiles(
+            "score", None, platform=dispatch.platform_of(x), **kw),
+        "check_operands": lambda: check_operands(x, c, metric, "score_cuda"),
+        "as_tensor_thr": lambda: torch.as_tensor(thr, dtype=torch.float32,
+                                                 device=x.device),
+        "contiguous_x": lambda: x.contiguous(),
+        "thr_reshape_contiguous": lambda: thr.reshape(1).contiguous(),
+        "empty_n": lambda: torch.empty((n,), dtype=torch.float32,
+                                       device=x.device),
+        "empty_3n": lambda: torch.empty((3, n), dtype=torch.float32,
+                                        device=x.device),
+        "unbind_int32_view": lambda: (lambda o: (o[0], o[1].view(
+            torch.int32), o[2]))(buf.unbind(0)),
+        "data_ptr": lambda: x.data_ptr(),
+        "stream_of_device": lambda: torch.cuda.current_stream(
+            x.device).cuda_stream,
+        "stream_current": lambda: torch.cuda.current_stream().cuda_stream,
+        "stream_raw": lambda: torch._C._cuda_getCurrentRawStream(
+            x.get_device()),
+        "ctypes_launch": lambda: fn(*args),
+    }
+    host = {name: _host_us(f) for name, f in steps.items()}
+    torch.cuda.synchronize()
+    out = {"shape": [n, m, d], "device_us_per_launch": dev_us,
+           "device_method": method, "host_us_per_call": host["score_op"],
+           "host_us_per_wrapper_call": host["wrapper"],
+           "host_breakdown_us": host}
+    log(f"score_split {[n, m, d]}: device {dev_us:.3f} us/launch ({method}),"
+        f" host {host['score_op']:.3f} us/call (wrapper "
+        f"{host['wrapper']:.3f}); breakdown "
+        + json.dumps({k: round(v, 3) for k, v in host.items()}))
+    return out
 
 
 def _blocks_per_sm(lib, *args):

@@ -5,57 +5,331 @@
 // epilogue score = dist / max(threshold, 1e-30), for l2sq / l2 / l1.
 //
 // Bound on this card.  The serving read scores micro-batches of 256 queries
-// against k centers (k = 3 or 100, d = 34 or 5): at most 2*256*100*34 ~ 1.7e6
-// FLOP and ~50 KB of bytes per call, far below a microsecond of either
-// roofline, so a call is bound by launch latency.
+// against k centers (kdd: k = 3, d = 34; gauss: k = 100, d = 5): ~52 k FMAs
+// and ~35 KB at 256 x 3 x 34, an 11 ns roofline.  So a call is bound by the
+// launch: the host's work to issue it (21-38 us through the wrapper on the
+// H100 machine's host), then the kernel's launch and its chain of dependent
+// steps: load x and the centers, barrier, norms, barrier, scan, store,
+// ~3.6 us per launch at kdd's shape and ~5.9 us at gauss's, where a thread
+// scans 100 centers in order (PERF.md).  That chain, not the SMs, sets the
+// device time: this design measured within 3% of the one-CTA RowScan kernel
+// it replaced at both shapes, and the call's time went down on the host
+// side (kernel.py).
 //
-// What the design does about it: one launch does the whole read (pdist,
-// argmin and divide), with no intermediate in device memory.  The threshold
-// is read from a device pointer, so the host never synchronises to pass it.
-// The distance loop is kernel A's (pdist_common.cuh) with the same tiles, and
-// the divide is IEEE (__fdiv_rn), so the fused result equals kernel A plus a
-// torch divide bit for bit.
+// What this design does about it:
+//   * rows per CTA follow n (kernel.py: launch_plan): min(NT, max(32, n / 132
+//     rounded up to a warp)), so a 256-row micro-batch runs as 8 CTAs of 32
+//     rows on 8 SMs instead of one CTA of 256 on one SM, and a bulk call
+//     keeps NT-row CTAs;
+//   * the CTA's rows of x, one contiguous block in device memory, are staged
+//     through shared memory with coalesced loads (consecutive threads read
+//     consecutive words; 16-byte cp.async where the rows are 16-byte pieces:
+//     f32, d % 4 == 0, x aligned), at a pitch P = DP + 4 words; a thread
+//     then reads its row as 16-byte pieces, which hit distinct banks within
+//     each quarter warp because P / 4 is odd.  The staging buffer is then
+//     reused for the centers (dynamic shared memory, sized by the wrapper);
+//   * centers and their squared norms are staged once per CTA, TM at a time,
+//     only the live ones (k = 3 stages 3 rows, not TM), a thread's share of
+//     a tile loaded all at once, the first tile's with x's loads;
+//   * one output buffer of 3n words (dist, idx, score), one launch, and the
+//     threshold read from a device pointer: the host never synchronises.
+//
+// Bits.  Per pair the arithmetic is RowScan's (pdist_common.cuh): one
+// __fmaf_rn chain over f from 0 to DP (the zero padding adds exact zeros),
+// x2 and c2 by the same chains, finish_l2, then a strict `<` in index order.
+// So the fused result equals min_argmin (either route) plus an IEEE divide
+// (__fdiv_rn) by max(thr, 1e-30), bit for bit.  The generic width (d > 256)
+// keeps RowScan's per-thread loads.
 #include "pdist_common.cuh"
 
 namespace rt {
 
+// x's staging pitch in words at padded width DP: a multiple of 4 with P / 4
+// odd (DP is a multiple of 8).
+template <int DP>
+struct ScorePitch {
+  static constexpr int P = DP + 4;
+};
+
+__device__ __forceinline__ void score_cp_async16(void* smem,
+                                                 const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Copy the CTA's block of x (rows row0 .. row0 + live - 1, contiguous) into
+// xs at pitch P, as floats.  A thread copies at most d <= DP words, at
+// e = threadIdx.x + i * rows: loops of constant trip count, so up to 32 of a
+// thread's loads are in flight before the first store waits on one.
+template <int DP, typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ x, float* xs,
+                                           long long row0, int live, int d) {
+  constexpr int P = ScorePitch<DP>::P;
+  const int rows = blockDim.x;
+  const int cnt = live * d;
+  const long long base = row0 * d;
+  bool vec = false;
+  if constexpr (std::is_same<T, float>::value)
+    vec = (d % 4 == 0) && ((reinterpret_cast<size_t>(x) & 15) == 0);
+  if (vec) {  // 16-byte pieces, each inside one row
+    for (int q = threadIdx.x; q < cnt / 4; q += rows) {
+      const int e = 4 * q, r = e / d, f = e - r * d;
+      score_cp_async16(xs + r * P + f, x + base + e);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    asm volatile("cp.async.wait_group 0;\n" ::);
+    return;
+  }
+  // (r, f) of e, stepped by rows = sr * d + sf words
+  const int sr = rows / d, sf = rows - sr * d;
+  int r = threadIdx.x / d, f = threadIdx.x - r * d;
+  constexpr int CH = DP < 32 ? DP : 32;  // loads in flight (registers)
+#pragma unroll
+  for (int i0 = 0; i0 < DP; i0 += CH) {
+    float v[CH];
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      const int e = threadIdx.x + (i0 + i) * rows;
+      v[i] = (i0 + i < DP && e < cnt) ? load_f(x, base + e) : 0.0f;
+    }
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (i0 + i < DP && threadIdx.x + (i0 + i) * rows < cnt)
+        xs[r * P + f] = v[i];
+      r += sr;
+      f += sf;
+      if (f >= d) {
+        f -= d;
+        ++r;
+      }
+    }
+  }
+}
+
+// A tile of centers j0 .. j0 + jn - 1 on its way into cs (TM x DP, zero
+// past d).  load() puts a thread's first CB words of the tile (at
+// e = threadIdx.x + u * rows) in flight into registers: the first tile's
+// travel with x's loads, a later tile's all at once (a 32-row CTA holds a
+// 64 x 8 tile in 16 words a thread); store() writes them to shared memory
+// and reads the rest, if any (few rows against a wide tile), eight loads in
+// flight at a time.  The CB loads are predicated, not skipped by a branch:
+// on the H100 a uniform `break` per word took the gauss micro-batch from 5.8
+// to 9.4 us per launch (PERF.md).
+template <int DP, typename T>
+struct CenterTile {
+  static constexpr int CB = DP <= 64 ? 16 : 8;
+  float v[CB];
+
+  __device__ __forceinline__ float word(const T* __restrict__ c, int e,
+                                        int cnt, int j0, int d) const {
+    const int jj = e / DP, f = e - jj * DP;
+    return (e < cnt && f < d) ? load_f(c, (long long)(j0 + jj) * d + f)
+                              : 0.0f;
+  }
+
+  __device__ __forceinline__ void load(const T* __restrict__ c, int j0,
+                                       int jn, int d) {
+    const int rows = blockDim.x, cnt = jn * DP;
+#pragma unroll
+    for (int u = 0; u < CB; ++u) {
+      v[u] = word(c, threadIdx.x + u * rows, cnt, j0, d);
+    }
+  }
+
+  __device__ __forceinline__ void store(const T* __restrict__ c, float* cs,
+                                        int j0, int jn, int d) const {
+    const int rows = blockDim.x, cnt = jn * DP;
+#pragma unroll
+    for (int u = 0; u < CB; ++u) {
+      if (threadIdx.x + u * rows < cnt) cs[threadIdx.x + u * rows] = v[u];
+    }
+    for (int e0 = threadIdx.x + CB * rows; e0 < cnt; e0 += 8 * rows) {
+      float w[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) w[u] = word(c, e0 + u * rows, cnt, j0, d);
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (e0 + u * rows < cnt) cs[e0 + u * rows] = w[u];
+    }
+  }
+};
+
 template <int DP, int METRIC, typename T>
 __global__ void __launch_bounds__(Tile<DP>::NT)
 score_kernel(const T* __restrict__ x, const T* __restrict__ c,
-             const float* __restrict__ thr, float* __restrict__ dist,
-             int* __restrict__ idx, float* __restrict__ score, int n, int m,
-             int d) {
-  const long long row = (long long)blockIdx.x * Tile<DP>::NT + threadIdx.x;
-  RowScan<DP, METRIC, T> rs;
+             const float* __restrict__ thr, float* __restrict__ out, int n,
+             int m, int d) {
+  constexpr int TM = Tile<DP>::TM;
+  constexpr int P = ScorePitch<DP>::P;
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;            // rows x P, then reused:
+  float* cs = smem;            // TM x DP centers
+  float* c2s = smem + TM * DP;  // TM squared norms
+
+  const int rows = blockDim.x;
+  const long long row0 = (long long)blockIdx.x * rows;
+  const long long row = row0 + threadIdx.x;
+  const bool live = row < n;
+  CenterTile<DP, T> tile;
+  tile.load(c, 0, min(TM, m), d);  // in flight with x's loads
+  stage_rows<DP, T>(x, xs, row0, (int)min((long long)rows, n - row0), d);
+  __syncthreads();
+
+  float xr[DP];
+#pragma unroll
+  for (int f = 0; f < DP; f += 4) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(xs + threadIdx.x * P + f);
+    xr[f] = (live && f < d) ? v.x : 0.0f;
+    xr[f + 1] = (live && f + 1 < d) ? v.y : 0.0f;
+    xr[f + 2] = (live && f + 2 < d) ? v.z : 0.0f;
+    xr[f + 3] = (live && f + 3 < d) ? v.w : 0.0f;
+  }
+  float x2 = 0.0f;
+#pragma unroll
+  for (int f = 0; f < DP; ++f) x2 = __fmaf_rn(xr[f], xr[f], x2);
+  float best = inf_f();
+  int bidx = 0;
+
+  for (int j0 = 0; j0 < m; j0 += TM) {
+    // only the tile's jn live centers are staged (k = 3: 3 of TM rows)
+    const int jn = min(TM, m - j0);
+    if (j0 > 0) tile.load(c, j0, jn, d);
+    __syncthreads();  // x staging, or the previous tile, fully consumed
+    tile.store(c, cs, j0, jn, d);
+    __syncthreads();
+    if (METRIC != L1) {
+      for (int jj = threadIdx.x; jj < jn; jj += rows) {
+        float s = 0.0f;
+#pragma unroll
+        for (int f = 0; f < DP; ++f)
+          s = __fmaf_rn(cs[jj * DP + f], cs[jj * DP + f], s);
+        c2s[jj] = s;
+      }
+    }
+    __syncthreads();
+    int jj = 0;
+    for (; jj + 4 <= jn; jj += 4) {
+      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+      const float* p = cs + jj * DP;
+#pragma unroll
+      for (int f = 0; f < DP; ++f) {
+        if (METRIC == L1) {
+          a0 = __fadd_rn(a0, fabsf(__fsub_rn(xr[f], p[f])));
+          a1 = __fadd_rn(a1, fabsf(__fsub_rn(xr[f], p[DP + f])));
+          a2 = __fadd_rn(a2, fabsf(__fsub_rn(xr[f], p[2 * DP + f])));
+          a3 = __fadd_rn(a3, fabsf(__fsub_rn(xr[f], p[3 * DP + f])));
+        } else {
+          a0 = __fmaf_rn(xr[f], p[f], a0);
+          a1 = __fmaf_rn(xr[f], p[DP + f], a1);
+          a2 = __fmaf_rn(xr[f], p[2 * DP + f], a2);
+          a3 = __fmaf_rn(xr[f], p[3 * DP + f], a3);
+        }
+      }
+      if (METRIC != L1) {
+        a0 = finish_l2<METRIC>(x2, c2s[jj], a0);
+        a1 = finish_l2<METRIC>(x2, c2s[jj + 1], a1);
+        a2 = finish_l2<METRIC>(x2, c2s[jj + 2], a2);
+        a3 = finish_l2<METRIC>(x2, c2s[jj + 3], a3);
+      }
+      if (a0 < best) { best = a0; bidx = j0 + jj; }
+      if (a1 < best) { best = a1; bidx = j0 + jj + 1; }
+      if (a2 < best) { best = a2; bidx = j0 + jj + 2; }
+      if (a3 < best) { best = a3; bidx = j0 + jj + 3; }
+    }
+    for (; jj < jn; ++jj) {
+      float a = 0.f;
+      const float* p = cs + jj * DP;
+#pragma unroll
+      for (int f = 0; f < DP; ++f) {
+        if (METRIC == L1)
+          a = __fadd_rn(a, fabsf(__fsub_rn(xr[f], p[f])));
+        else
+          a = __fmaf_rn(xr[f], p[f], a);
+      }
+      if (METRIC != L1) a = finish_l2<METRIC>(x2, c2s[jj], a);
+      if (a < best) { best = a; bidx = j0 + jj; }
+    }
+  }
+  if (live) {
+    out[row] = best;
+    reinterpret_cast<int*>(out + n)[row] = bidx;
+    out[2LL * n + row] = __fdiv_rn(best, fmaxf(thr[0], 1e-30f));
+  }
+}
+
+// d > 256: RowScan's generic path, per-thread loads from global memory.
+template <int METRIC, typename T>
+__global__ void __launch_bounds__(Tile<0>::NT)
+score_generic_kernel(const T* __restrict__ x, const T* __restrict__ c,
+                     const float* __restrict__ thr, float* __restrict__ out,
+                     int n, int m, int d) {
+  const long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  RowScan<0, METRIC, T> rs;
   rs.run(x, c, row, n, m, d);
   if (row < n) {
-    dist[row] = rs.best;
-    idx[row] = rs.bidx;
-    score[row] = __fdiv_rn(rs.best, fmaxf(thr[0], 1e-30f));
+    out[row] = rs.best;
+    reinterpret_cast<int*>(out + n)[row] = rs.bidx;
+    out[2LL * n + row] = __fdiv_rn(rs.best, fmaxf(thr[0], 1e-30f));
   }
+}
+
+// Shared-memory bytes the staged kernel needs for CTAs of `rows` rows.
+template <int DP>
+constexpr long long score_smem_bytes(int rows) {
+  return 4LL * (rows * ScorePitch<DP>::P > Tile<DP>::TM * (DP + 1)
+                    ? rows * ScorePitch<DP>::P
+                    : Tile<DP>::TM * (DP + 1));
 }
 
 }  // namespace rt
 
+// out: 3n words, dist (f32) | idx (int32) | score (f32).  rows: CTA size, a
+// multiple of 32 up to Tile<DP>::NT; smem: dynamic shared-memory bytes, at
+// least what the staged kernel needs (both from kernel.py: launch_plan).
 extern "C" int rt_score(const void* x, const void* c, const void* thr,
-                        void* dist, void* idx, void* score, int n, int m, int d,
-                        int metric, int dtype, void* stream) {
-  if (n > 0) {
-    rt::dispatch_dtype(dtype, [&](auto tv) {
-      using T = decltype(tv);
-      rt::dispatch_metric(metric, [&](auto mv) {
-        constexpr int METRIC = decltype(mv)::value;
-        rt::dispatch_dp(d, [&](auto dv) {
-          constexpr int DP = decltype(dv)::value;
-          constexpr int NT = rt::Tile<DP>::NT;
-          const int blocks = (n + NT - 1) / NT;
-          rt::score_kernel<DP, METRIC, T>
-              <<<blocks, NT, 0, (cudaStream_t)stream>>>(
-                  (const T*)x, (const T*)c, (const float*)thr, (float*)dist,
-                  (int*)idx, (float*)score, n, m, d);
-        });
+                        void* out, int n, int m, int d, int metric, int dtype,
+                        int rows, int smem, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  int err = 0;
+  rt::dispatch_dtype(dtype, [&](auto tv) {
+    using T = decltype(tv);
+    rt::dispatch_metric(metric, [&](auto mv) {
+      constexpr int METRIC = decltype(mv)::value;
+      rt::dispatch_dp(d, [&](auto dv) {
+        constexpr int DP = decltype(dv)::value;
+        constexpr int NT = rt::Tile<DP>::NT;
+        if (rows < 32 || rows > NT || rows % 32 != 0) {
+          err = (int)cudaErrorInvalidValue;
+          return;
+        }
+        const int blocks = (int)((n + (long long)rows - 1) / rows);
+        if constexpr (DP == 0) {
+          rt::score_generic_kernel<METRIC, T>
+              <<<blocks, rows, 0, (cudaStream_t)stream>>>(
+                  (const T*)x, (const T*)c, (const float*)thr, (float*)out, n,
+                  m, d);
+        } else {
+          if (smem < rt::score_smem_bytes<DP>(rows)) {
+            err = (int)cudaErrorInvalidValue;
+            return;
+          }
+          auto kern = rt::score_kernel<DP, METRIC, T>;
+          static int opened = 48 * 1024;  // dynamic limit set so far
+          if (smem > opened) {
+            const cudaError_t e = cudaFuncSetAttribute(
+                kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+            if (e != cudaSuccess) { err = (int)e; return; }
+            opened = smem;
+          }
+          kern<<<blocks, rows, smem, (cudaStream_t)stream>>>(
+              (const T*)x, (const T*)c, (const float*)thr, (float*)out, n, m,
+              d);
+        }
       });
     });
-  }
+  });
+  if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -106,6 +106,7 @@ def register(op: str, name: str, *, supports: Callable, priority: Callable,
         raise ValueError(f"unknown op {op!r}; expected one of {OPS}")
 
     def deco(fn):
+        _memo.clear()
         _REGISTRY.setdefault(op, {})[name] = Registration(
             op=op, name=name, impl=fn, supports=supports, priority=priority,
             default_block_n=default_block_n, default_block_m=default_block_m)
@@ -182,16 +183,39 @@ def select_backend(op: str, policy: Optional[KernelPolicy] = None, *,
     return max(candidates, key=lambda r: r.priority(platform))
 
 
+# Memo of resolutions.  A call's (registration, block_n, block_m) is a
+# function of (op, policy, metric, platform, dtype, n, m, d) and the
+# registry alone, and resolving it anew cost 3.1-5.9 us of host time per
+# serving read on the H100 machine's host (PERF.md).  register() clears
+# the memo; a new default policy is a new key.  Bounded: cleared when full
+# (a fit's calls vary n).
+_MEMO_MAX = 4096
+_memo: dict[tuple, tuple[Registration, int, int]] = {}
+
+
+def _resolved(op, policy, metric, n, m, d, dtype, platform):
+    policy = resolve_policy(policy)
+    key = (op, policy, metric, platform, dtype, n, m, d)
+    hit = _memo.get(key)
+    if hit is None:
+        reg = select_backend(op, policy, metric=metric, n=n, m=m, d=d,
+                             dtype=dtype, platform=platform)
+        bn = policy.block_n if policy.block_n is not None \
+            else reg.default_block_n(platform)
+        bm = 0 if reg.default_block_m is None \
+            else reg.default_block_m(platform)
+        if len(_memo) >= _MEMO_MAX:
+            _memo.clear()
+        hit = _memo[key] = (reg, int(bn), int(bm))
+    return hit
+
+
 def resolve(op: str, policy: Optional[KernelPolicy] = None, *, metric: str,
             n: int, m: int, d: int, dtype=torch.float32,
             platform: str = "cpu") -> tuple[Registration, int]:
     """Registry lookup: (registration, block_n) for one concrete call."""
-    policy = resolve_policy(policy)
-    reg = select_backend(op, policy, metric=metric, n=n, m=m, d=d,
-                         dtype=dtype, platform=platform)
-    bn = policy.block_n if policy.block_n is not None \
-        else reg.default_block_n(platform)
-    return reg, int(bn)
+    reg, bn, _ = _resolved(op, policy, metric, n, m, d, dtype, platform)
+    return reg, bn
 
 
 def resolve_tiles(op: str, policy: Optional[KernelPolicy] = None, *,
@@ -200,7 +224,4 @@ def resolve_tiles(op: str, policy: Optional[KernelPolicy] = None, *,
     """Registry lookup for a 2-D-tiled op: (registration, block_n, block_m).
 
     A backend registered without ``default_block_m`` gets block_m 0."""
-    reg, bn = resolve(op, policy, metric=metric, n=n, m=m, d=d, dtype=dtype,
-                      platform=platform)
-    bm = 0 if reg.default_block_m is None else reg.default_block_m(platform)
-    return reg, bn, int(bm)
+    return _resolved(op, policy, metric, n, m, d, dtype, platform)

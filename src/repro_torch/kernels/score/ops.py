@@ -100,9 +100,16 @@ def score_int8(x, c, threshold, *, metric: str = "l2sq",
 
 def score_cuda_backend(x, c, threshold, *, metric: str = "l2sq",
                        block_n: int = 0, block_m: int = 0):
-    """The CUDA kernel (tiles fixed per width; block_n/block_m unused)."""
-    thr = torch.as_tensor(threshold, dtype=torch.float32, device=x.device)
-    return score_cuda(x.contiguous(), c.contiguous(), thr, metric=metric)
+    """The CUDA kernel (launch shape from n and d; block_n/block_m unused).
+    A threshold that is not yet a float32 tensor on x's device is made one;
+    the serving model's already is, and passes as it is."""
+    if not (isinstance(threshold, torch.Tensor)
+            and threshold.dtype == torch.float32
+            and threshold.device == x.device):
+        threshold = torch.as_tensor(threshold, dtype=torch.float32,
+                                    device=x.device)
+    return score_cuda(x.contiguous(), c.contiguous(), threshold,
+                      metric=metric)
 
 
 def _register(name, fn, supports, priority):
