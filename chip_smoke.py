@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--report PATH]
+    python3 chip_smoke.py --measure serve,lloyd_split,lloyd_ladder
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX, and:
@@ -18,6 +19,11 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    k x d = 3 x 34, 100 x 5, 2,048 x 130 and 64 x 64, every metric, f32
    and bf16, 1e30 center rows, tied centers), each bit for bit min_argmin
    plus the divide, and two calls whose results must not share storage;
+   the fused Lloyd step's assignment and dist bit for bit min_argmin's and
+   its sums and counts equal across two calls, at the second levels'
+   shapes, the edges of its CTA split (n = 1, 257, a ragged last CTA),
+   k = 1, d = 130 and 300, k = 2,048, a warp of 32 centers, and on every
+   route whose blocks fit;
    the WKV6 kernel also against the step oracle in float64, at the rwkv6
    prefill's shape and at edge cases (c = 64, c = T = 7, one chunk, B = 1,
    BH = 1 and 3, strong decays, non-zero u in both layouts and s0), its
@@ -45,8 +51,15 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    B = 1), both min_argmin routes over a ladder of m at d = 5, 16, 34 and
    64 (the routing threshold), the serving score at 256 x 3 x 34 and
    256 x 100 x 5 split into device time per launch (a CUDA graph), host
-   time per call and a host breakdown, and the rwkv6 prefill's tokens/s
-   and decode step latency.
+   time per call and a host breakdown, the Lloyd step at both second
+   levels split the same way and beside its assignment alone, and the
+   rwkv6 prefill's tokens/s and decode step latency.
+
+``--measure`` runs only the named readings, each after the fits that feed
+it, and prints them as one JSON line: ``serve`` (the serving p50 and p99),
+``lloyd_split`` and ``lloyd_ladder`` (the Lloyd routes over k and over caps
+of CTAs).  One process per reading, in turns with another tree's, compares
+two trees; ``serve`` runs on any tree of the port.
 
 It prints the card (``nvidia-smi``), one ``{"kernels": [...]}`` line and, as
 its last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises:
@@ -251,17 +264,30 @@ def check_score(dev, name, x, c, thr, metric, fail):
     return rec
 
 
-def check_lloyd(dev, name, x, w, c, metric, fail):
+def check_lloyd(dev, name, x, w, c, metric, fail, route=None):
+    """The Lloyd step (on ``route``, or routed) against its plain version,
+    its assignment and distances against ``min_argmin_cuda`` bit for bit
+    (both scan with RowScan's arithmetic), and its sums and counts across
+    two calls bit for bit (no float atomics) and against the one-hot
+    matmul."""
     from repro_torch.kernels.dispatch import KernelPolicy
-    from repro_torch.kernels.lloyd.kernel import lloyd_step_cuda
+    from repro_torch.kernels.lloyd import kernel as lk
     from repro_torch.kernels.lloyd.ops import (accumulate_by_assignment,
                                                lloyd_step_blocked)
-    s1, c1, a1, d1 = lloyd_step_cuda(x, w, c, metric=metric)
-    s2, c2, _, _ = lloyd_step_cuda(x, w, c, metric=metric)
+    from repro_torch.kernels.pdist.kernel import min_argmin_cuda
+    if route is None:
+        step = lambda: lk.lloyd_step_cuda(x, w, c, metric=metric)  # noqa
+    else:
+        step = lambda: lk._launch_route(route, x, w, c, metric=metric)  # noqa
+        name = f"{name}_{route}"
+    s1, c1, a1, d1 = step()
+    s2, c2, _, _ = step()
     sp, cp, ap, dp = lloyd_step_blocked(
         x, w, c, metric=metric, policy=KernelPolicy(backend="blocked"))
+    dm, am = min_argmin_cuda(x, c, metric=metric)
     sync(dev)
     deterministic = bool(torch.equal(s1, s2) and torch.equal(c1, c2))
+    as_min_argmin = bool(torch.equal(a1, am) and torch.equal(d1, dm))
     mis, bad = argmin_verdict(x, c, a1, ap, metric)
     scaled = dist_err(x, c, d1, dp, ap, metric)
     # sums are compared on the kernel's own assignment, so a permitted
@@ -278,9 +304,10 @@ def check_lloyd(dev, name, x, w, c, metric, fail):
                                float((c1 - c_ref).abs().max())),
                max_rel_err=scaled, sums_rel_err=serr,
                counts_rel_err=cerr, argmin_mismatch=mis, argmin_bad=bad,
-               deterministic=deterministic)
-    if (bad or not deterministic or not scaled <= TOL or not serr <= 1e-4
-            or not cerr <= 1e-4):
+               deterministic=deterministic,
+               bitwise_min_argmin=as_min_argmin)
+    if (bad or not deterministic or not as_min_argmin or not scaled <= TOL
+            or not serr <= 1e-4 or not cerr <= 1e-4):
         fail.append(rec)
     return rec
 
@@ -519,13 +546,33 @@ def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
     recs.append(check_score(dev, "serve_gauss", gauss_x[:MICRO_BATCH],
                             gsite[gpick[:GAUSS["k"]]].contiguous(), thr,
                             "l2sq", fail))
-    # Lloyd: second-level shapes plus k = 2048 x d = 130 (global partials)
+    recs += lloyd_edge_checks(dev, rnd, g, ks, gs, fail)
+    return recs, fail
+
+
+def lloyd_edge_checks(dev, rnd, g, ks, gs, fail):
+    """The Lloyd step at the second levels' shapes and at the edges of its
+    launch plan (``lloyd_plan``): one row, NT + 1 rows, k = 1, a ragged
+    last CTA, d = 130 on 128-row CTAs, the serial route (k = 2048 x
+    d = 130, whose partials live in global memory, and the generic width
+    d = 300), and a warp whose 32 rows hold 32 different centers; both
+    metrics, f32 and bf16 (bf16 up to 10,000 rows)."""
+    from repro_torch.kernels.lloyd.kernel import lloyd_step_cuda
+    recs = []
     for name, (n, k, d) in (("kdd_second_level",
                              (ks["n_rec"], KDD["k"], KDD["d"])),
                             ("gauss_second_level",
                              (gs["n_rec"], GAUSS["k"], GAUSS["d"])),
+                            ("n1", (1, 3, 34)),
+                            ("n257", (257, 3, 34)),
+                            ("k1", (1000, 1, 5)),
                             ("ragged", (1000, 37, 18)),
-                            ("k2048_d130", (3001, 2048, 130))):
+                            # 4,100 tiles, 16 a CTA (lloyd_plan), the last
+                            # CTA's 1,000 rows ragged
+                            ("ragged_last_cta", (1_049_576, 3, 34)),
+                            ("d130", (1025, 3, 130)),
+                            ("k2048_d130", (3001, 2048, 130)),
+                            ("d300_generic", (517, 65, 300))):
         for metric in ("l2sq", "l2"):
             for dt in (torch.float32, torch.bfloat16):
                 if dt == torch.bfloat16 and n > 10_000:
@@ -534,7 +581,38 @@ def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
                 w = torch.rand(n, generator=g).to(dev) * 3
                 c = rnd(k, d).to(dt)
                 recs.append(check_lloyd(dev, name, x, w, c, metric, fail))
-    return recs, fail
+    # rows 0..31 and 32..63 next to 32 different centers each (k = 40)
+    c = rnd(40, 34) * 3
+    near = torch.cat([torch.randperm(40, generator=g)[:32],
+                      torch.randperm(40, generator=g)[:32]]).to(dev)
+    x = torch.cat([c[near] + 0.01 * rnd(64, 34), rnd(300, 34)]).contiguous()
+    w = torch.rand(x.shape[0], generator=g).to(dev) * 3
+    for metric in ("l2sq", "l2"):
+        rec = check_lloyd(dev, "warp_32_centers", x, w, c, metric, fail)
+        _, _, a, _ = lloyd_step_cuda(x, w, c, metric=metric)
+        if not (bool((a[:64] == near).all())
+                and len(set(a[:32].tolist())) == 32):
+            fail.append(dict(rec, why="rows did not take 32 centers a warp"))
+        recs.append(rec)
+    # every route where its blocks fit, whichever the plan would pick: the
+    # 32-center warps, the second levels' widths, d = 130
+    from repro_torch.kernels.lloyd import kernel as lk
+    for name, (xr, wr, cr) in (
+            ("warp_32_centers", (x, w, c)),
+            ("d34_k3", (x, w, c[:3].contiguous())),
+            ("d5_k100", (rnd(5000, 5), torch.rand(5000, generator=g).to(dev),
+                         rnd(100, 5))),
+            ("d130_k3", (rnd(1025, 130), torch.rand(1025, generator=g)
+                         .to(dev), rnd(3, 130)))):
+        for route in lk.ROUTES:
+            try:
+                lk.lloyd_plan(xr.shape[0], cr.shape[0], xr.shape[1], route)
+            except ValueError:
+                continue
+            for dt in (torch.float32, torch.bfloat16):
+                recs.append(check_lloyd(dev, name, xr.to(dt), wr,
+                                        cr.to(dt), "l2sq", fail, route))
+    return recs
 
 
 # ------------------------------------------------------- WKV6 kernel checks
@@ -1135,22 +1213,15 @@ def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
               "l2sq", 20)
     pdist_row("gauss_alg1_round", gsite, gsite[gpick[:gs["m"]]].contiguous(),
               "l2sq", 50)
-    ids = torch.as_tensor(kdd_res["summary_ids"], device=dev)
-    pts = kdd_x[ids].contiguous()
-    wts = torch.as_tensor(kdd_res["summary_weights"], device=dev)
     blocked = KernelPolicy(backend="blocked")
-    row("lloyd_step", "kdd_second_level", [pts.shape[0], k, d],
-        lloyd_work(pts.shape[0], k, d),
-        lambda: lloyd_step_cuda(pts, wts, cen),
-        lambda: lloyd_step_blocked(pts, wts, cen, policy=blocked), None, 20)
-    gx = gauss_x[:gs["n_rec"]].contiguous()
-    gk, gd = GAUSS["k"], GAUSS["d"]
-    gc = gx[torch.randperm(gx.shape[0], generator=g)[:gk].to(dev)]
-    gw = torch.ones((gx.shape[0],), device=dev)
-    row("lloyd_step", "gauss_second_level_like", [gx.shape[0], gk, gd],
-        lloyd_work(gx.shape[0], gk, gd),
-        lambda: lloyd_step_cuda(gx, gw, gc),
-        lambda: lloyd_step_blocked(gx, gw, gc, policy=blocked), None, 20)
+    for name, (lx, lw, lc) in lloyd_inputs(dev, kdd_x, kdd_res, kdd_model,
+                                           gauss_x, gs).items():
+        (ln, ld), lkc = lx.shape, lc.shape[0]
+        row("lloyd_step", name, [ln, lkc, ld], lloyd_work(ln, lkc, ld),
+            lambda: lloyd_step_cuda(lx, lw, lc),
+            lambda: lloyd_step_blocked(lx, lw, lc, policy=blocked), None, 20)
+        rows[-1].update(lloyd_split(dev, lx, lw, lc))
+    gk = GAUSS["k"]
     # the serving read: kdd's model, and a micro-batch of gauss rows against
     # 100 of its rows (k = 100, d = 5); the "ms" column stays CUDA events
     # around back-to-back calls, beside the device/host split
@@ -1184,12 +1255,12 @@ def _host_us(fn, reps=2000):
     return (t1 - t0) * 1e6 / reps
 
 
-def _graph_device_us(fn, reps=200, replays=5):
-    """Device microseconds per launch: ``reps`` calls captured in one CUDA
+def _graph_device_us(fn, reps=200, replays=5, kernel="score_kernel"):
+    """Device microseconds per call: ``reps`` calls captured in one CUDA
     graph, replayed between CUDA events (the ctypes launch takes the
     current stream, the capture stream inside ``torch.cuda.graph``); if the
-    capture fails, the profiler's device time of the score kernel.
-    Returns (us, method)."""
+    capture fails, the profiler's device time of the kernels whose names
+    hold ``kernel``, per call.  Returns (us, method)."""
     try:
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
@@ -1218,18 +1289,19 @@ def _graph_device_us(fn, reps=200, replays=5):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages() if "score_kernel" in e.key]
+    evs = [e for e in prof.key_averages() if kernel in e.key]
     total = sum(getattr(e, "device_time_total", None)
                 or getattr(e, "cuda_time_total", 0) for e in evs)
-    return total / max(1, sum(e.count for e in evs)), "profiler"
+    return total / reps, "profiler"
 
 
 def _spy_launch(call):
-    """(C entry, arguments) that one call of a wrapper hands to ctypes, read
-    by wrapping ``_build.bind`` for the call; the call's outputs are kept
-    alive with them, so the pointers stay valid."""
+    """(C entry, arguments) that one call of a wrapper last hands to ctypes,
+    read by wrapping ``_build.bind`` for the call; every tensor the call
+    made with ``torch.empty`` (outputs and scratch) is kept alive with
+    them, so the pointers stay valid."""
     from repro_torch.kernels import _build
-    seen, real = {}, _build.bind
+    seen, real, empty = {"made": []}, _build.bind, torch.empty
 
     def spy(*a, **kw):
         fn = real(*a, **kw)
@@ -1238,12 +1310,17 @@ def _spy_launch(call):
             seen["fn"], seen["args"] = fn, args
             return fn(*args)
         return rec
-    _build.bind = spy
+
+    def made(*a, **kw):
+        t = empty(*a, **kw)
+        seen["made"].append(t)
+        return t
+    _build.bind, torch.empty = spy, made
     try:
         seen["out"] = call()
     finally:
-        _build.bind = real
-    return seen["fn"], seen["args"], seen["out"]
+        _build.bind, torch.empty = real, empty
+    return seen["fn"], seen["args"], seen
 
 
 def score_split(dev, x, c, thr, metric="l2sq"):
@@ -1303,6 +1380,80 @@ def score_split(dev, x, c, thr, metric="l2sq"):
     return out
 
 
+def lloyd_inputs(dev, kdd_x, kdd_res, kdd_model, gauss_x, gs):
+    """The Lloyd step's two timed calls, as (x, w, c): the kdd fit's
+    gathered summary records with their weights against its model's centers
+    (the second level's shape, 874,751 x 3 x 34), and gauss-0.1's first
+    n_rec rows, unit weights, against 100 of them (180,040 x 100 x 5)."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    ids = torch.as_tensor(kdd_res["summary_ids"], device=dev)
+    wts = torch.as_tensor(kdd_res["summary_weights"], device=dev)
+    gx = gauss_x[:gs["n_rec"]].contiguous()
+    gc = gx[torch.randperm(gx.shape[0], generator=g)[:GAUSS["k"]].to(dev)]
+    return {"kdd_second_level": (kdd_x[ids].contiguous(), wts.float(),
+                                 kdd_model.centers.contiguous()),
+            "gauss_second_level_like": (gx, torch.ones((gx.shape[0],),
+                                                       device=dev),
+                                        gc.contiguous())}
+
+
+def lloyd_split(dev, x, w, c, metric="l2sq"):
+    """The Lloyd step's time split at one shape: device us per call of the
+    kernel pair (200 calls in one CUDA graph), device us of the assignment
+    alone (min_argmin's rowscan route on the same x and c, the scan the
+    Lloyd kernels run), so accumulate + reduce ~ the difference; host us per
+    call through ``lloyd_step`` (the op k-means-- calls) and through the
+    wrapper (200 calls, one sync after: fewer launches than the queue
+    holds), and a host breakdown, each step its own loop."""
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels.lloyd import kernel as lk
+    from repro_torch.kernels.lloyd.ops import lloyd_step
+    from repro_torch.kernels.pdist.kernel import (_launch_route,
+                                                  check_operands)
+    n, d = x.shape
+    k = c.shape[0]
+    call = lambda: lk.lloyd_step_cuda(x, w, c, metric=metric)   # noqa: E731
+    fn, args, _keep = _spy_launch(call)
+    dev_us, method = _graph_device_us(call, kernel="lloyd")
+    asg_us, asg_method = _graph_device_us(
+        lambda: _launch_route("rowscan", x, c, metric=metric),
+        kernel="min_argmin")
+    kw = dict(metric=metric, n=n, m=k, d=d, dtype=x.dtype)
+    words = k * d + k + 2 * n
+    steps = {
+        "lloyd_step_op": (lambda: lloyd_step(x, w, c, metric=metric), 200),
+        "wrapper": (call, 200),
+        "resolve": (lambda: dispatch.resolve(
+            "lloyd_step", None, platform=dispatch.platform_of(x), **kw),
+            2000),
+        "check_operands": (lambda: check_operands(x, c, metric,
+                                                  "lloyd_step_cuda"), 2000),
+        "empty_out": (lambda: torch.empty((words,), dtype=torch.float32,
+                                          device=x.device), 2000),
+        "data_ptr": (lambda: x.data_ptr(), 2000),
+        "stream_ptr": (lambda: _build.stream_ptr(x), 2000),
+        "ctypes_launch": (lambda: fn(*args), 200),
+    }
+    buf = torch.empty((words,), dtype=torch.float32, device=x.device)
+    steps["plan"] = (lambda: lk.lloyd_plan(n, k, d), 2000)
+    steps["split_outputs"] = (lambda: lk.split_outputs(buf, n, k, d), 2000)
+    host = {name: _host_us(f, reps) for name, (f, reps) in steps.items()}
+    torch.cuda.synchronize()
+    out = {"shape": [n, k, d], "device_us_per_call": dev_us,
+           "device_method": method, "assign_only_us": asg_us,
+           "assign_method": asg_method,
+           "accumulate_reduce_us": dev_us - asg_us,
+           "host_us_per_call": host["lloyd_step_op"],
+           "host_us_per_wrapper_call": host["wrapper"],
+           "host_breakdown_us": host}
+    log(f"lloyd_split {[n, k, d]}: device {dev_us:.3f} us/call ({method}), "
+        f"assignment alone {asg_us:.3f} us ({asg_method}), so accumulate + "
+        f"reduce {dev_us - asg_us:.3f} us; host {host['lloyd_step_op']:.3f} "
+        f"us/call (wrapper {host['wrapper']:.3f}); breakdown "
+        + json.dumps({k: round(v, 3) for k, v in host.items()}))
+    return out
+
+
 def _blocks_per_sm(lib, *args):
     """Resident CTAs per SM of a new kernel (the occupancy calculator's
     answer): pdist's tiled route at width d (l2sq, f32), or the WKV chunk
@@ -1342,6 +1493,48 @@ def route_ladder(dev, kdd_x, gauss_x, ks, gs):
             log(f"route_ladder {label} d={rec['d']} m={m}: rowscan "
                 f"{rec['rowscan_ms']:.4f} ms, tiled {rec['tiled_ms']:.4f} ms")
     return out
+
+
+def lloyd_ladder(dev, inputs):
+    """The Lloyd step's routes over a ladder of k, the measurement behind
+    ``lloyd_plan``'s choice: at the two timed calls' rows and weights (kdd's
+    874,751 x 34 summary records, gauss's 180,040 x 5 rows), k centers drawn
+    from those rows, the device us per call (a CUDA graph) of each route
+    whose blocks fit; then the call's own plan with its rows split over
+    more, smaller CTAs (caps of ``MAX_CTAS`` and above, each a plan handed
+    to ``_launch_route``)."""
+    from repro_torch.kernels.lloyd import kernel as lk
+    g = torch.Generator(device="cpu").manual_seed(6)
+    ladder, caps = [], []
+    for label, (x, w, c0) in inputs.items():
+        (n, d), k0 = x.shape, c0.shape[0]
+        for k in (2, 3, 4, 6, 8, 16, 32, 100):
+            c = x[torch.randperm(n, generator=g)[:k].to(dev)].contiguous()
+            rec = {"shape": label, "n": n, "d": d, "k": k,
+                   "routed": lk.lloyd_plan(n, k, d).route}
+            for how in lk.ROUTES:
+                try:
+                    lk.lloyd_plan(n, k, d, how)
+                except ValueError:
+                    rec[f"{how}_us"] = None
+                    continue
+                rec[f"{how}_us"] = _graph_device_us(
+                    lambda: lk._launch_route(how, x, w, c),
+                    kernel="lloyd")[0]
+            ladder.append(rec)
+            log("lloyd_ladder", json.dumps(rec))
+        plan = lk.lloyd_plan(n, k0, d)
+        tiles = -(-n // plan.threads)
+        for cap in (lk.MAX_CTAS, 2 * lk.MAX_CTAS, 4 * lk.MAX_CTAS, 4096):
+            rows = plan.threads * max(1, -(-tiles // cap))
+            p = plan._replace(rows=rows, grid=-(-n // rows))
+            us = _graph_device_us(lambda: lk._launch_route(p, x, w, c0),
+                                  kernel="lloyd")[0]
+            rec = {"shape": label, "n": n, "d": d, "k": k0, "max_ctas": cap,
+                   "grid": p.grid, "us": us}
+            caps.append(rec)
+            log("lloyd_ctas", json.dumps(rec))
+    return {"ladder": ladder, "ctas": caps}
 
 
 def wkv_timings(dev):
@@ -1410,9 +1603,72 @@ def compare_runs(dev, x, ra, rb) -> dict:
             / max(abs(ra["cost"]), 1e-30)}
 
 
+def make_data(dev):
+    """Both data sets at the paper's size, on ``dev``, with their main
+    path's call shapes."""
+    from repro_torch.data.synthetic import gauss, kdd_like
+    t0 = time.perf_counter()
+    kdd_np, kdd_truth = kdd_like(n=KDD["n"], d=KDD["d"], seed=KDD["seed"])
+    gauss_np, gauss_truth = gauss(
+        n_centers=GAUSS["n_centers"], per_center=GAUSS["per_center"],
+        d=GAUSS["d"], sigma=GAUSS["sigma"], t=GAUSS["t"], seed=GAUSS["seed"])
+    kdd_x = torch.from_numpy(kdd_np).to(dev)
+    gauss_x = torch.from_numpy(gauss_np).to(dev)
+    log(f"data_s {time.perf_counter() - t0:.2f} kdd {tuple(kdd_x.shape)} "
+        f"({kdd_x.numel() * 4 / 1e6:.0f} MB on the card, "
+        f"{len(kdd_truth)} planted outliers), gauss {tuple(gauss_x.shape)}")
+    ks = path_shapes(kdd_x.shape[0], KDD["k"], len(kdd_truth), KDD["sites"])
+    gs = path_shapes(gauss_x.shape[0], GAUSS["k"], GAUSS["t"], GAUSS["sites"])
+    log("path_shapes", json.dumps({"kdd": ks, "gauss": gs}))
+    return kdd_np, kdd_truth, kdd_x, gauss_np, gauss_truth, gauss_x, ks, gs
+
+
+MEASURES = ("serve", "lloyd_split", "lloyd_ladder")
+
+
+def run_measure(dev: torch.device, card: str, phases) -> dict:
+    """Only the named measurements (of MEASURES), after the fits that feed
+    them, in the full run's order: the kdd fit, serving, the gauss fit, then
+    the Lloyd step's split and ladder at its two timed shapes.  One fresh
+    process per reading; ``serve`` calls only the port's entry points, so
+    this script can read it on another tree of the port as well."""
+    from repro_torch.api.session import _model_from_result
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.dispatch import KernelPolicy
+    log(f"card: {card}")
+    _build.build_all()
+    kdd_np, kdd_truth, kdd_x, _, gauss_truth, gauss_x, _, gs = make_data(dev)
+    auto = KernelPolicy()
+    out = {"card": card}
+    kdd_res, kdd_out = run_oneshot(
+        dev, kdd_x, kdd_truth, k=KDD["k"], t=len(kdd_truth),
+        sites=KDD["sites"], second_iters=KDD["second_iters"],
+        seed=KDD["seed"], policy=auto, label="kddFull_like")
+    if "serve" in phases:
+        model, out["serve"] = serve_model(dev, kdd_x, kdd_np, kdd_truth,
+                                          kdd_res, auto)
+        log("serve", json.dumps(out["serve"]))
+    else:
+        model = _model_from_result(kdd_x, kdd_res, metric="l2sq",
+                                   policy=auto, version=1, device=dev)
+    _, g_out = run_oneshot(
+        dev, gauss_x, gauss_truth, k=GAUSS["k"], t=GAUSS["t"],
+        sites=GAUSS["sites"], second_iters=GAUSS["second_iters"],
+        seed=GAUSS["seed"], policy=auto, label="gauss_0.1")
+    out["phase_s"] = {o["run"]: o["phase_s"] for o in (kdd_out, g_out)}
+    log("phase_s", json.dumps(out["phase_s"]))
+    if {"lloyd_split", "lloyd_ladder"} & set(phases):
+        inputs = lloyd_inputs(dev, kdd_x, kdd_res, model, gauss_x, gs)
+    if "lloyd_split" in phases:
+        out["lloyd_split"] = {name: lloyd_split(dev, *xwc)
+                              for name, xwc in inputs.items()}
+    if "lloyd_ladder" in phases:
+        out["lloyd_ladder"] = lloyd_ladder(dev, inputs)
+    return out
+
+
 def run(dev: torch.device, card: str) -> dict:
     """Every phase on ``dev``; returns the report.  Raises on any failure."""
-    from repro_torch.data.synthetic import gauss, kdd_like
     from repro_torch.kernels import _build
     from repro_torch.kernels.dispatch import KernelPolicy
     from repro_torch.kernels.lloyd.kernel import lloyd_step_cuda
@@ -1431,20 +1687,8 @@ def run(dev: torch.device, card: str) -> dict:
     log(f"build_s {build_s:.2f} (nvcc, sm_90a, {len(_build.SOURCES)} "
         f"sources in parallel)")
 
-    t0 = time.perf_counter()
-    kdd_np, kdd_truth = kdd_like(n=KDD["n"], d=KDD["d"], seed=KDD["seed"])
-    gauss_np, gauss_truth = gauss(
-        n_centers=GAUSS["n_centers"], per_center=GAUSS["per_center"],
-        d=GAUSS["d"], sigma=GAUSS["sigma"], t=GAUSS["t"], seed=GAUSS["seed"])
-    kdd_x = torch.from_numpy(kdd_np).to(dev)
-    gauss_x = torch.from_numpy(gauss_np).to(dev)
-    log(f"data_s {time.perf_counter() - t0:.2f} kdd {tuple(kdd_x.shape)} "
-        f"({kdd_x.numel() * 4 / 1e6:.0f} MB on the card, "
-        f"{len(kdd_truth)} planted outliers), gauss {tuple(gauss_x.shape)}")
-
-    ks = path_shapes(kdd_x.shape[0], KDD["k"], len(kdd_truth), KDD["sites"])
-    gs = path_shapes(gauss_x.shape[0], GAUSS["k"], GAUSS["t"], GAUSS["sites"])
-    log("path_shapes", json.dumps({"kdd": ks, "gauss": gs}))
+    kdd_np, kdd_truth, kdd_x, gauss_np, gauss_truth, gauss_x, ks, gs = \
+        make_data(dev)
 
     # ---- 2. kernels against their plain versions
     t0 = time.perf_counter()
@@ -1602,6 +1846,10 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--report", default=None,
                     help="also write every measurement to this JSON file")
+    ap.add_argument("--measure", default=None,
+                    help="comma-separated readings of " + ", ".join(MEASURES)
+                    + ": run only these (after the fits they need) and print "
+                    "them as one JSON line, for comparing two trees in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1609,6 +1857,12 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     card = nvidia_smi()
+    if args.measure:
+        phases = args.measure.split(",")
+        if not set(phases) <= set(MEASURES):
+            ap.error(f"--measure takes {MEASURES}, got {phases}")
+        print(json.dumps(run_measure(torch.device("cuda", 0), card, phases)))
+        return 0
     report = run(torch.device("cuda", 0), card)
     if args.report:
         Path(args.report).parent.mkdir(parents=True, exist_ok=True)

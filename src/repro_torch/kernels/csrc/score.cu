@@ -44,69 +44,6 @@
 
 namespace rt {
 
-// x's staging pitch in words at padded width DP: a multiple of 4 with P / 4
-// odd (DP is a multiple of 8).
-template <int DP>
-struct ScorePitch {
-  static constexpr int P = DP + 4;
-};
-
-__device__ __forceinline__ void score_cp_async16(void* smem,
-                                                 const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-// Copy the CTA's block of x (rows row0 .. row0 + live - 1, contiguous) into
-// xs at pitch P, as floats.  A thread copies at most d <= DP words, at
-// e = threadIdx.x + i * rows: loops of constant trip count, so up to 32 of a
-// thread's loads are in flight before the first store waits on one.
-template <int DP, typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ x, float* xs,
-                                           long long row0, int live, int d) {
-  constexpr int P = ScorePitch<DP>::P;
-  const int rows = blockDim.x;
-  const int cnt = live * d;
-  const long long base = row0 * d;
-  bool vec = false;
-  if constexpr (std::is_same<T, float>::value)
-    vec = (d % 4 == 0) && ((reinterpret_cast<size_t>(x) & 15) == 0);
-  if (vec) {  // 16-byte pieces, each inside one row
-    for (int q = threadIdx.x; q < cnt / 4; q += rows) {
-      const int e = 4 * q, r = e / d, f = e - r * d;
-      score_cp_async16(xs + r * P + f, x + base + e);
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    asm volatile("cp.async.wait_group 0;\n" ::);
-    return;
-  }
-  // (r, f) of e, stepped by rows = sr * d + sf words
-  const int sr = rows / d, sf = rows - sr * d;
-  int r = threadIdx.x / d, f = threadIdx.x - r * d;
-  constexpr int CH = DP < 32 ? DP : 32;  // loads in flight (registers)
-#pragma unroll
-  for (int i0 = 0; i0 < DP; i0 += CH) {
-    float v[CH];
-#pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      const int e = threadIdx.x + (i0 + i) * rows;
-      v[i] = (i0 + i < DP && e < cnt) ? load_f(x, base + e) : 0.0f;
-    }
-#pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      if (i0 + i < DP && threadIdx.x + (i0 + i) * rows < cnt)
-        xs[r * P + f] = v[i];
-      r += sr;
-      f += sf;
-      if (f >= d) {
-        f -= d;
-        ++r;
-      }
-    }
-  }
-}
-
 // A tile of centers j0 .. j0 + jn - 1 on its way into cs (TM x DP, zero
 // past d).  load() puts a thread's first CB words of the tile (at
 // e = threadIdx.x + u * rows) in flight into registers: the first tile's
@@ -161,7 +98,7 @@ score_kernel(const T* __restrict__ x, const T* __restrict__ c,
              const float* __restrict__ thr, float* __restrict__ out, int n,
              int m, int d) {
   constexpr int TM = Tile<DP>::TM;
-  constexpr int P = ScorePitch<DP>::P;
+  constexpr int P = StagePitch<DP>::P;
   extern __shared__ __align__(16) float smem[];
   float* xs = smem;            // rows x P, then reused:
   float* cs = smem;            // TM x DP centers
@@ -209,48 +146,7 @@ score_kernel(const T* __restrict__ x, const T* __restrict__ c,
       }
     }
     __syncthreads();
-    int jj = 0;
-    for (; jj + 4 <= jn; jj += 4) {
-      float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-      const float* p = cs + jj * DP;
-#pragma unroll
-      for (int f = 0; f < DP; ++f) {
-        if (METRIC == L1) {
-          a0 = __fadd_rn(a0, fabsf(__fsub_rn(xr[f], p[f])));
-          a1 = __fadd_rn(a1, fabsf(__fsub_rn(xr[f], p[DP + f])));
-          a2 = __fadd_rn(a2, fabsf(__fsub_rn(xr[f], p[2 * DP + f])));
-          a3 = __fadd_rn(a3, fabsf(__fsub_rn(xr[f], p[3 * DP + f])));
-        } else {
-          a0 = __fmaf_rn(xr[f], p[f], a0);
-          a1 = __fmaf_rn(xr[f], p[DP + f], a1);
-          a2 = __fmaf_rn(xr[f], p[2 * DP + f], a2);
-          a3 = __fmaf_rn(xr[f], p[3 * DP + f], a3);
-        }
-      }
-      if (METRIC != L1) {
-        a0 = finish_l2<METRIC>(x2, c2s[jj], a0);
-        a1 = finish_l2<METRIC>(x2, c2s[jj + 1], a1);
-        a2 = finish_l2<METRIC>(x2, c2s[jj + 2], a2);
-        a3 = finish_l2<METRIC>(x2, c2s[jj + 3], a3);
-      }
-      if (a0 < best) { best = a0; bidx = j0 + jj; }
-      if (a1 < best) { best = a1; bidx = j0 + jj + 1; }
-      if (a2 < best) { best = a2; bidx = j0 + jj + 2; }
-      if (a3 < best) { best = a3; bidx = j0 + jj + 3; }
-    }
-    for (; jj < jn; ++jj) {
-      float a = 0.f;
-      const float* p = cs + jj * DP;
-#pragma unroll
-      for (int f = 0; f < DP; ++f) {
-        if (METRIC == L1)
-          a = __fadd_rn(a, fabsf(__fsub_rn(xr[f], p[f])));
-        else
-          a = __fmaf_rn(xr[f], p[f], a);
-      }
-      if (METRIC != L1) a = finish_l2<METRIC>(x2, c2s[jj], a);
-      if (a < best) { best = a; bidx = j0 + jj; }
-    }
+    scan_tile<DP, METRIC>(xr, x2, cs, c2s, j0, jn, best, bidx);
   }
   if (live) {
     out[row] = best;
@@ -278,8 +174,8 @@ score_generic_kernel(const T* __restrict__ x, const T* __restrict__ c,
 // Shared-memory bytes the staged kernel needs for CTAs of `rows` rows.
 template <int DP>
 constexpr long long score_smem_bytes(int rows) {
-  return 4LL * (rows * ScorePitch<DP>::P > Tile<DP>::TM * (DP + 1)
-                    ? rows * ScorePitch<DP>::P
+  return 4LL * (rows * StagePitch<DP>::P > Tile<DP>::TM * (DP + 1)
+                    ? rows * StagePitch<DP>::P
                     : Tile<DP>::TM * (DP + 1));
 }
 

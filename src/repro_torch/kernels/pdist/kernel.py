@@ -15,6 +15,8 @@ METRIC_CODES = {"l2sq": 0, "l2": 1, "l1": 2}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
 ROUTES = ("rowscan", "tiled")
+# pdist_common.cuh: dispatch_dp's padded widths (0: the generic path, d > 256)
+PADDED_WIDTHS = (8, 16, 24, 32, 40, 48, 64, 96, 128, 160, 256)
 # The least m of the tiled route, as (least d, least m) bands, for d up to
 # TILED_MAX_D (its shared-memory tiles hold d padded to a multiple of 4).
 # On an H100 (chip_smoke.py's route ladder, PERF.md) the routes cross
@@ -26,6 +28,11 @@ ROUTES = ("rowscan", "tiled")
 # Each band takes the threshold of its smallest measured d.
 TILED_MIN_M = ((34, 64), (16, 256), (1, 1536))
 TILED_MAX_D = 64
+
+
+def padded_width(d: int) -> int:
+    """The kernels' compile-time width DP for d (0: generic, d > 256)."""
+    return next((w for w in PADDED_WIDTHS if d <= w), 0)
 
 
 def tiled_min_m(d: int):

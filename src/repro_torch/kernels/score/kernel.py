@@ -10,7 +10,8 @@ A call is bound by its launch (``score.cu``), so the wrapper does the least
 host work that still checks what the kernel takes: one output buffer of 3n
 words whose rows are ``dist``, ``idx`` (an int32 view) and ``score``, fresh
 on every call (a caller may still hold the previous batch's results), and
-the launch shape from :func:`launch_plan`, cached per (n, d).
+the launch shape from :func:`launch_plan`, cached per (n, d), and the
+stream as a raw handle (``_build.stream_ptr``).
 """
 from __future__ import annotations
 
@@ -21,22 +22,15 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.pdist.kernel import (DTYPE_CODES, METRIC_CODES,
-                                              check_operands)
+                                              check_operands, padded_width)
 
 SMS = 132     # streaming multiprocessors of an H100
-# pdist_common.cuh: dispatch_dp's padded widths (0: the generic path, d > 256)
-PADDED_WIDTHS = (8, 16, 24, 32, 40, 48, 64, 96, 128, 160, 256)
 
 
 class LaunchPlan(NamedTuple):
     rows: int          # rows of x per CTA (threads per CTA)
     grid: int          # CTAs
     smem_bytes: int    # dynamic shared memory per CTA
-
-
-def padded_width(d: int) -> int:
-    """The kernel's compile-time width DP for d (0: generic, d > 256)."""
-    return next((w for w in PADDED_WIDTHS if d <= w), 0)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -83,11 +77,7 @@ def _launch(kern, x: torch.Tensor, c: torch.Tensor, threshold, *,
     fn = _build.bind("score", "rt_score", 4, 7)
     err = fn(x.data_ptr(), c.data_ptr(), threshold.data_ptr(), out.data_ptr(),
              n, c.shape[0], d, METRIC_CODES[metric], DTYPE_CODES[x.dtype],
-             plan.rows, plan.smem_bytes,
-             # x's device's current stream, as a raw handle: what
-             # torch.cuda.current_stream(x.device).cuda_stream gives, without
-             # building a Stream object (~5 us on the H100 machine's host)
-             torch._C._cuda_getCurrentRawStream(x.get_device()))
+             plan.rows, plan.smem_bytes, _build.stream_ptr(x))
     kern.launches += 1
     _build.check(err, "score_cuda")
     dist, idx, score = out.unbind(0)

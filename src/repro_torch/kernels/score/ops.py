@@ -90,11 +90,15 @@ def score_int8(x, c, threshold, *, metric: str = "l2sq",
                block_m: int = _DEFAULT_BLOCK_M):
     """Quantized-center score: ``scale_i = max|c_i| / 127`` per center row,
     centers rounded to int8 (half to even, as ``jnp.round``) and rescaled
-    to f32, then the blocked pass.  Plain torch, opt-in only."""
-    c = c.float()
+    to f32, then the blocked pass.  Plain torch, opt-in only.
+
+    As in the reference, the scale and the quotient are computed in c's
+    own dtype (bf16 centers quantize on bf16's grid), and the cast
+    saturates: a quotient that rounds to 128 becomes 127, where torch's
+    cast would wrap it to -128."""
     scale = torch.clamp(c.abs().amax(dim=1) / 127.0, min=1e-12)
-    cq = torch.round(c / scale[:, None]).to(torch.int8)
-    cdq = cq.to(torch.float32) * scale[:, None]
+    cq = torch.round(c / scale[:, None]).clamp(-128, 127).to(torch.int8)
+    cdq = cq.to(torch.float32) * scale[:, None].float()
     return _score_rows(x, cdq, threshold, metric, block_n, block_m)
 
 

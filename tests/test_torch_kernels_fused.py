@@ -104,17 +104,49 @@ def test_score_matches_pallas(metric):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("metric", ["l2sq", "l2", "l1"])
-def test_int8_matches_jax_score_int8(metric):
-    xj, cj, xt, ct = _pair((300, 20, 7), 9)
-    dj, aj, sj = jax_score_int8(xj, cj, jnp.float32(1.3), metric=metric)
-    d, a, s = score(xt, ct, torch.tensor(1.3), metric=metric,
+# (metric, x dtype, c dtype, seed): seed None is the original input,
+# 300 x 20 x 7 normal rows and centers from seed 9, threshold 1.3, in f32;
+# the others ROADMAP's, 512 x 34 normal rows, 16 centers 3 x normal,
+# threshold 2.0, with bf16 centers and bf16 x beside f32
+INT8_CASES = [pytest.param(m, "float32", "float32", None, id=m)
+              for m in ("l2sq", "l2", "l1")] + [
+    pytest.param(m, xd, cd, seed, id=f"{m}-x_{xd}-c_{cd}-seed{seed}")
+    for m in ("l2sq", "l2", "l1")
+    for xd, cd in (("float32", "float32"), ("float32", "bfloat16"),
+                   ("bfloat16", "bfloat16"))
+    for seed in (0, 1, 2)]
+
+
+@pytest.mark.parametrize("metric, x_dtype, c_dtype, seed", INT8_CASES)
+def test_int8_matches_jax_score_int8(metric, x_dtype, c_dtype, seed):
+    """bf16 centers quantize on bf16's grid, with a saturating cast, as in
+    the reference.  Tolerances: with f32 x the gap is summation order
+    (<= 7.6e-5 on distances up to ~250, so rtol 1e-5); with bf16 x the
+    reference does its distance arithmetic on bf16 x where the port
+    upcasts x first (``kernels/pdist/ref.py``), a gap of at most 1.4e-3
+    of the distance measured here, inside one bf16 rounding (2**-8)."""
+    if seed is None:
+        x, c, _, _ = _pair((300, 20, 7), 9)
+        thr = 1.3
+    else:
+        rng = np.random.default_rng(seed)
+        x = rng.normal(size=(512, 34)).astype(np.float32)
+        c = (3 * rng.normal(size=(16, 34))).astype(np.float32)
+        thr = 2.0
+    x, c = np.array(x), np.array(c)
+    dj, aj, sj = jax_score_int8(jnp.asarray(x).astype(x_dtype),
+                                jnp.asarray(c).astype(c_dtype),
+                                jnp.float32(thr), metric=metric)
+    d, a, s = score(torch.as_tensor(x).to(getattr(torch, x_dtype)),
+                    torch.as_tensor(c).to(getattr(torch, c_dtype)),
+                    torch.tensor(thr), metric=metric,
                     policy=KernelPolicy(backend="int8"))
-    np.testing.assert_allclose(d.numpy(), np.asarray(dj), rtol=1e-5,
-                               atol=1e-5)
+    tol = 1e-5 if x_dtype == "float32" else 2.0**-8
     np.testing.assert_array_equal(a.numpy(), np.asarray(aj))
-    np.testing.assert_allclose(s.numpy(), np.asarray(sj), rtol=1e-5,
-                               atol=1e-5)
+    np.testing.assert_allclose(d.numpy(), np.asarray(dj, dtype=np.float32),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(s.numpy(), np.asarray(sj, dtype=np.float32),
+                               rtol=tol, atol=tol)
     # opt-in only: auto never picks the quantized backend
     reg, _, _ = dispatch.resolve_tiles("score", None, metric=metric, n=300,
                                        m=20, d=7, platform="cuda")
