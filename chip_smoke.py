@@ -38,8 +38,17 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    ``_score_batch``; then rwkv6-7b at full width (32 layers, d = 4096, bf16,
    random weights from a seed) serving batch 4: a prefill of 4096-token
    prompts (``make_prefill_step``, WKV on the kernel: 32 launches) and 32
-   greedy decode steps (``make_serve_step``: no WKV launch); it checks the
-   paper's invariants and fails unless every kernel was launched;
+   greedy decode steps (``make_serve_step``: no WKV launch); and the
+   paper's Table 3 head-to-head on the kddFull-like data at the budget of
+   the kdd fit's summary (its records / 20 per site): ``paper``,
+   ``ball_cover``, ``coreset`` and ``uniform`` through
+   ``_run_oneshot(summarizer=...)``, ``rand`` and ``k-means||`` per site,
+   each followed by the same k-means-- (min_argmin at the baselines'
+   assignment shape, a site against that many of its rows, is first held
+   against its plain version); it checks the paper's invariants (per site
+   mass, ids, candidates and rounds in the head-to-head too, and there the
+   paper's preRec above uniform's and rand's) and fails unless every kernel
+   was launched (min_argmin and lloyd_step in every head-to-head row);
 4. re-runs gauss with ``backend="blocked"`` (the plain torch path) from the
    same seed, and on the kernels from another seed as the yardstick of two
    independent draws, and compares the results; re-runs the rwkv6 prefill
@@ -47,8 +56,8 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    and checks prefill(S) + decode(token S) against prefill(S + 1);
 5. times each kernel at the main path's shapes beside its plain version,
    a PyTorch yardstick and its roofline bound (min_argmin's calls of both
-   fits on both of its routes; WKV also its first pass alone, and at
-   B = 1), both min_argmin routes over a ladder of m at d = 5, 16, 34 and
+   fits and the baselines' assignment on both of its routes; WKV also its
+   first pass alone, and at B = 1), both min_argmin routes over a ladder of m at d = 5, 16, 34 and
    64 (the routing threshold), the serving score at 256 x 3 x 34 and
    256 x 100 x 5 split into device time per launch (a CUDA graph), host
    time per call and a host breakdown, the Lloyd step at both second
@@ -848,12 +857,11 @@ def run_oneshot(dev, x_dev, truth, *, k, t, sites, second_iters, seed,
                                  f" rounds > plan {rounds_cap}")
     # |X_r| <= 8 t_i: candidates are the weight-1 records Alg. 1 kept; the
     # coordinator reports them per record, so count per site
-    cand = res.get("summary_candidates")
-    if cand is not None:
-        for i in range(sites):
-            sel = (gid >= offs[i]) & (gid < offs[i + 1])
-            if int(cand[sel].sum()) > 8 * t_i:
-                raise AssertionError(f"{label} site {i}: |X_r| > 8 t_i")
+    cand = res["summary_candidates"]
+    for i in range(sites):
+        sel = (gid >= offs[i]) & (gid < offs[i + 1])
+        if int(cand[sel].sum()) > 8 * t_i:
+            raise AssertionError(f"{label} site {i}: |X_r| > 8 t_i")
     d = x_dev.shape[1]
     rec_bytes = 4 * d + 4 + 8 + 1      # point + weight + global id + flag
     out = {
@@ -912,6 +920,155 @@ def serve(dev, x_np, truth, model, policy):
             "p99_ms": float(np.percentile(lat_ms, 99)),
             "outlier_rate_planted": planted_hits / planted_n,
             "outlier_rate_clean": clean_hits / clean_n}
+
+
+# ------------------------------------- the paper's Table 3 head-to-head
+# Each summarizer or baseline at the paper summary's budget, followed by the
+# same second level (k-means--, 25 iterations): ``paper`` (the registry's
+# weighted Alg. 1), ``ball_cover``, ``coreset`` and ``uniform`` through
+# ``_run_oneshot(summarizer=...)``; ``rand`` and ``k-means||`` per site
+# through their own functions, as ``benchmarks/common.py::run_algo`` runs
+# them, k-means|| in 5 rounds with its multi-round traffic added to comm.
+H2H = ("paper", "ball_cover", "coreset", "uniform", "rand", "k-means||")
+KPAR_ROUNDS = 5
+
+
+def h2h_budget(kdd_res) -> int:
+    """Records per site of the paper's Alg. 2 summary of the kdd fit."""
+    return -(-int(kdd_res["comm_records"]) // KDD["sites"])
+
+
+def per_site_baseline(dev, x_dev, name, b, *, k, t, sites, seed, policy):
+    """``rand`` or ``k-means||`` summaries per site, then the coordinator's
+    gather and k-means-- (``coordinator_fit``); the result keys of
+    ``_run_oneshot``, with k-means||'s multi-round traffic added to comm."""
+    from repro_torch.core import kmeans_parallel_summary, rand_summary
+    from repro_torch.core.distributed import coordinator_fit
+    from repro_torch.core.sampler import TorchSampler
+    parts = torch.tensor_split(x_dev, sites)
+    offs = np.cumsum([0] + [p.shape[0] for p in parts])
+    smp = TorchSampler(seed)
+    pts, wts, gids, cands, extra = [], [], [], [], 0.0
+    sync(dev)
+    t0 = time.perf_counter()
+    for i, part in enumerate(parts):
+        if name == "rand":
+            summ = rand_summary(part, smp.fold_in(i), budget=b, policy=policy)
+        else:
+            r = kmeans_parallel_summary(part, smp.fold_in(i), budget=b,
+                                        rounds=KPAR_ROUNDS, sites=sites,
+                                        policy=policy)
+            summ = r.summary
+            extra += r.comm_records / sites      # multi-round overhead
+        pts.append(summ.points)
+        wts.append(summ.weights)
+        gids.append(summ.indices.long() + int(offs[i]))
+        cands.append(summ.is_candidate)
+    sync(dev)
+    t1 = time.perf_counter()
+    res = coordinator_fit(pts, wts, gids, cands,
+                          [1 if name == "rand" else KPAR_ROUNDS] * sites,
+                          smp, k=k, t=t, second_iters=KDD["second_iters"],
+                          policy=policy)
+    t2 = time.perf_counter()
+    res["comm_records"] += extra
+    res["phase_s"] = {"site_summaries": t1 - t0, "second_level": t2 - t1}
+    return res
+
+
+def h2h_checks(name, res, sizes, offs, t_i):
+    """Per site: the summary's mass equals the site's rows (exact but for
+    coreset's rescaled float weights: 1e-4 relative), ids lie in the site
+    and are unique (k-means||: among the records that carry mass; a
+    repeated draw carries none), and for the ball-growing summarizers
+    |candidates| <= 8 t_i and rounds <= max_rounds + 4."""
+    from repro_torch.stream.weighted import max_rounds
+    gid = res["summary_ids"]
+    w = res["summary_weights"].astype(np.float64)
+    cand = res["summary_candidates"]
+    cut = np.cumsum([0] + res["site_records"])
+    if cut[-1] != gid.shape[0]:
+        raise AssertionError(f"h2h {name}: site_records do not add up")
+    for i, n_i in enumerate(sizes):
+        g, wi = gid[cut[i]:cut[i + 1]], w[cut[i]:cut[i + 1]]
+        mass = float(wi.sum())
+        tol = 1e-4 * n_i if name == "coreset" else 0.0
+        if not abs(mass - n_i) <= tol:
+            raise AssertionError(f"h2h {name} site {i}: mass {mass} != {n_i}")
+        if not bool(((g >= offs[i]) & (g < offs[i + 1])).all()):
+            raise AssertionError(f"h2h {name} site {i}: an id off its site")
+        live = g[wi > 0] if name == "k-means||" else g
+        if np.unique(live).size != live.size:
+            raise AssertionError(f"h2h {name} site {i}: repeated ids")
+        if name in ("paper", "ball_cover"):
+            if int(cand[cut[i]:cut[i + 1]].sum()) > 8 * t_i:
+                raise AssertionError(f"h2h {name} site {i}: |X_r| > 8 t_i")
+            cap = max_rounds(n_i, t_i, 0.45) + 4
+            if res["site_rounds"][i] > cap:
+                raise AssertionError(f"h2h {name} site {i}: "
+                                     f"{res['site_rounds'][i]} rounds > {cap}")
+
+
+def h2h_row(dev, x_dev, truth, name, b, policy):
+    """One row of the head-to-head: the fit, its losses and scores, and its
+    checks (any failure raises)."""
+    from repro_torch.api.session import _run_oneshot
+    from repro_torch.core.distributed import local_budget
+    from repro_torch.core.metrics import clustering_losses, outlier_scores
+    from repro_torch.summarize import get_summarizer, summarizer_policy
+    k, t, sites = KDD["k"], len(truth), KDD["sites"]
+    sync(dev)
+    t0 = time.perf_counter()
+    if name in ("rand", "k-means||"):
+        res = per_site_baseline(dev, x_dev, name, b, k=k, t=t, sites=sites,
+                                seed=KDD["seed"], policy=policy)
+    else:
+        params = {"budget": b} if get_summarizer(name).sized else {}
+        res = _run_oneshot(x_dev, k=k, t=t, sites=sites, partition="random",
+                           metric="l2sq", second_iters=KDD["second_iters"],
+                           seed=KDD["seed"], policy=policy, device=dev,
+                           summarizer=summarizer_policy(name, **params))
+    t1 = time.perf_counter()
+    centers = torch.as_tensor(res["centers"], device=dev)
+    mask = torch.zeros((x_dev.shape[0],), dtype=torch.bool, device=dev)
+    mask[torch.as_tensor(res["outlier_ids"], device=dev)] = True
+    l1, l2 = (float(v) for v in clustering_losses(x_dev, centers, mask,
+                                                  policy=policy))
+    sc = outlier_scores(truth, res["summary_ids"], res["outlier_ids"])
+    sizes = [len(a) for a in np.array_split(np.arange(x_dev.shape[0]),
+                                            sites)]
+    h2h_checks(name, res, sizes, np.cumsum([0] + sizes),
+               local_budget(t, sites, "random"))
+    if not (np.isfinite(res["centers"]).all() and np.isfinite([l1, l2]).all()
+            and res["centers"].shape == (k, x_dev.shape[1])):
+        raise AssertionError(f"h2h {name}: non-finite or malformed result")
+    return {"algo": name, "budget_per_site": b,
+            "records": int(len(res["summary_ids"])),
+            "comm_records": res["comm_records"],
+            "site_summary_s": res["phase_s"]["site_summaries"],
+            "second_level_s": res["phase_s"]["second_level"],
+            "total_s": t1 - t0, "site_rounds_max": max(res["site_rounds"]),
+            "preRec": sc.pre_recall, "prec": sc.precision,
+            "recall": sc.recall, "n_outliers": int(len(res["outlier_ids"])),
+            "l1_loss": l1, "l2_loss": l2, "cost": res["cost"]}
+
+
+def head_to_head(dev, x_dev, truth, b, policy, counted):
+    """The paper's Table 3 on kddFull-like: every row of ``H2H`` at budget
+    ``b`` per site, each driven with the launch counters at 0 just before it
+    and read just after (min_argmin and lloyd_step must both launch); then
+    the paper's claim, its preRec above uniform's and rand's."""
+    rows = []
+    for name in H2H:
+        row = counted(f"h2h_{name}", ("min_argmin", "lloyd_step"),
+                      lambda: h2h_row(dev, x_dev, truth, name, b, policy))
+        log("h2h", json.dumps(row))
+        rows.append(row)
+    pre = {r["algo"]: r["preRec"] for r in rows}
+    if not pre["paper"] > max(pre["uniform"], pre["rand"]):
+        raise AssertionError(f"h2h: paper preRec {pre['paper']} does not "
+                             f"exceed uniform's and rand's: {pre}")
+    return rows
 
 
 # ----------------------------------------------------- rwkv6 serving path
@@ -1202,6 +1359,12 @@ def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
     pdist_row("kdd_alg2_reassign", site, c, "l2sq", 5)
     rows[-1]["blocks_per_sm"] = _blocks_per_sm("pdist", d)
     pdist_row("kdd_alg1_round", site, site[pick[:m]].contiguous(), "l2sq", 50)
+    # the baselines' assignment: a site against b of its rows (rand, uniform
+    # and k-means||'s last call)
+    b = h2h_budget(kdd_res)
+    pdist_row("kdd_baseline_assign", site,
+              site[torch.randperm(n_site, generator=g)[:b].to(dev)]
+              .contiguous(), "l2sq", 5)
     cen = kdd_model.centers
     k = cen.shape[0]
     pdist_row("kdd_losses_l2", kdd_x, cen, "l2", 20, 1 << 20)
@@ -1799,6 +1962,29 @@ def run(dev: torch.device, card: str) -> dict:
             and kb["cost_rel_diff"] <= 0.05):
         raise AssertionError(f"kernel path and blocked path disagree: {cmp}")
 
+    # ---- 3c. the paper's Table 3 head-to-head on kddFull-like at the
+    # budget of the kdd fit's summary; first min_argmin at the baselines'
+    # assignment shape (a site against b of its rows) against its plain
+    # version and route against route
+    b = h2h_budget(kdd_res)
+    site = kdd_x[:ks["n_site"]]
+    g = torch.Generator(device="cpu").manual_seed(2)
+    c_b = site[torch.randperm(ks["n_site"], generator=g)[:b].to(dev)]
+    c_b = c_b.contiguous()
+    h2h_fail = []
+    for rec in (check_pdist(dev, "kdd_baseline_assign", site, c_b, "l2sq",
+                            h2h_fail),
+                route_bitwise(dev, "kdd_baseline_assign", site, c_b, "l2sq",
+                              h2h_fail)):
+        log("check", json.dumps(rec))
+        checks.append(rec)
+    if h2h_fail:
+        raise AssertionError(f"min_argmin at the baselines' shape: "
+                             f"{h2h_fail}")
+    t0 = time.perf_counter()
+    h2h = head_to_head(dev, kdd_x, kdd_truth, b, auto, counted)
+    log(f"h2h_s {time.perf_counter() - t0:.2f} (budget {b} per site)")
+
     # ---- 3b and 4b. rwkv6-7b serving (prefill + decode), then its
     # plain-WKV twin and the teacher-forcing check
     rwkv_out = rwkv_serving(dev, counted)
@@ -1833,7 +2019,8 @@ def run(dev: torch.device, card: str) -> dict:
     report = {"card": card, "build_s": build_s, "checks": checks,
               "main_path": [kdd_out, g_out], "serve": serve_out,
               "rwkv6_serving": rwkv_out,
-              "kernel_vs_blocked": cmp, "timings": timings,
+              "kernel_vs_blocked": cmp, "head_to_head": h2h,
+              "h2h_budget_per_site": b, "timings": timings,
               "route_ladder": ladder,
               "launches": launches, "launches_per_run": per_run,
               "kernels": entries,

@@ -2,7 +2,8 @@
 
 Port of ``repro.api.session._run_oneshot`` (host-simulated branch) and
 ``_model_from_result``.  They take the pipeline settings as keywords
-(``k, t, sites, partition, metric, second_iters, seed, policy``), standing
+(``k, t, sites, partition, metric, second_iters, seed, policy,
+summarizer``), standing
 in for ``PipelineConfig`` until ``api/config.py`` and ``Session`` are
 ported (ROADMAP.md).
 """
@@ -19,6 +20,7 @@ from repro_torch.core.sampler import Sampler, TorchSampler
 from repro_torch.kernels.dispatch import KernelPolicy
 from repro_torch.kernels.pdist.ops import min_argmin
 from repro_torch.stream.service import ModelState
+from repro_torch.summarize.base import SummarizerPolicy
 
 RESULT_KEYS = ("centers", "outlier_ids", "summary_ids", "summary_weights",
                "comm_records", "cost")
@@ -26,21 +28,25 @@ RESULT_KEYS = ("centers", "outlier_ids", "summary_ids", "summary_weights",
 
 def _run_oneshot(x, *, k: int, t: int, sites: int, partition: str = "random",
                  metric: str = "l2sq", second_iters: int = 25, seed: int = 0,
-                 policy: Optional[KernelPolicy] = None, device="cuda",
-                 sampler: Optional[Sampler] = None) -> dict:
+                 policy: Optional[KernelPolicy] = None,
+                 summarizer: Optional[SummarizerPolicy] = None,
+                 device="cuda", sampler: Optional[Sampler] = None) -> dict:
     """Algorithm 3 over ``x`` split into ``sites`` contiguous parts
     (``np.array_split`` sizes), keyed by ``TorchSampler(seed)`` unless a
-    ``sampler`` is given.  Returns the reference's six result keys plus the
-    port's ``site_records``, ``site_rounds`` and ``phase_s``."""
+    ``sampler`` is given; ``summarizer`` picks each site's summary from the
+    registry (None: the paper's Alg. 2).  Returns the reference's six
+    result keys plus the port's ``summary_candidates``, ``site_records``,
+    ``site_rounds`` and ``phase_s``."""
     dev = resolve_device(device)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
     parts = torch.tensor_split(x, sites)
     res = simulate_coordinator(
         parts, sampler if sampler is not None else TorchSampler(seed),
-        k=k, t=t, partition=partition, second_iters=second_iters,
-        metric=metric, policy=policy, device=dev)
+        k=k, t=t, partition=partition, summarizer=summarizer,
+        second_iters=second_iters, metric=metric, policy=policy, device=dev)
     return {key: res[key] for key in
-            RESULT_KEYS + ("site_records", "site_rounds", "phase_s")}
+            RESULT_KEYS + ("summary_candidates", "site_records",
+                           "site_rounds", "phase_s")}
 
 
 def _model_from_result(x, res: dict, *, metric: str = "l2sq",

@@ -9,7 +9,9 @@ and calls it in the reference's key schedule:
     (after ``fold_in(17)`` on the compact path), ``split`` per k-means++
     pick;
   * ``fold_in(i)`` per site and ``fold_in(2**31 - 1)`` for the second level
-    (``distributed.py``).
+    (``distributed.py``);
+  * ``uniform`` for the ``uniform`` summarizer's reservoir keys and
+    ``choice(replace=False)`` for the ``rand`` baseline's sample.
 
 A test-side adapter that maps the same four methods onto ``jax.random``
 therefore replays the reference's draws exactly; production uses
@@ -50,6 +52,18 @@ class Sampler(abc.ABC):
                 device=None) -> torch.Tensor:
         """int64 ids of ``shape``, uniform in ``[0, high)``
         (``jax.random.randint(key, shape, 0, high)``)."""
+
+    @abc.abstractmethod
+    def uniform(self, shape: Sequence[int], minval: float, maxval: float,
+                device=None) -> torch.Tensor:
+        """float32 of ``shape``, uniform in ``[minval, maxval)``
+        (``jax.random.uniform(key, shape, minval=, maxval=)``)."""
+
+    @abc.abstractmethod
+    def choice(self, n: int, shape: Sequence[int], replace: bool = False,
+               device=None) -> torch.Tensor:
+        """int64 ids of ``shape`` drawn from ``[0, n)``, distinct unless
+        ``replace`` (``jax.random.choice(key, n, shape, replace=)``)."""
 
 
 class TorchSampler(Sampler):
@@ -94,4 +108,19 @@ class TorchSampler(Sampler):
     def randint(self, high, shape, device=None):
         ids = torch.randint(0, int(high), tuple(shape),
                             generator=self._generator())
+        return ids if device is None else ids.to(device)
+
+    def uniform(self, shape, minval, maxval, device=None):
+        u = torch.rand(tuple(shape), generator=self._generator())
+        u = torch.clamp(u * (maxval - minval) + minval, min=minval)
+        return u if device is None else u.to(device)
+
+    def choice(self, n, shape, replace=False, device=None):
+        count = math.prod(shape) if len(shape) else 1
+        if replace:
+            return self.randint(n, shape, device)
+        if count > n:
+            raise ValueError(f"cannot take {count} distinct ids of {n}")
+        ids = torch.randperm(int(n), generator=self._generator())[:count]
+        ids = ids.reshape(tuple(shape))
         return ids if device is None else ids.to(device)

@@ -29,6 +29,7 @@ from repro_torch.data.synthetic import gauss
 from repro_torch.kernels.dispatch import KernelPolicy
 from repro_torch.stream.service import (_score_batch, fit_model,
                                         model_from_arrays)
+from repro_torch.summarize import SummarizerPolicy
 from test_torch_replay import JaxReplaySampler
 
 torch.set_num_threads(1)
@@ -164,6 +165,6 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
         _run_oneshot(x, k=K, t=T, sites=SITES)
     with pytest.raises(RuntimeError, match="cuda"):
         model_from_arrays({"centers": np.zeros((K, 5))})
-    with pytest.raises(NotImplementedError, match="summarizer"):
+    with pytest.raises(RuntimeError, match="cuda"):
         simulate_coordinator([x], TorchSampler(0), k=K, t=T,
-                             summarizer="paper", device="cpu")
+                             summarizer=SummarizerPolicy("paper"))

@@ -1,7 +1,8 @@
 """The replay sampler: the port's ``Sampler`` seam driven by ``jax.random``.
 
 ``JaxReplaySampler`` maps ``split`` / ``fold_in`` / ``categorical`` /
-``randint`` onto the reference's ``jax.random`` calls, so a port function
+``randint`` / ``uniform`` / ``choice`` onto the reference's ``jax.random``
+calls, so a port function
 given it draws exactly the numbers the reference draws from the same key.
 The sibling ``test_torch_*`` files import it from here
 (``from test_torch_replay import JaxReplaySampler``).
@@ -41,6 +42,18 @@ class JaxReplaySampler(Sampler):
         out = torch.as_tensor(np.asarray(ids, np.int64))
         return out if device is None else out.to(device)
 
+    def uniform(self, shape, minval, maxval, device=None):
+        u = jax.random.uniform(self.key, tuple(shape), minval=minval,
+                               maxval=maxval)
+        out = torch.as_tensor(np.array(u, np.float32))
+        return out if device is None else out.to(device)
+
+    def choice(self, n, shape, replace=False, device=None):
+        ids = jax.random.choice(self.key, int(n), tuple(shape),
+                                replace=replace)
+        out = torch.as_tensor(np.asarray(ids, np.int64))
+        return out if device is None else out.to(device)
+
 
 def test_replay_reproduces_jax_draws():
     key = jax.random.key(3)
@@ -68,6 +81,26 @@ def test_replay_reproduces_jax_draws():
         np.asarray(jax.random.randint(k3, (5,), 0, 7)))
 
 
+@pytest.mark.parametrize("draw", ["uniform", "choice"])
+def test_replay_reproduces_jax_uniform_and_choice(draw):
+    key = jax.random.key(5)
+    smp = JaxReplaySampler(key).fold_in(3).split(2)[1]
+    k = jax.random.split(jax.random.fold_in(key, 3))[1]
+    if draw == "uniform":
+        want = jax.random.uniform(k, (1000,), minval=1e-12, maxval=1.0)
+        got = smp.uniform((1000,), 1e-12, 1.0)
+        assert got.dtype == torch.float32
+    else:
+        want = jax.random.choice(k, 500, (37,), replace=True)
+        np.testing.assert_array_equal(smp.choice(500, (37,), replace=True),
+                                      np.asarray(want))
+        want = jax.random.choice(k, 500, (37,), replace=False)
+        got = smp.choice(500, (37,))
+        assert got.dtype == torch.int64
+        assert np.unique(got.numpy()).size == 37        # distinct
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_torch_sampler_deterministic_and_masked(seed):
     smp = TorchSampler(seed)
@@ -81,6 +114,13 @@ def test_torch_sampler_deterministic_and_masked(seed):
     r = smp.randint(10, (1000,))
     assert r.min() >= 0 and r.max() < 10 and r.dtype == torch.int64
     assert torch.equal(r, TorchSampler(seed).randint(10, (1000,)))
+    u = smp.fold_in(1).uniform((1000,), 1e-12, 1.0)
+    assert u.dtype == torch.float32 and u.min() >= 1e-12 and u.max() < 1.0
+    assert torch.equal(u, TorchSampler(seed).fold_in(1).uniform(
+        (1000,), 1e-12, 1.0))
+    c = smp.fold_in(2).choice(100, (100,))
+    assert torch.equal(torch.sort(c).values, torch.arange(100))  # distinct
+    assert torch.equal(c, TorchSampler(seed).fold_in(2).choice(100, (100,)))
 
 
 def test_port_imports_neither_jax_nor_the_reference():
