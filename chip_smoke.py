@@ -49,6 +49,21 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    mass, ids, candidates and rounds in the head-to-head too, and there the
    paper's preRec above uniform's and rand's) and fails unless every kernel
    was launched (min_argmin and lloyd_step in every head-to-head row);
+   and the streaming service (the "stream" phase): the reference's
+   long-stream deployment (``benchmarks/stream_bench.py::store_section`` at
+   1M rows: gauss 20 x 50,000, d = 5, t = 10,000, leaf 2,048, a refresh
+   every n/4 rows, a window of n/2, batches of 8,192) through
+   ``StreamService`` once all-resident and once under
+   ``StoreSpec(hot_levels=1)``; it checks the two packed roots bit for bit,
+   spills and page-ins, mass against the window's rows and the record cap,
+   an incremental refresh's skip, an async refresh against the blocking
+   one bit for bit, 400 micro-batches through submit/drain (224 window rows
+   + 32 planted), a save and restore that scores and then ingests and
+   refits bit for bit as the saved service does; then the same settings on
+   an integer-grid stream (200,000 rows, t = 2,000, where the merges run
+   Algorithm 1's rounds) on the kernels and on the plain path, whose roots
+   and centers must be equal bit for bit; min_argmin, lloyd_step and score
+   must each launch in the phase;
 4. re-runs gauss with ``backend="blocked"`` (the plain torch path) from the
    same seed, and on the kernels from another seed as the yardstick of two
    independent draws, and compares the results; re-runs the rwkv6 prefill
@@ -57,7 +72,8 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
 5. times each kernel at the main path's shapes beside its plain version,
    a PyTorch yardstick and its roofline bound (min_argmin's calls of both
    fits and the baselines' assignment on both of its routes; WKV also its
-   first pass alone, and at B = 1), both min_argmin routes over a ladder of m at d = 5, 16, 34 and
+   first pass alone, and at B = 1; the three clustering kernels at the
+   stream's shapes), both min_argmin routes over a ladder of m at d = 5, 16, 34 and
    64 (the routing threshold), the serving score at 256 x 3 x 34 and
    256 x 100 x 5 split into device time per launch (a CUDA graph), host
    time per call and a host breakdown, the Lloyd step at both second
@@ -1071,6 +1087,413 @@ def head_to_head(dev, x_dev, truth, b, policy, counted):
     return rows
 
 
+# -------------------------------------------- the streaming service path
+# The reference's long-stream deployment, benchmarks/stream_bench.py::
+# store_section at points=1,000,000 (its t = points // 100): gauss(20
+# centers x 50,000 rows, d = 5, sigma = 0.1, t = 10,000) through
+# ServiceConfig(dim=5, k=20, t=10,000, leaf_size=2048, refresh_every=n//4,
+# micro_batch=256, window=n//2), ingested in batches of 8,192, once with
+# every summary resident and once under StoreSpec(hot_levels=1) (levels >= 2
+# spill to disk and are paged back in for merges and root gathers).
+STREAM = dict(n_centers=20, per_center=50_000, d=5, sigma=0.1, t=10_000,
+              k=20, leaf_size=2_048, batch=8_192, seed=0, planted=32,
+              extra=8_192)
+# The kernel-vs-plain stream: the same tree and service settings on an
+# integer grid, where every distance between two rows is exact in f32 in any
+# order of summation: 20 clusters of +-4 around integer centers in
+# [-60, 60]^5 and `far` planted rows at +-[256, 512] per coordinate (squared
+# distances < 2^24), t = n // 100 as store_section sizes it.  At this t the
+# merge-reduce of two level-2 nodes (16,384 records > 8t) runs Algorithm 1's
+# rounds, which the deployment above never does (its nodes stop at 65,536
+# records, under 8t = 80,000, by the window's span cap).
+STREAM_GRID = dict(n=200_000, far=6_000, k=20, seed=1)
+
+
+def stream_config(n, t, policy, **over):
+    """store_section's ServiceConfig for a stream of ``n`` rows."""
+    from repro_torch.stream import ServiceConfig
+    return ServiceConfig(dim=STREAM["d"], k=STREAM["k"], t=t,
+                         leaf_size=STREAM["leaf_size"],
+                         refresh_every=max(n // 4, STREAM["batch"]),
+                         micro_batch=MICRO_BATCH,
+                         window=max(n // 2, STREAM["batch"]),
+                         policy=policy, seed=STREAM["seed"], **over)
+
+
+def stream_ingest(svc, x):
+    """Ingest ``x`` in the deployment's batches.  Returns (wall s, {version:
+    (model, fit s)} of every model installed meanwhile); the wall includes
+    the cadence refreshes, as store_section's does."""
+    fits = {}
+    sync(svc.device)
+    t0 = time.perf_counter()
+    for i in range(0, x.shape[0], STREAM["batch"]):
+        svc.ingest(x[i:i + STREAM["batch"]])
+        if svc.last_fit is not None:
+            fits.setdefault(svc.last_fit.version,
+                            (svc.model, svc.last_fit.fit_s))
+    sync(svc.device)
+    return time.perf_counter() - t0, fits
+
+
+def _same_models(a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("centers", "threshold", "cost", "version",
+                         "trained_weight"))
+
+
+def _same_results(ra, rb) -> bool:
+    return len(ra) == len(rb) and all(
+        (a.center, a.distance, a.outlier_score) ==
+        (b.center, b.distance, b.outlier_score) for a, b in zip(ra, rb))
+
+
+def _window_checks(label, svc, fail):
+    """Mass conservation and the window bound: the live mass equals the
+    unit-weight rows the live nodes and the buffer span, within the window
+    plus one merge span and one leaf; every node within ``record_cap``."""
+    from repro_torch.stream import record_cap
+    tree, cfg = svc.tree, svc.cfg
+    rows = sum(nd.count for nd in tree.nodes) + tree._buf_n
+    mass = tree.total_weight
+    cap = record_cap(tree.cfg)
+    out = {"live_rows": rows, "live_mass": mass, "nodes": len(tree.nodes),
+           "levels": [nd.level for nd in tree.nodes],
+           "records": tree.num_records,
+           "max_node_records": max(nd.n_records for nd in tree.nodes),
+           "record_cap": cap}
+    bound = cfg.window + cfg.window // 4 + cfg.leaf_size
+    if not (abs(mass - rows) <= 1e-6 * rows and rows <= bound
+            and out["max_node_records"] <= cap):
+        fail.append(f"{label}: mass/window/cap {out} (bound {bound})")
+    return out
+
+
+def stream_main(dev, x, truth, tmp):
+    """The deployment through the user's entry points (``StreamService``'s
+    ingest, refresh, submit/drain, save/restore), with every check the
+    phase holds; returns (report, the shapes its kernels ran at)."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.store import StoreSpec
+    from repro_torch.stream import StreamService
+    auto, fail = KernelPolicy(), []
+    n, t = x.shape[0], STREAM["t"]
+    t_phase = time.perf_counter()
+    plain = StreamService(stream_config(n, t, auto), device=dev)
+    wall_plain, fits_plain = stream_ingest(plain, x)
+    spec = StoreSpec(hot_levels=1, directory=str(tmp / "spill"))
+    tiered = StreamService(stream_config(n, t, auto, store=spec), device=dev)
+    wall_tiered, fits_tiered = stream_ingest(tiered, x)
+    out = {"n": n, "d": x.shape[1], "k": STREAM["k"], "t": t,
+           "window": plain.cfg.window, "refresh_every":
+           plain.cfg.refresh_every, "leaf_size": plain.cfg.leaf_size,
+           "batch": STREAM["batch"],
+           "ingest_points_per_s": {"plain": n / wall_plain,
+                                   "tiered": n / wall_tiered},
+           "ingest_s": {"plain": wall_plain, "tiered": wall_tiered},
+           "cadence_fit_s": {"plain": [f for _, f in fits_plain.values()],
+                             "tiered": [f for _, f in fits_tiered.values()]}}
+    log("stream ingest", json.dumps(out))
+
+    # store contract: the root moves bytes only, and the tier did move
+    roots = [svc.tree.packed_root() for svc in (plain, tiered)]
+    out["root_rows"] = int(roots[0][0].shape[0])
+    out["roots_bitwise_equal"] = all(np.array_equal(a, b)
+                                     for a, b in zip(*roots))
+    out["store"] = tiered.tree.store.stats()
+    if not out["roots_bitwise_equal"]:
+        fail.append("tiered packed_root differs from the resident one")
+    if not (out["store"]["spills"] >= 1 and out["store"]["page_ins"] >= 1):
+        fail.append(f"the tier never spilled or paged in: {out['store']}")
+    out["window_plain"] = _window_checks("plain", plain, fail)
+    out["window_tiered"] = _window_checks("tiered", tiered, fail)
+
+    # incremental refresh: two refreshes on the final root.  The last
+    # cadence fit may already have seen it (n a multiple of the cadence):
+    # then both skip; either way the second must.
+    m1 = tiered.refresh()
+    skips = tiered.skipped_refreshes
+    t0 = time.perf_counter()
+    m2 = tiered.refresh()
+    out["skipped_refresh_s"] = time.perf_counter() - t0
+    out["refresh_fit_s"] = tiered.last_fit.fit_s
+    out["refresh_skipped"] = (tiered.skipped_refreshes == skips + 1
+                              and int(m2.version) == int(m1.version))
+    if not out["refresh_skipped"]:
+        fail.append("the second refresh on an unchanged root was not "
+                    "skipped")
+
+    # async refresh: the same prefix, the fit on a worker thread, installs
+    # the blocking service's model of the same version bit for bit
+    asy = StreamService(stream_config(n, t, auto, async_refresh=True),
+                        device=dev)
+    stream_ingest(asy, x[:plain.cfg.refresh_every])
+    asy.join_refresh()
+    out["async_equals_blocking"] = (int(asy.model.version) == 1 and
+                                    _same_models(asy.model,
+                                                 fits_plain[1][0]))
+    if not out["async_equals_blocking"]:
+        fail.append("the async model differs from the blocking one")
+    del asy
+
+    # serving: micro-batches of 224 clean window rows + 32 planted rows
+    lo = min(nd.min_seq for nd in tiered.tree.nodes)
+    in_window = np.arange(lo, n)
+    planted = np.intersect1d(truth, in_window)
+    clean = np.setdiff1d(in_window, truth)
+    rng = np.random.default_rng(3)
+    tiered.reset_latency_stats()
+    lat, hits = [], np.zeros(2, np.int64)
+    for _ in range(SERVE_BATCHES):
+        rows = np.concatenate([
+            rng.choice(planted, STREAM["planted"]),
+            rng.choice(clean, MICRO_BATCH - STREAM["planted"])])
+        t0 = time.perf_counter()
+        tiered.submit(x[rows])
+        res = tiered.drain()
+        lat.append(time.perf_counter() - t0)
+        flags = np.array([r.is_outlier for r in res])
+        hits += [flags[:STREAM["planted"]].sum(),
+                 flags[STREAM["planted"]:].sum()]
+        if len(res) != MICRO_BATCH or not np.isfinite(
+                [r.outlier_score for r in res]).all():
+            fail.append("a drained micro-batch is short or not finite")
+            break
+    lat_ms = np.asarray(lat) * 1e3
+    out["serve"] = {
+        "batches": len(lat), "micro_batch": MICRO_BATCH,
+        "latency_stats": tiered.latency_stats(),
+        "batch_p50_ms": float(np.percentile(lat_ms, 50)),
+        "batch_p99_ms": float(np.percentile(lat_ms, 99)),
+        "outlier_rate_planted": float(hits[0]) / (len(lat) *
+                                                  STREAM["planted"]),
+        "outlier_rate_clean": float(hits[1]) / (
+            len(lat) * (MICRO_BATCH - STREAM["planted"]))}
+    log("stream serve", json.dumps(out["serve"]))
+
+    # checkpoint: save, restore through a fresh manager, the same scores
+    # bit for bit; then both ingest more rows and refit: the bounded sampler
+    # state keeps them equal
+    q = x[rows]
+    before = tiered.score(q)
+    t0 = time.perf_counter()
+    tiered.save(CheckpointManager(tmp / "ckpt"), step=1)
+    out["checkpoint_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = StreamService.restore(tiered.cfg,
+                                     CheckpointManager(tmp / "ckpt"),
+                                     device=dev)
+    out["checkpoint_restore_s"] = time.perf_counter() - t0
+    out["restored_scores_bitwise"] = _same_results(restored.score(q), before)
+    more = x[:STREAM["extra"]]
+    for svc in (tiered, restored):
+        svc.ingest(more)
+    same = [np.array_equal(a, b) for a, b in
+            zip(tiered.tree.packed_root(), restored.tree.packed_root())]
+    same.append(np.array_equal(tiered.tree.sampler.key_data(),
+                               restored.tree.sampler.key_data()))
+    same.append(_same_models(tiered.refresh(), restored.refresh()))
+    out["restored_continues_bitwise"] = all(same)
+    if not (out["restored_scores_bitwise"]
+            and out["restored_continues_bitwise"]):
+        fail.append(f"the restored service parted from the saved one: "
+                    f"scores {out['restored_scores_bitwise']}, on {same}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log("stream checks", json.dumps({k: v for k, v in out.items()
+                                     if k not in ("serve",)}))
+    if fail:
+        raise AssertionError(f"stream phase: {fail}")
+    model = tiered.model
+    pts, wts, _ = (torch.from_numpy(a).to(dev)
+                   for a in tiered.tree.packed_root())
+    shapes = {"root": (pts, wts), "centers": model.centers,
+              "threshold": model.threshold,
+              "query": torch.from_numpy(q).to(dev)}
+    for svc in (tiered, restored):
+        svc.tree.store.close()     # no spill write outlives the directory
+    return out, shapes
+
+
+def stream_grid(n, far, k, seed):
+    """The integer-grid stream (see STREAM_GRID) and its planted ids."""
+    rng = np.random.default_rng(seed)
+    cen = rng.integers(-60, 61, size=(k, STREAM["d"]))
+    x = cen[rng.integers(0, k, n)] + rng.integers(-4, 5, size=(n, STREAM["d"]))
+    ids = np.sort(rng.choice(n, far, replace=False))
+    x[ids] = rng.integers(256, 513, size=(far, STREAM["d"])) * \
+        rng.choice([-1, 1], size=(far, STREAM["d"]))
+    return x.astype(np.float32), ids
+
+
+def stream_kernel_vs_plain(dev, kernels):
+    """The grid stream through the service on the kernels
+    (``backend="cuda"``) and on the plain torch path (``"blocked"``) from
+    the same seed.  Every distance the tree computes is exact, so the packed
+    roots must be equal bit for bit, and so must the fitted centers (a Lloyd
+    mean of integer sums is one rounding).  A distance to those centers is
+    a dot product the kernel and cuBLAS sum in other orders: the threshold
+    and the drained distances are held to TOL of the expansion's magnitude
+    (as the kernel checks are), their argmins and flags must be equal, and
+    how many came out bit for bit is reported."""
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.stream import StreamService
+    x, far = stream_grid(**STREAM_GRID)
+    n = x.shape[0]
+    t = max(n // 100, 40)
+    runs = {}
+    for backend in ("blocked", "cuda"):
+        for kern in kernels:
+            kern.launches = 0
+        svc = StreamService(stream_config(n, t, KernelPolicy(backend=backend)),
+                            device=dev)
+        wall, _ = stream_ingest(svc, x)
+        svc.refresh()
+        lo = min(nd.min_seq for nd in svc.tree.nodes)
+        rng = np.random.default_rng(5)
+        q = np.concatenate([x[rng.choice(far[far >= lo], 32)],
+                            x[rng.choice(np.arange(lo, n), 224)]])
+        res = svc.score(q)
+        runs[backend] = dict(svc=svc, root=svc.tree.packed_root(), q=q,
+                             res=res, wall=wall,
+                             launches={kk.name: kk.launches
+                                       for kk in kernels})
+    b, c = runs["blocked"], runs["cuda"]
+    mb, mc = b["svc"].model, c["svc"].model
+    pts = torch.from_numpy(b["root"][0]).to(dev)
+    cen = mb.centers.double()
+    scale = float((pts.double() ** 2).sum(1).max() + (cen ** 2).sum(1).max())
+    qd = torch.from_numpy(b["q"]).to(dev)
+    dk = torch.tensor([r.distance for r in c["res"]], device=dev)
+    dp = torch.tensor([r.distance for r in b["res"]], device=dev)
+    ap = torch.tensor([r.center for r in b["res"]], device=dev)
+    out = {
+        "n": n, "t": t, "far": STREAM_GRID["far"],
+        "ingest_s": {"blocked": b["wall"], "cuda": c["wall"]},
+        "launches": {"blocked": b["launches"], "cuda": c["launches"]},
+        "max_summary_rounds": max(nd.summary.n_rounds
+                                  for nd in c["svc"].tree.nodes),
+        "roots_bitwise_equal": all(np.array_equal(p, q) for p, q in
+                                   zip(b["root"], c["root"])),
+        "centers_bitwise_equal": bool(torch.equal(mb.centers, mc.centers)),
+        "version": [int(mb.version), int(mc.version)],
+        "threshold": [float(mb.threshold), float(mc.threshold)],
+        "threshold_scaled_err": abs(float(mb.threshold)
+                                    - float(mc.threshold)) / scale,
+        "argmins_equal": [r.center for r in b["res"]]
+        == [r.center for r in c["res"]],
+        "flags_equal": [r.is_outlier for r in b["res"]]
+        == [r.is_outlier for r in c["res"]],
+        "drained_dist_scaled_err": dist_err(qd, mb.centers, dk, dp, ap,
+                                            "l2sq"),
+        "drained_dist_bitwise": sum(r.distance == s.distance
+                                    for r, s in zip(b["res"], c["res"])),
+        "drained_score_bitwise": sum(r.outlier_score == s.outlier_score
+                                     for r, s in zip(b["res"], c["res"])),
+    }
+    log("stream kernel_vs_plain", json.dumps(out))
+    ok = (out["roots_bitwise_equal"] and out["centers_bitwise_equal"]
+          and out["version"][0] == out["version"][1]
+          and out["threshold_scaled_err"] <= TOL and out["argmins_equal"]
+          and out["flags_equal"] and out["drained_dist_scaled_err"] <= TOL
+          and not any(b["launches"].values())
+          and all(c["launches"][kk] > 0 for kk in
+                  ("min_argmin", "lloyd_step", "score")))
+    if not ok:
+        raise AssertionError(f"stream kernel vs plain: {out}")
+    return out, x
+
+
+def stream_phase(dev, counted, kernels, checks):
+    """The "stream" phase: the deployment (counted), the kernel-vs-plain grid
+    stream, the three kernels against their plain versions at the stream's
+    shapes, and their timings.  Returns (report, timing rows)."""
+    import tempfile
+    from repro_torch.data.synthetic import gauss
+    t0 = time.perf_counter()
+    x, truth = gauss(n_centers=STREAM["n_centers"],
+                     per_center=STREAM["per_center"], d=STREAM["d"],
+                     sigma=STREAM["sigma"], t=STREAM["t"], seed=STREAM["seed"])
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-stream-") as tmp:
+        out, shapes = counted("stream", ("min_argmin", "lloyd_step", "score"),
+                              lambda: stream_main(dev, x, truth, Path(tmp)))
+    out["kernel_vs_plain"], gx = stream_kernel_vs_plain(dev, kernels)
+
+    # the kernels at the stream's shapes against their plain versions: a
+    # merge-reduce round of the grid stream (two level-2 nodes' records
+    # against Alg. 1's m samples), the refresh's last assignment and Lloyd
+    # step on the deployment's root, a micro-batch against its model
+    leaf = STREAM["leaf_size"]
+    merged = torch.from_numpy(gx[:4 * 2 * leaf]).to(dev)
+    m_round = merge_round_m(merged.shape[0])
+    rnd_c = merged[::merged.shape[0] // m_round][:m_round].contiguous()
+    pts, wts = shapes["root"]
+    cen, thr, q = shapes["centers"], shapes["threshold"], shapes["query"]
+    fail = []
+    recs = [check_pdist(dev, "stream_merge_round", merged, rnd_c, "l2sq",
+                        fail),
+            check_pdist(dev, "stream_refresh_assign", pts, cen, "l2sq",
+                        fail),
+            check_lloyd(dev, "stream_refresh_root", pts, wts, cen, "l2sq",
+                        fail),
+            check_score(dev, "stream_micro_batch", q, cen, thr, "l2sq",
+                        fail)]
+    for rec in recs:
+        log("check", json.dumps(rec))
+    checks += recs
+    if fail:
+        raise AssertionError(f"kernels at the stream's shapes: {fail}")
+    timings = stream_timings(dev, merged, rnd_c, pts, wts, cen, thr, q)
+    out["total_s"] = time.perf_counter() - t0
+    log(f"stream_s {out['total_s']:.2f}")
+    return out, timings
+
+
+def merge_round_m(n_records) -> int:
+    """Alg. 1's samples per round at a merge of ``n_records`` records
+    (``stream/weighted.py``: m = ceil(alpha * max(k, ceil(ln n))))."""
+    import math
+    kappa = max(STREAM["k"], max(1, math.ceil(math.log(max(n_records, 2)))))
+    return int(math.ceil(2.0 * kappa))
+
+
+def stream_timings(dev, merged, rnd_c, pts, wts, cen, thr, q):
+    """Kernel, plain and yardstick times at the stream's shapes."""
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.kernels.lloyd.kernel import lloyd_step_cuda
+    from repro_torch.kernels.lloyd.ops import lloyd_step_blocked
+    from repro_torch.kernels.pdist.kernel import min_argmin_cuda
+    from repro_torch.kernels.pdist.ops import min_argmin_blocked
+    from repro_torch.kernels.score.kernel import score_cuda
+    from repro_torch.kernels.score.ops import score_blocked
+    rows = []
+    blocked = KernelPolicy(backend="blocked")
+    for name, x, c, reps in (("stream_merge_round", merged, rnd_c, 50),
+                             ("stream_refresh_assign", pts, cen, 20)):
+        n, d = x.shape
+        timing_row(rows, "min_argmin", name, [n, c.shape[0], d],
+                   pdist_work(n, c.shape[0], d, "l2sq"),
+                   lambda: min_argmin_cuda(x, c),
+                   lambda: min_argmin_blocked(x, c),
+                   lambda: cdist_min(x, c), reps)
+    (n, d), k = pts.shape, cen.shape[0]
+    timing_row(rows, "lloyd_step", "stream_refresh_root", [n, k, d],
+               lloyd_work(n, k, d), lambda: lloyd_step_cuda(pts, wts, cen),
+               lambda: lloyd_step_blocked(pts, wts, cen, policy=blocked),
+               None, 20)
+    # no single PyTorch call is a Lloyd step: its assignment alone by
+    # torch.cdist, as a partial yardstick
+    rows[-1]["cdist_assign_ms"] = time_ms(lambda: cdist_min(pts, cen), 10)
+    log(f"timing lloyd_step stream_refresh_root: its assignment alone by "
+        f"torch.cdist {rows[-1]['cdist_assign_ms']:.4f} ms")
+    timing_row(rows, "score", "stream_micro_batch", [MICRO_BATCH, k, d],
+               pdist_work(MICRO_BATCH, k, d, "l2sq", extra_out=4),
+               lambda: score_cuda(q, cen, thr), lambda: score_blocked(q, cen,
+                                                                     thr),
+               lambda: torch.cdist(q, cen).min(dim=1), 200)
+    return rows
+
+
 # ----------------------------------------------------- rwkv6 serving path
 # Tolerances.  The kernel route and the plain chunked route differ only in
 # WKV's summation order.  In float32 that leaves ~1e-6 of the output, and
@@ -1302,6 +1725,30 @@ def rwkv_serving(dev, counted):
 
 
 # --------------------------------------------------------------- timings
+def cdist_min(x, c, chunk=16_384):
+    """Yardstick only: row-chunked ``torch.cdist`` + min (never in the
+    port)."""
+    for i in range(0, x.shape[0], chunk):
+        torch.cdist(x[i:i + chunk], c).min(dim=1)
+
+
+def timing_row(rows, kernel, shape_name, shape, work, k_fn, p_fn, lib_fn,
+               reps):
+    """Append one timing row: the kernel, its plain version and the library
+    yardstick (``lib_fn``, or None) by CUDA events, beside the bound."""
+    ms = time_ms(k_fn, reps)
+    plain = time_ms(p_fn, max(1, reps // 2))
+    lib = None if lib_fn is None else time_ms(lib_fn, max(1, reps // 2))
+    b, by = bound_ms(*work)
+    rows.append(dict(kernel=kernel, shape_name=shape_name, shape=shape,
+                     ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
+                     bound_by=by, bytes=work[0], flops=work[1]))
+    log(f"timing {kernel} {shape_name} {shape}: kernel {ms:.4f} ms, "
+        f"plain {plain:.4f} ms, library "
+        f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms "
+        f"({by})")
+
+
 def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
     """Kernel, plain and yardstick times at the main path's shapes, with
     inputs from this run (kdd site 0, its summary records, its model)."""
@@ -1314,29 +1761,14 @@ def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
     from repro_torch.kernels.score.kernel import score_cuda
     from repro_torch.kernels.score.ops import score_blocked
 
-    def cdist_min(x, c, chunk=16_384):
-        # yardstick only: row-chunked torch.cdist + min (never in the port)
-        for i in range(0, x.shape[0], chunk):
-            torch.cdist(x[i:i + chunk], c).min(dim=1)
-
     g = torch.Generator(device="cpu").manual_seed(1)
     n_site, cap, m, d = ks["n_site"], ks["center_cap"], ks["m"], kdd_x.shape[1]
     site = kdd_x[:n_site]
     pick = torch.randperm(n_site, generator=g)[:cap].to(dev)
     rows = []
 
-    def row(kernel, shape_name, shape, work, k_fn, p_fn, lib_fn, reps):
-        ms = time_ms(k_fn, reps)
-        plain = time_ms(p_fn, max(1, reps // 2))
-        lib = None if lib_fn is None else time_ms(lib_fn, max(1, reps // 2))
-        b, by = bound_ms(*work)
-        rows.append(dict(kernel=kernel, shape_name=shape_name, shape=shape,
-                         ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b,
-                         bound_by=by, bytes=work[0], flops=work[1]))
-        log(f"timing {kernel} {shape_name} {shape}: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, library "
-            f"{'n/a' if lib is None else f'{lib:.4f} ms'}, bound {b:.4f} ms "
-            f"({by})")
+    def row(*args):
+        timing_row(rows, *args)
 
     def pdist_row(shape_name, x, c, metric, reps, chunk=16_384):
         """A min_argmin row, with both routes timed beside the routed call
@@ -1985,6 +2417,9 @@ def run(dev: torch.device, card: str) -> dict:
     h2h = head_to_head(dev, kdd_x, kdd_truth, b, auto, counted)
     log(f"h2h_s {time.perf_counter() - t0:.2f} (budget {b} per site)")
 
+    # ---- 3d. the streaming service (the "stream" phase)
+    stream_out, stream_rows = stream_phase(dev, counted, kernels, checks)
+
     # ---- 3b and 4b. rwkv6-7b serving (prefill + decode), then its
     # plain-WKV twin and the teacher-forcing check
     rwkv_out = rwkv_serving(dev, counted)
@@ -1994,7 +2429,7 @@ def run(dev: torch.device, card: str) -> dict:
 
     # ---- 5. timings at the main path's shapes
     timings = kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs)
-    timings += wkv_timings(dev)
+    timings += stream_rows + wkv_timings(dev)
     ladder = route_ladder(dev, kdd_x, gauss_x, ks, gs)
 
     entries = []
@@ -2020,6 +2455,7 @@ def run(dev: torch.device, card: str) -> dict:
               "main_path": [kdd_out, g_out], "serve": serve_out,
               "rwkv6_serving": rwkv_out,
               "kernel_vs_blocked": cmp, "head_to_head": h2h,
+              "stream": stream_out,
               "h2h_budget_per_site": b, "timings": timings,
               "route_ladder": ladder,
               "launches": launches, "launches_per_run": per_run,

@@ -17,6 +17,12 @@ A test-side adapter that maps the same four methods onto ``jax.random``
 therefore replays the reference's draws exactly; production uses
 :class:`TorchSampler`.  A sampler is a value, like a key: drawing from the
 same sampler twice gives the same numbers.
+
+A sampler packs into two uint32 words (``key_data``), the shape of the
+reference's ``jax.random.key_data`` leaf, so the stream tree and service
+checkpoint it as a fixed-shape leaf; the restore paths take a
+``sampler_from_key_data`` hook that rebuilds a sampler from those words
+(:meth:`TorchSampler.from_key_data` by default).
 """
 from __future__ import annotations
 
@@ -30,6 +36,11 @@ import torch
 
 class Sampler(abc.ABC):
     """Key-like source of random draws (see module docstring)."""
+
+    @abc.abstractmethod
+    def key_data(self) -> np.ndarray:
+        """The sampler's state as ``(2,)`` uint32 words
+        (``jax.random.key_data``); a checkpoint stores them."""
 
     @abc.abstractmethod
     def split(self, n: int = 2) -> list["Sampler"]:
@@ -69,32 +80,53 @@ class Sampler(abc.ABC):
 class TorchSampler(Sampler):
     """Production sampler over ``torch.Generator``.
 
-    Child seeds derive deterministically from ``(seed, path)`` through
-    numpy's ``SeedSequence``.  Draws are made by a CPU generator and the
-    ids moved to the logits' device, so a run's draws do not depend on
-    whether it ran on the card.
+    A value identified by two uint32 words.  ``TorchSampler(seed)`` derives
+    them from the seed, and ``split`` / ``fold_in`` derive each child's
+    words from the parent's words and (tag, index) through numpy's
+    ``SeedSequence``, so the state stays two words however long the chain
+    of splits: ``TorchSampler.from_key_data(s.key_data())`` draws what
+    ``s`` draws.  A draw's generator is seeded from the words.  Draws are
+    made by a CPU generator and the ids moved to the logits' device, so a
+    run's draws do not depend on whether it ran on the card.
     """
 
     _SPLIT, _FOLD = 1, 2
 
-    def __init__(self, seed: int, path: tuple = ()):
-        self.seed = int(seed)
-        self.path = tuple(path)
+    def __init__(self, seed: int):
+        words = np.random.SeedSequence(int(seed)).generate_state(2, np.uint32)
+        self._words = (int(words[0]), int(words[1]))
+
+    @classmethod
+    def from_key_data(cls, words) -> "TorchSampler":
+        """The sampler whose :meth:`key_data` is ``words``."""
+        words = np.asarray(words, np.uint32).reshape(-1)
+        if words.shape != (2,):
+            raise ValueError(f"key data must be 2 uint32 words, got "
+                             f"shape {words.shape}")
+        sampler = cls.__new__(cls)
+        sampler._words = (int(words[0]), int(words[1]))
+        return sampler
+
+    def key_data(self) -> np.ndarray:
+        return np.asarray(self._words, np.uint32)
 
     def __repr__(self) -> str:
-        return f"TorchSampler(seed={self.seed}, path={self.path})"
+        return f"TorchSampler(words={self._words})"
+
+    def _child(self, tag: int, i: int) -> "TorchSampler":
+        ss = np.random.SeedSequence(entropy=list(self._words),
+                                    spawn_key=(tag, int(i)))
+        return TorchSampler.from_key_data(ss.generate_state(2, np.uint32))
 
     def split(self, n: int = 2) -> list["TorchSampler"]:
-        return [TorchSampler(self.seed, self.path + (self._SPLIT, j))
-                for j in range(n)]
+        return [self._child(self._SPLIT, j) for j in range(n)]
 
     def fold_in(self, i: int) -> "TorchSampler":
-        return TorchSampler(self.seed, self.path + (self._FOLD, int(i)))
+        return self._child(self._FOLD, i)
 
     def _generator(self) -> torch.Generator:
-        ss = np.random.SeedSequence(entropy=self.seed, spawn_key=self.path)
         g = torch.Generator(device="cpu")
-        g.manual_seed(int(ss.generate_state(1, np.uint64)[0]))
+        g.manual_seed((self._words[0] << 32) | self._words[1])
         return g
 
     def categorical(self, logits, shape=()):

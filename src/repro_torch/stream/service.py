@@ -1,27 +1,121 @@
-"""Serving model and the fused read path.
+"""Online scoring front end over the stream tree.
 
-Port of the model/read-path half of ``repro.stream.service``: the fitted
-``ModelState`` (this system's only state: it has no weights), ``fit_model``
-(second-level weighted k-means-- on a root -> ModelState), ``_score_batch``
-(one fused ``score`` dispatch per micro-batch: pdist → argmin →
-dist/threshold) and ``model_from_arrays``, which carries a model fitted by
-the reference across.  ``ServingFrontEnd`` / ``StreamService`` are not
-ported yet (ROADMAP.md).
+Port of ``repro.stream.service``.  The reference's multi-host
+``ShardedStreamService``, which shares ``ServingFrontEnd``
+(``stream/sharded.py``), is not ported yet (ROADMAP.md, queue 1 item 3).
+
+Write path: ``ingest`` feeds raw points into the merge-and-reduce tree;
+every ``refresh_every`` ingested points (or on demand) the tree root —
+the union of all live weighted summaries — is re-clustered with weighted
+k-means-- (the paper's coordinator step) into a versioned ``ModelState``.
+
+Read path: ``submit`` enqueues assign/score requests; ``drain`` serves the
+queue in fixed-size micro-batches through ONE fused ``score`` dispatch
+each (min-distance → argmin → dist/threshold in a single pass; backend
+selection via ``ServiceConfig.policy``).  The queue holds whole submitted
+*blocks*, not per-row tuples, so enqueue and batch assembly are O(blocks)
+array copies.  Every micro-batch is padded to the same static shape.
+Per-request latency (enqueue -> scored) is kept in a bounded ring of the
+most recent 4,096 samples (the reference's ``serve.latency`` histogram
+ring) for p50/p99 reporting.
+
+Double-buffered refresh (``async_refresh=True``): a cadence refresh
+snapshots the tree root on the ingest thread, then fits the next
+``ModelState`` on a worker thread while ingest keeps running and queries
+keep scoring against the *old* model; the new model is installed at the
+next ingest/drain boundary (``poll_refresh``).  The fit is a pure function
+of (root snapshot, version, model sampler), so the async model is
+bit-identical to what a blocking refresh at the same boundary would have
+produced — only the install time moves.  A fit ends with its tensors
+complete on the card (``_timed_fit``) before another thread may install
+them.
 
 Outlier scoring: a request's score is d(x, nearest center) / threshold,
 where threshold is the largest inlier distance seen when the model was
 fit; score > 1 flags the point as an outlier under the current model.
+
+Restart story: ``save``/``restore`` round-trip the tree + model + service
+counters through ``CheckpointManager`` in the reference's layout (the
+model sampler is the ``model_key`` leaf of two uint32 words), so a
+restored service returns bit-identical scores and draws what the
+uninterrupted one draws; a checkpoint written by either package restores
+in the other.
+
+``model_from_arrays`` carries a model fitted by the reference across.  The
+reference's telemetry (``obs`` traces, counters, gauges, the drift
+monitors) is not ported yet (ROADMAP.md, queue 1 item 4); the front end
+keeps plain tallies of skipped refreshes and warm starts instead.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+import dataclasses
+import functools
+import threading
+import time
+from collections import deque
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.kmeans_mm import kmeans_minus_minus
+from repro_torch.core.sampler import Sampler, TorchSampler
+from repro_torch.kernels.dispatch import KernelPolicy, get_default_policy
 from repro_torch.kernels.score.ops import score as fused_score
+from repro_torch.store.spec import StoreSpec
+from repro_torch.stream.tree import StreamTree, TreeConfig
+from repro_torch.summarize.base import (SummarizerPolicy,
+                                        get_default_summarizer)
+
+# recent latency samples kept for the percentiles (the reference's
+# ``obs.registry.DEFAULT_RING``)
+LATENCY_RING = 4096
+
+
+@dataclasses.dataclass(frozen=True)
+class BaseServiceConfig:
+    """Fields shared by every serving front end (single-host and sharded)."""
+
+    dim: int
+    k: int
+    t: int
+    leaf_size: int = 2048
+    refresh_every: int = 8192        # raw points between model refreshes
+    micro_batch: int = 256           # static query-batch shape
+    second_iters: int = 25
+    metric: str = "l2sq"
+    # None = capture the process default (set_default_policy) at construction
+    policy: Optional[KernelPolicy] = None
+    # None = capture the process default (set_default_summarizer); selects
+    # the tree's summary algorithm (leaf reduction + merge-reduce)
+    summarizer: Optional[SummarizerPolicy] = None
+    window: Optional[int] = None
+    async_refresh: bool = False      # fit cadence models off the ingest path
+    seed: int = 0
+    # None = classic behavior (all-resident tree, every refresh refits).
+    # A StoreSpec adds disk tiering and/or incremental refresh; model
+    # samplers are then derived from the tree's root epoch instead of the
+    # version, so an unchanged root provably refits to the identical model —
+    # which is what makes skipping it safe (see _fit_closure).
+    store: Optional[StoreSpec] = None
+
+    def __post_init__(self):
+        if self.policy is None:
+            object.__setattr__(self, "policy", get_default_policy())
+        if self.summarizer is None:
+            object.__setattr__(self, "summarizer", get_default_summarizer())
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceConfig(BaseServiceConfig):
+    def tree_config(self) -> TreeConfig:
+        return TreeConfig(
+            dim=self.dim, k=self.k, t=self.t, leaf_size=self.leaf_size,
+            metric=self.metric, policy=self.policy,
+            summarizer=self.summarizer,
+            window=self.window, seed=self.seed, store=self.store)
 
 
 class ModelState(NamedTuple):
@@ -30,6 +124,16 @@ class ModelState(NamedTuple):
     cost: torch.Tensor        # () f32 — weighted second-level objective
     version: torch.Tensor     # () i32 — 0 means "no model yet"
     trained_weight: torch.Tensor  # () f32 — mass the model was fit on
+
+
+class FitStats(NamedTuple):
+    """The most recent installed refresh.  ``installed_at`` is a
+    ``time.perf_counter`` stamp; compare against it, don't interpret it as
+    wall-clock."""
+    version: int
+    records_folded: int      # live root records the model was fit on
+    fit_s: float             # wall time of the second-level fit
+    installed_at: float
 
 
 class QueryResult(NamedTuple):
@@ -52,8 +156,10 @@ def fit_model(pts, wts, valid, sampler, version, *, k, t, iters, metric,
               policy, init_centers=None) -> ModelState:
     """Second-level weighted k-means-- on a (padded) root -> ModelState.
 
-    Pure function of its inputs; ``init_centers`` warm-starts the Lloyd
-    loop from the previous model's centers (``sampler`` then unused).
+    Pure function of its inputs — the one coordinator step every serving
+    path (sync or async refresh) funnels through.  ``init_centers``
+    warm-starts the Lloyd loop from the previous model's centers (the
+    incremental-refresh path; ``sampler`` is then unused).
     """
     sol = kmeans_minus_minus(
         pts, wts, valid, sampler, k=k, t=float(t), iters=iters,
@@ -85,3 +191,447 @@ def model_from_arrays(md: dict, device="cuda") -> ModelState:
         cost=leaf("cost", torch.float32),
         version=leaf("version", torch.int32),
         trained_weight=leaf("trained_weight", torch.float32))
+
+
+def _complete(model: ModelState) -> None:
+    """Wait until ``model``'s tensors are written: an event recorded on
+    this thread's current stream, after the fit's last launch, and waited
+    on (the reference's ``jax.block_until_ready``)."""
+    dev = model.centers.device
+    if dev.type == "cuda":
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(dev))
+        done.synchronize()
+
+
+class ServingFrontEnd:
+    """Micro-batched read path + double-buffered model state.
+
+    Subclasses own the write path and provide ``_fit_closure(version)``: a
+    zero-arg callable, with all inputs already snapshotted on the calling
+    thread, that computes the next ``ModelState``.  The front end decides
+    *when* it runs (inline for blocking refreshes, on a worker thread for
+    async ones) and installs the result.  Queries are scored on ``device``.
+    """
+
+    def __init__(self, cfg, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model: Optional[ModelState] = None
+        # block-granular: (first_id, rows (b, d) f32, t_enqueue) per submit
+        # call — request ids are consecutive within a block
+        self._queue: deque = deque()
+        self._queued_rows = 0
+        self._next_id = 0
+        self._lat: deque = deque(maxlen=LATENCY_RING)
+        self._lat_count = 0
+        self._worker: Optional[threading.Thread] = None
+        self._worker_box: list = []
+        self._backlog = False
+        self._next_version = 0
+        self._since_refresh = 0
+        # incremental refresh: the root epoch the serving model was fit on
+        # (None = no epoch-tracked fit yet) and the epoch of the fit in
+        # flight, handed from _fit_closure to _install
+        self._last_fit_epoch = None
+        self._pending_fit_epoch = None
+        self.last_fit: Optional[FitStats] = None
+        self.skipped_refreshes = 0
+        self.warm_starts = 0
+
+    # ------------------------------------------------------------ write path
+    def _validate_points(self, points, weights):
+        x = np.asarray(points, np.float32)
+        if x.ndim == 1:
+            x = x[None, :]
+        if x.ndim != 2 or x.shape[1] != self.cfg.dim:
+            raise ValueError(f"expected (n, {self.cfg.dim}) points, "
+                             f"got {x.shape}")
+        w = None if weights is None else np.asarray(weights,
+                                                    np.float32).reshape(-1)
+        if w is not None and w.shape[0] != x.shape[0]:
+            raise ValueError(f"{w.shape[0]} weights for {x.shape[0]} points")
+        return x, w
+
+    def _ingest_cadenced(self, x, w, sink) -> None:
+        """Feed (x, w) to ``sink(chunk_x, chunk_w)`` in chunks bounded by
+        the refresh cadence, so one huge call still refreshes on schedule
+        rather than once at the end."""
+        i, n = 0, x.shape[0]
+        while i < n:
+            take = min(self.cfg.refresh_every - self._since_refresh, n - i)
+            if take <= 0:   # e.g. restored with a smaller refresh_every
+                self._cadence_refresh()
+                continue
+            sink(x[i:i + take], None if w is None else w[i:i + take])
+            self._since_refresh += take
+            i += take
+            if self._since_refresh >= self.cfg.refresh_every:
+                self._cadence_refresh()
+
+    def _cadence_refresh(self) -> None:
+        self.refresh(blocking=not self.cfg.async_refresh)
+
+    # ------------------------------------------------------------ refresh
+    def _fit_closure(self, version: int) -> Optional[Callable[[], ModelState]]:
+        """Snapshot the root and return the deferred fit — or None to skip
+        (incremental refresh proved the installed model is already it)."""
+        raise NotImplementedError
+
+    def _root_records(self) -> int:
+        """Live root records a refresh fits on (reporting only)."""
+        return 0
+
+    def _timed_fit(self, fit: Callable[[], ModelState]):
+        """Run the fit, its tensors complete on the device before this
+        returns (a model is published to another thread only so).
+        Returns (model, fit wall seconds)."""
+        t0 = time.perf_counter()
+        model = fit()
+        _complete(model)
+        return model, time.perf_counter() - t0
+
+    def _install(self, model: ModelState, fit_s: float,
+                 records: int) -> None:
+        self.model = model
+        if self._pending_fit_epoch is not None:
+            self._last_fit_epoch = self._pending_fit_epoch
+            self._pending_fit_epoch = None
+        self.last_fit = FitStats(
+            version=int(model.version), records_folded=int(records),
+            fit_s=float(fit_s), installed_at=time.perf_counter())
+
+    def refresh(self, *, blocking: bool = True) -> Optional[ModelState]:
+        """Fit a new model on the current root.
+
+        blocking=True (default) installs it before returning; False hands
+        the fit to a worker thread (the root snapshot is still taken here,
+        synchronously) and returns None — the model appears at the next
+        ``poll_refresh``/``drain``/``ingest`` boundary.  An async refresh
+        requested while one is already in flight is coalesced: it re-fires
+        on the newest root as soon as the in-flight fit lands.  Either way
+        the cadence counter restarts.
+
+        With ``cfg.store.incremental_refresh`` and an unchanged root since
+        the last fit, ``_fit_closure`` returns None and the refresh is
+        *skipped*: the serving model — provably bit-identical to what a
+        refit would install — stays, the version does not advance, and
+        the skip is counted (``skipped_refreshes``).
+        """
+        if blocking:
+            self.join_refresh()
+            self._next_version += 1
+            fit = self._fit_closure(self._next_version)
+            records = self._root_records()
+            if fit is None:
+                self._skip_refresh()
+                return self.model
+            model, fit_s = self._timed_fit(fit)
+            self._install(model, fit_s, records)
+            self._since_refresh = 0
+            return model
+        if self._worker is not None:
+            self._backlog = True
+        else:
+            self._spawn_fit()
+        self._since_refresh = 0
+        return None
+
+    def _skip_refresh(self) -> None:
+        """Account an incremental-refresh skip: the root is unchanged, so
+        the installed model already equals what a refit would produce."""
+        self._next_version -= 1   # the skipped fit never claimed a version
+        self._pending_fit_epoch = None
+        self.skipped_refreshes += 1
+        self._since_refresh = 0
+
+    def _spawn_fit(self) -> None:
+        self._next_version += 1
+        fit = self._fit_closure(self._next_version)
+        records = self._root_records()
+        if fit is None:
+            self._skip_refresh()
+            return
+        box: list = []
+
+        def run():
+            try:
+                model, fit_s = self._timed_fit(fit)
+                box.append(("ok", model, fit_s, records))
+            except BaseException as e:  # surfaced at poll/join
+                box.append(("err", e, 0.0, 0))
+
+        self._worker_box = box
+        self._worker = threading.Thread(
+            target=run, name="stream-refresh", daemon=True)
+        self._worker.start()
+
+    def poll_refresh(self) -> bool:
+        """Install a finished background fit, if any.  Returns True iff the
+        serving model changed.  Re-raises a failed fit's exception here, on
+        the caller's thread."""
+        w = self._worker
+        if w is None or w.is_alive():
+            return False
+        w.join()
+        status, payload, fit_s, records = self._worker_box[0]
+        self._worker, self._worker_box = None, []
+        if status == "err":
+            self._backlog = False   # don't respawn on top of a failed fit
+            raise payload
+        self._install(payload, fit_s, records)
+        if self._backlog:
+            self._backlog = False
+            self._spawn_fit()
+        return True
+
+    def join_refresh(self) -> None:
+        """Block until no refresh is in flight (incl. a coalesced backlog)."""
+        while self._worker is not None:
+            self._worker.join()
+            self.poll_refresh()
+
+    @property
+    def refresh_in_flight(self) -> bool:
+        return self._worker is not None
+
+    # ------------------------------------------------------------ read path
+    def submit(self, points) -> list[int]:
+        """Enqueue query rows; returns their request ids."""
+        # validate here, where the caller can handle it — a bad row that
+        # reaches drain() would crash mid-batch after requests were
+        # already dequeued
+        x, _ = self._validate_points(points, None)
+        now = time.perf_counter()
+        n = x.shape[0]
+        ids = list(range(self._next_id, self._next_id + n))
+        self._queue.append((self._next_id, x, now))
+        self._queued_rows += n
+        self._next_id += n
+        return ids
+
+    def discard_pending(self) -> int:
+        """Drop every submitted-but-undrained request; returns the count.
+        A caller whose tick fails after ``submit`` calls this — rows left
+        queued would be drained by the *next* tick and misalign its
+        results."""
+        n = self._queued_rows
+        self._queue.clear()
+        self._queued_rows = 0
+        return n
+
+    def drain(self, max_requests: Optional[int] = None) -> list[QueryResult]:
+        """Serve queued requests in micro-batches against the current model."""
+        self.poll_refresh()
+        if self.model is None:
+            self.join_refresh()   # a first async refresh may be in flight
+        if self.model is None:
+            raise RuntimeError("no model yet — call refresh() first")
+        cfg = self.cfg
+        out: list[QueryResult] = []
+        budget = self._queued_rows if max_requests is None else max_requests
+        while self._queue and budget > 0:
+            take = min(cfg.micro_batch, self._queued_rows, budget)
+            xb = np.zeros((cfg.micro_batch, cfg.dim), np.float32)
+            # slice whole blocks into the pad buffer; a block that
+            # overhangs the batch is split, its tail re-queued
+            runs, filled = [], 0
+            while filled < take:
+                rid0, rows, t0 = self._queue[0]
+                r = min(rows.shape[0], take - filled)
+                xb[filled:filled + r] = rows[:r]
+                runs.append((rid0, r, t0))
+                if r == rows.shape[0]:
+                    self._queue.popleft()
+                else:
+                    self._queue[0] = (rid0 + r, rows[r:], t0)
+                filled += r
+            self._queued_rows -= take
+            budget -= take
+            dist, amin, score = _score_batch(
+                torch.from_numpy(xb).to(self.device), self.model.centers,
+                self.model.threshold, metric=cfg.metric, policy=cfg.policy)
+            # the copies to the host wait for the kernel
+            dist, amin, score = (a.cpu().numpy() for a in (dist, amin, score))
+            done = time.perf_counter()
+            i = 0
+            for rid0, r, t0 in runs:
+                lat = done - t0
+                self._lat.extend([lat] * r)
+                self._lat_count += r
+                for j in range(i, i + r):
+                    out.append(QueryResult(
+                        request_id=rid0 + (j - i), center=int(amin[j]),
+                        distance=float(dist[j]),
+                        outlier_score=float(score[j]),
+                        is_outlier=bool(score[j] > 1.0), latency_s=lat))
+                i += r
+        return out
+
+    def score(self, points) -> list[QueryResult]:
+        """Synchronous convenience: submit + drain in one call."""
+        self.submit(points)
+        return self.drain()
+
+    def latency_stats(self) -> dict:
+        """Request count and p50/p99 latency in ms, exact (``np.percentile``)
+        over the most recent ``LATENCY_RING`` requests."""
+        if self._lat_count == 0:
+            return {"count": 0, "p50_ms": float("nan"), "p99_ms": float("nan")}
+        ring = np.asarray(self._lat, np.float64)
+        return {"count": int(self._lat_count),
+                "p50_ms": float(np.percentile(ring, 50)) * 1e3,
+                "p99_ms": float(np.percentile(ring, 99)) * 1e3}
+
+    def reset_latency_stats(self) -> None:
+        """Forget the latency samples (benchmark epochs)."""
+        self._lat.clear()
+        self._lat_count = 0
+
+    def seconds_since_install(self) -> Optional[float]:
+        """Age of the serving model — None before the first refresh."""
+        if self.last_fit is None:
+            return None
+        return time.perf_counter() - self.last_fit.installed_at
+
+    # ------------------------------------------------------------ checkpoint
+    def _model_arrays(self) -> dict:
+        m = self.model
+        if m is None:
+            return self._model_skeleton(self.cfg)
+        return {"centers": m.centers, "threshold": m.threshold,
+                "cost": m.cost, "version": m.version,
+                "trained_weight": m.trained_weight}
+
+    @staticmethod
+    def _model_skeleton(cfg) -> dict:
+        return {"centers": np.zeros((cfg.k, cfg.dim), np.float32),
+                "threshold": np.float32(0), "cost": np.float32(0),
+                "version": np.int32(0), "trained_weight": np.float32(0)}
+
+    def _install_model_arrays(self, md: dict) -> None:
+        if int(md["version"]) > 0:
+            self.model = model_from_arrays(md, device=self.device)
+        self._next_version = int(md["version"])
+
+
+class StreamService(ServingFrontEnd):
+    """The single-host service: one :class:`StreamTree` on ``device``.
+
+    ``sampler`` (default ``TorchSampler(cfg.seed)``) is split once into the
+    tree's sampler and the model sampler, as the reference splits its key.
+    """
+
+    def __init__(self, cfg: ServiceConfig, sampler: Optional[Sampler] = None,
+                 device="cuda"):
+        super().__init__(cfg, device)
+        sampler = sampler if sampler is not None else TorchSampler(cfg.seed)
+        kt, self._model_key = sampler.split(2)
+        self.tree = StreamTree(cfg.tree_config(), kt, device=self.device)
+
+    def _root_records(self) -> int:
+        return self.tree.num_records
+
+    # ------------------------------------------------------------ write path
+    def ingest(self, points, weights=None) -> None:
+        self.poll_refresh()
+        x, w = self._validate_points(points, weights)
+        self._ingest_cadenced(x, w, self.tree.ingest)
+
+    def _fit_closure(self, version: int):
+        """Snapshot the tree root now; fit later (possibly on a worker).
+
+        With ``cfg.store`` set, the fit's sampler is derived from the tree's
+        ``root_epoch`` instead of the model version: an unchanged root then
+        provably refits to the bit-identical model, which licenses both the
+        incremental-refresh *skip* (return None) and the opt-in warm start
+        from the previous centers when little of the root changed.
+        """
+        cfg = self.cfg
+        if self.tree.num_records == 0:
+            raise RuntimeError("refresh() before any point was ingested")
+        store, init = cfg.store, None
+        if store is not None:
+            epoch = self.tree.root_epoch
+            if (store.incremental_refresh and self.model is not None
+                    and epoch == self._last_fit_epoch):
+                return None
+            key = self._model_key.fold_in(epoch)
+            if (store.warm_start_frac > 0.0 and self.model is not None
+                    and self._last_fit_epoch is not None):
+                changed, total = self.tree.changed_weight_since(
+                    self._last_fit_epoch)
+                if changed <= store.warm_start_frac * total:
+                    init = self.model.centers
+                    self.warm_starts += 1
+            self._pending_fit_epoch = epoch
+        else:
+            key = self._model_key.fold_in(version)
+        pts, wts, valid = (torch.from_numpy(a).to(self.device)
+                           for a in self.tree.packed_root())
+        return functools.partial(
+            fit_model, pts, wts, valid, key, version, k=cfg.k, t=cfg.t,
+            iters=cfg.second_iters, metric=cfg.metric, policy=cfg.policy,
+            init_centers=init)
+
+    # ------------------------------------------------------------ checkpoint
+    def _state(self) -> dict:
+        self.join_refresh()   # a half-fitted model must not race the snapshot
+        return {
+            "tree": self.tree.pack_state(),
+            "model": self._model_arrays(),
+            "counters": {
+                "since_refresh": np.int64(self._since_refresh),
+                "next_id": np.int64(self._next_id),
+                "last_fit_epoch": np.int64(
+                    -1 if self._last_fit_epoch is None
+                    else self._last_fit_epoch),
+                "model_key": np.asarray(self._model_key.key_data(),
+                                        np.uint32),
+            },
+        }
+
+    def _skeleton(self) -> dict:
+        cfg = self.cfg
+        return {
+            "tree": StreamTree.skeleton_state(cfg.tree_config()),
+            "model": self._model_skeleton(cfg),
+            "counters": {"since_refresh": np.int64(0), "next_id": np.int64(0),
+                         "last_fit_epoch": np.int64(-1),
+                         "model_key": np.zeros((2,), np.uint32)},
+        }
+
+    def save(self, manager: CheckpointManager, step: int, *,
+             blocking: bool = True, extra_meta: Optional[dict] = None) -> None:
+        """``extra_meta``: caller facts merged into the manifest meta."""
+        manager.save(step, self._state(), blocking=blocking,
+                     meta={**(extra_meta or {}), "format": "stream-service-v1"})
+
+    @classmethod
+    def restore(cls, cfg: ServiceConfig, manager: CheckpointManager,
+                step: int | None = None, *,
+                sampler_from_key_data: Optional[Callable] = None,
+                device="cuda") -> "StreamService":
+        """The service a checkpoint holds, on ``device``.
+        ``sampler_from_key_data`` rebuilds the tree's and the model's
+        samplers from their ``(2,)`` uint32 words (default
+        :meth:`TorchSampler.from_key_data`)."""
+        fmt = manager.read_meta(step).get("format")
+        if fmt is not None and fmt != "stream-service-v1":
+            raise ValueError(
+                f"checkpoint format {fmt!r} is not a single-host stream "
+                f"checkpoint — restore it with the service that wrote it")
+        rebuild = sampler_from_key_data or TorchSampler.from_key_data
+        svc = cls(cfg, device=device)
+        state, _ = manager.restore(svc._skeleton(), step)
+        svc.tree = StreamTree.from_state(cfg.tree_config(), state["tree"],
+                                         sampler_from_key_data=rebuild,
+                                         device=svc.device)
+        svc._since_refresh = int(state["counters"]["since_refresh"])
+        svc._next_id = int(state["counters"]["next_id"])
+        lfe = int(state["counters"]["last_fit_epoch"])
+        svc._last_fit_epoch = None if lfe < 0 else lfe
+        svc._model_key = rebuild(
+            np.asarray(state["counters"]["model_key"], np.uint32))
+        svc._install_model_arrays(state["model"])
+        return svc

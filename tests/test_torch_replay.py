@@ -1,8 +1,8 @@
 """The replay sampler: the port's ``Sampler`` seam driven by ``jax.random``.
 
 ``JaxReplaySampler`` maps ``split`` / ``fold_in`` / ``categorical`` /
-``randint`` / ``uniform`` / ``choice`` onto the reference's ``jax.random``
-calls, so a port function
+``randint`` / ``uniform`` / ``choice`` / ``key_data`` onto the reference's
+``jax.random`` calls, so a port function
 given it draws exactly the numbers the reference draws from the same key.
 The sibling ``test_torch_*`` files import it from here
 (``from test_torch_replay import JaxReplaySampler``).
@@ -23,6 +23,14 @@ class JaxReplaySampler(Sampler):
 
     def __init__(self, key):
         self.key = key
+
+    @classmethod
+    def from_key_data(cls, words):
+        """The restore paths' ``sampler_from_key_data`` hook."""
+        return cls(jax.random.wrap_key_data(jnp.asarray(words, jnp.uint32)))
+
+    def key_data(self):
+        return np.asarray(jax.random.key_data(self.key))
 
     def split(self, n: int = 2):
         keys = jax.random.split(self.key, n)
