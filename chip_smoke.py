@@ -31,7 +31,8 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    of its autograd Function;
 3. drives the main paths through the user's entry points, each with every
    launch counter at 0 just before it and read just after: one-shot
-   Algorithm 3 (``_run_oneshot``) on the kddFull-like data at the paper's
+   Algorithm 3 with Algorithm 2 site summaries (``simulate_coordinator``,
+   as the paper's benchmarks run it) on the kddFull-like data at the paper's
    size (4,898,431 x 34, k = 3, t = 45,540, 20 sites) and on gauss-0.1 at
    the paper's size (1M x 5, k = 100, t = 5,000), the serving model
    (``_model_from_result``) and >= 200 micro-batches of 256 queries through
@@ -64,6 +65,25 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    Algorithm 1's rounds) on the kernels and on the plain path, whose roots
    and centers must be equal bit for bit; min_argmin, lloyd_step and score
    must each launch in the phase;
+   and the front door (the "session" phase): ``Session(pipeline_config(
+   ...)).fit`` on the kddFull-like rows (the config's summarizer is the
+   registry's ``auto``, the weighted Algorithm 1, as in the reference's
+   Session; the kdd phase above runs Algorithm 2 as the paper's benchmark
+   does), bit for bit the same config's ``_run_oneshot`` +
+   ``_model_from_result`` driven directly, with both fits' seconds; 400
+   micro-batches of 256 through ``Session.score``; ``save`` and
+   ``Session.load`` (all 4,898,431 x 34 rows) scoring the same queries bit
+   for bit; the 1M stream deployment through ``Session`` (batches of 8,192),
+   its model and one drain bit for bit the stream phase's resident
+   service; ``KernelPolicy(autotune=True)``, which under ``auto`` resolves
+   every op to ``cuda`` with its default tiles, measures and writes nothing
+   and returns the untuned results bit for bit, and under
+   ``backend="blocked"`` measures each op's candidate tiles at the kdd
+   serving and stream refit shapes into a cache a second resolution hits;
+   then ``python -m repro_torch run|serve --config examples/...`` on the
+   three example artifacts, each in its own process, each ending in
+   ``ok``; min_argmin, lloyd_step and score must each launch in each
+   Session run;
 4. re-runs gauss with ``backend="blocked"`` (the plain torch path) from the
    same seed, and on the kernels from another seed as the yardstick of two
    independent draws, and compares the results; re-runs the rwkv6 prefill
@@ -833,18 +853,33 @@ def check_wkv_first_pass(dev, name, args, chunk, fail):
 
 
 # --------------------------------------------------------------- main path
+def kdd_pipeline(truth, policy, **kw):
+    """The kddFull-like ``PipelineConfig``: KDD's settings, t = the planted
+    outliers, random partition, l2sq; ``kw`` adds e.g. a summarizer."""
+    from repro_torch.api import pipeline_config
+    return pipeline_config(dim=KDD["d"], k=KDD["k"], t=len(truth),
+                           sites=KDD["sites"], partition="random",
+                           second_iters=KDD["second_iters"], seed=KDD["seed"],
+                           kernels=policy, **kw)
+
+
 def run_oneshot(dev, x_dev, truth, *, k, t, sites, second_iters, seed,
                 policy, label):
-    from repro_torch.api.session import _run_oneshot
-    from repro_torch.core.distributed import local_budget
+    """Algorithm 3 as the paper's benchmarks run it: ``simulate_coordinator``
+    over ``sites`` contiguous parts with Algorithm 2 site summaries (no
+    summarizer; a ``PipelineConfig``'s default, the registry's ``auto``,
+    is the weighted Algorithm 1 instead, as in the reference's Session)."""
+    from repro_torch.core.distributed import local_budget, simulate_coordinator
     from repro_torch.core.metrics import clustering_losses, outlier_scores
+    from repro_torch.core.sampler import TorchSampler
     from repro_torch.core.summary import _plan
 
     sync(dev)
     t0 = time.perf_counter()
-    res = _run_oneshot(x_dev, k=k, t=t, sites=sites, partition="random",
-                       metric="l2sq", second_iters=second_iters, seed=seed,
-                       policy=policy, device=dev)
+    res = simulate_coordinator(
+        torch.tensor_split(x_dev, sites), TorchSampler(seed), k=k, t=t,
+        partition="random", second_iters=second_iters, metric="l2sq",
+        policy=policy, device=dev)
     t1 = time.perf_counter()
     mask = torch.zeros((x_dev.shape[0],), dtype=torch.bool, device=dev)
     mask[torch.as_tensor(res["outlier_ids"], device=dev)] = True
@@ -901,8 +936,8 @@ def serve_model(dev, x_dev, x_np, truth, res, policy):
     """The serving model from a fit (``_model_from_result``), then the
     serving read; returns (model, serving report)."""
     from repro_torch.api.session import _model_from_result
-    model = _model_from_result(x_dev, res, metric="l2sq", policy=policy,
-                               version=1, device=dev)
+    model = _model_from_result(x_dev, res, kdd_pipeline(truth, policy), 1,
+                               device=dev)
     return model, serve(dev, x_np, truth, model, policy)
 
 
@@ -1040,10 +1075,9 @@ def h2h_row(dev, x_dev, truth, name, b, policy):
                                 seed=KDD["seed"], policy=policy)
     else:
         params = {"budget": b} if get_summarizer(name).sized else {}
-        res = _run_oneshot(x_dev, k=k, t=t, sites=sites, partition="random",
-                           metric="l2sq", second_iters=KDD["second_iters"],
-                           seed=KDD["seed"], policy=policy, device=dev,
-                           summarizer=summarizer_policy(name, **params))
+        res = _run_oneshot(
+            x_dev, kdd_pipeline(truth, policy, summarizer=summarizer_policy(
+                name, **params)), device=dev)
     t1 = time.perf_counter()
     centers = torch.as_tensor(res["centers"], device=dev)
     mask = torch.zeros((x_dev.shape[0],), dtype=torch.bool, device=dev)
@@ -1208,6 +1242,11 @@ def stream_main(dev, x, truth, tmp):
         fail.append(f"the tier never spilled or paged in: {out['store']}")
     out["window_plain"] = _window_checks("plain", plain, fail)
     out["window_tiered"] = _window_checks("tiered", tiered, fail)
+    # what the session phase's stream must equal: the resident service's
+    # final model and one drain of 256 of its rows
+    q_res = x[np.random.default_rng(7).choice(n, MICRO_BATCH)]
+    resident = {"x": x, "model": plain.model, "q": q_res,
+                "drain": plain.score(q_res)}
 
     # incremental refresh: two refreshes on the final root.  The last
     # cadence fit may already have seen it (n a multiple of the cadence):
@@ -1309,7 +1348,7 @@ def stream_main(dev, x, truth, tmp):
                    for a in tiered.tree.packed_root())
     shapes = {"root": (pts, wts), "centers": model.centers,
               "threshold": model.threshold,
-              "query": torch.from_numpy(q).to(dev)}
+              "query": torch.from_numpy(q).to(dev), "resident": resident}
     for svc in (tiered, restored):
         svc.tree.store.close()     # no spill write outlives the directory
     return out, shapes
@@ -1407,7 +1446,8 @@ def stream_kernel_vs_plain(dev, kernels):
 def stream_phase(dev, counted, kernels, checks):
     """The "stream" phase: the deployment (counted), the kernel-vs-plain grid
     stream, the three kernels against their plain versions at the stream's
-    shapes, and their timings.  Returns (report, timing rows)."""
+    shapes, and their timings.  Returns (report, timing rows, the resident
+    service's stream, final model and one drain)."""
     import tempfile
     from repro_torch.data.synthetic import gauss
     t0 = time.perf_counter()
@@ -1446,7 +1486,7 @@ def stream_phase(dev, counted, kernels, checks):
     timings = stream_timings(dev, merged, rnd_c, pts, wts, cen, thr, q)
     out["total_s"] = time.perf_counter() - t0
     log(f"stream_s {out['total_s']:.2f}")
-    return out, timings
+    return out, timings, shapes["resident"]
 
 
 def merge_round_m(n_records) -> int:
@@ -1492,6 +1532,293 @@ def stream_timings(dev, merged, rnd_c, pts, wts, cen, thr, q):
                                                                      thr),
                lambda: torch.cdist(q, cen).min(dim=1), 200)
     return rows
+
+
+# ------------------------------------------------------- the session phase
+# The front door (``repro_torch.api``) at the sizes of the phases above:
+# ``Session`` over the kddFull-like oneshot run and the 1M stream, save and
+# load, the tile autotuner, and ``python -m repro_torch`` on the examples.
+SESSION_RESULT_KEYS = ("centers", "outlier_ids", "summary_ids",
+                       "summary_weights", "comm_records", "cost")
+CLI_RUNS = (("run", "examples/oneshot.json"),
+            ("serve", "examples/stream.toml"),
+            ("serve", "examples/stream_store.json"))
+# the autotuner's shapes: the kdd serving micro-batch, the stream refit
+TUNE_SHAPES = {"kdd_serving": (256, 3, 34), "stream_refit": (1_048_576, 20, 5)}
+
+
+def _same_oneshot(ra, rb) -> dict:
+    return {k: bool(np.array_equal(np.asarray(ra[k]), np.asarray(rb[k])))
+            for k in SESSION_RESULT_KEYS}
+
+
+def session_direct(dev, kdd_x, cfg):
+    """What ``Session.fit`` must equal: the coordinator entry point and the
+    serving model driven directly, on the card's copy of the data.
+    Returns (result, model, seconds)."""
+    from repro_torch.api.session import _model_from_result, _run_oneshot
+    sync(dev)
+    t0 = time.perf_counter()
+    res = _run_oneshot(kdd_x, cfg, device=dev)
+    model = _model_from_result(kdd_x, res, cfg, 1, device=dev)
+    sync(dev)
+    return res, model, time.perf_counter() - t0
+
+
+def session_oneshot(dev, kdd_np, truth, cfg, direct, tmp, fail):
+    """``Session(cfg).fit`` on the host rows, bit for bit the direct fit;
+    400 micro-batches through ``Session.score``; save, load, the same
+    queries bit for bit."""
+    from repro_torch.api import Session
+    res_d, model_d, direct_s = direct
+    sync(dev)
+    t0 = time.perf_counter()
+    sess = Session(cfg, device=dev)
+    model = sess.fit(kdd_np)
+    sync(dev)
+    out = {"fit_s": time.perf_counter() - t0, "direct_fit_s": direct_s,
+           "records": sess.result["comm_records"]}
+    out["facade_minus_direct_s"] = out["fit_s"] - direct_s
+    out["result_bitwise"] = _same_oneshot(sess.result, res_d)
+    out["model_bitwise"] = _same_models(model, model_d)
+    if not (all(out["result_bitwise"].values()) and out["model_bitwise"]):
+        fail.append(f"Session.fit differs from the direct fit: "
+                    f"{out['result_bitwise']}, model {out['model_bitwise']}")
+
+    # serving: the kdd phase's micro-batches (32 planted + 224 clean rows)
+    rng = np.random.default_rng(1)
+    clean = np.setdiff1d(np.arange(kdd_np.shape[0]), truth)
+    lat, hits = [], np.zeros(2, np.int64)
+    for _ in range(SERVE_BATCHES):
+        rows = np.concatenate([rng.choice(truth, 32),
+                               rng.choice(clean, MICRO_BATCH - 32)])
+        t0 = time.perf_counter()
+        res = sess.score(kdd_np[rows])
+        lat.append(time.perf_counter() - t0)
+        flags = np.array([r.is_outlier for r in res])
+        hits += [flags[:32].sum(), flags[32:].sum()]
+        if len(res) != MICRO_BATCH or not np.isfinite(
+                [r.outlier_score for r in res]).all():
+            fail.append("a Session.score micro-batch is short or not "
+                        "finite")
+            break
+    lat_ms = np.asarray(lat) * 1e3
+    out["serve"] = {
+        "batches": len(lat), "micro_batch": MICRO_BATCH,
+        "p50_ms": float(np.percentile(lat_ms, 50)),
+        "p99_ms": float(np.percentile(lat_ms, 99)),
+        "latency_stats": sess.latency_stats(),
+        "outlier_rate_planted": float(hits[0]) / (32 * len(lat)),
+        "outlier_rate_clean": float(hits[1]) / (
+            (MICRO_BATCH - 32) * len(lat))}
+
+    # save -> load -> the last batch's queries, bit for bit
+    q = kdd_np[rows]
+    before = sess.score(q)
+    t0 = time.perf_counter()
+    sess.save(tmp / "session")
+    out["save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = Session.load(tmp / "session", device=dev)
+    out["load_s"] = time.perf_counter() - t0
+    out["checkpoint_bytes"] = sum(f.stat().st_size for f in
+                                  (tmp / "session").rglob("*")
+                                  if f.is_file())
+    out["loaded_scores_bitwise"] = _same_results(loaded.score(q), before)
+    out["loaded_result_bitwise"] = all(
+        _same_oneshot(loaded.result, sess.result).values())
+    if not (out["loaded_scores_bitwise"] and out["loaded_result_bitwise"]):
+        fail.append(f"the loaded session parted from the saved one: "
+                    f"scores {out['loaded_scores_bitwise']}, result "
+                    f"{out['loaded_result_bitwise']}")
+    return out
+
+
+def session_stream(dev, resident, fail):
+    """The 1M stream deployment through ``Session``: its model and one
+    drain bit for bit the stream phase's resident ``StreamService``."""
+    from repro_torch.api import Session, pipeline_config
+    from repro_torch.kernels.dispatch import KernelPolicy
+    x = resident["x"]
+    n = x.shape[0]
+    sc = stream_config(n, STREAM["t"], KernelPolicy())
+    cfg = pipeline_config(dim=sc.dim, k=sc.k, t=sc.t, topology="stream",
+                          leaf_size=sc.leaf_size,
+                          refresh_every=sc.refresh_every,
+                          micro_batch=sc.micro_batch, window=sc.window,
+                          seed=sc.seed)
+    sess = Session(cfg, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    for i in range(0, n, STREAM["batch"]):
+        sess.ingest(x[i:i + STREAM["batch"]])
+    sync(dev)
+    wall = time.perf_counter() - t0
+    out = {"n": n, "batch": STREAM["batch"], "ingest_s": wall,
+           "ingest_rows_per_s": n / wall,
+           "version": int(sess.model.version),
+           "config_is_the_phases": cfg.service_config() == sc,
+           "model_bitwise": _same_models(sess.model, resident["model"]),
+           "drain_bitwise": _same_results(sess.score(resident["q"]),
+                                          resident["drain"])}
+    if not (out["config_is_the_phases"] and out["model_bitwise"]
+            and out["drain_bitwise"]):
+        fail.append(f"the stream Session differs from the resident "
+                    f"service: {out}")
+    return out
+
+
+def session_autotune(dev, fail):
+    """``KernelPolicy(autotune=True)`` on the card: under ``auto`` every op
+    resolves to ``cuda`` with its default tiles, measures and writes
+    nothing, and returns what the untuned policy returns bit for bit;
+    under ``backend="blocked"`` it measures each op's candidates at the
+    kdd serving and the stream refit shapes (the plain path's tiles, not
+    kernel times), writes the cache, and a second resolution hits it."""
+    import os
+    import tempfile
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.kernels.lloyd.ops import lloyd_step
+    from repro_torch.kernels.pdist.ops import min_argmin
+    from repro_torch.kernels.score.ops import score
+    out = {"auto": {}, "blocked": {}}
+    real = (dispatch.measure_block_ns, dispatch.measure_tiles)
+    measured = []
+
+    def counting(fn):
+        def wrapped(*a, **k):
+            measured.append(a)
+            return fn(*a, **k)
+        return wrapped
+
+    prev = os.environ.get("REPRO_TORCH_KERNELS_CACHE")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-autotune-") as tmp:
+        os.environ["REPRO_TORCH_KERNELS_CACHE"] = tmp
+        cache = Path(tmp) / "autotune.json"
+        dispatch.measure_block_ns = counting(real[0])
+        dispatch.measure_tiles = counting(real[1])
+        dispatch.clear_autotune_cache()
+        try:
+            tuned, untuned = KernelPolicy(autotune=True), KernelPolicy()
+            g = torch.Generator(device="cpu").manual_seed(4)
+            for name, (n, m, d) in TUNE_SHAPES.items():
+                x = torch.randn(n, d, generator=g).to(dev)
+                c = torch.randn(m, d, generator=g).to(dev)
+                w = torch.rand(n, generator=g).to(dev)
+                thr = torch.tensor(1.0, device=dev)
+                same = {}
+                for op, call in (
+                        ("min_argmin", lambda p: min_argmin(x, c, policy=p)),
+                        ("score", lambda p: score(x, c, thr, policy=p)),
+                        ("lloyd_step", lambda p: lloyd_step(x, w, c,
+                                                            policy=p))):
+                    a = dispatch.resolve_tiles(op, tuned, metric="l2sq",
+                                               n=n, m=m, d=d, platform="cuda")
+                    b = dispatch.resolve_tiles(op, untuned, metric="l2sq",
+                                               n=n, m=m, d=d, platform="cuda")
+                    same[op] = (a[0].name == "cuda" and a == b and all(
+                        torch.equal(u, v)
+                        for u, v in zip(call(tuned), call(untuned))))
+                out["auto"][name] = same
+            out["auto_measured"] = len(measured)
+            out["auto_wrote_cache"] = cache.exists()
+            if measured or cache.exists() or not all(
+                    all(v.values()) for v in out["auto"].values()):
+                fail.append(f"autotune under auto: {out}")
+
+            blocked = KernelPolicy(backend="blocked", autotune=True)
+
+            def resolve_all():
+                return {f"{op}@{name}": dispatch.resolve_tiles(
+                    op, blocked, metric="l2sq", n=n, m=m, d=d,
+                    platform="cuda")[1:]
+                    for name, (n, m, d) in TUNE_SHAPES.items()
+                    for op in dispatch.OPS}
+
+            t0 = time.perf_counter()
+            first = resolve_all()
+            out["blocked_tune_s"] = time.perf_counter() - t0
+            out["blocked_measured"] = len(measured)
+            entries = json.loads(cache.read_text())
+            dispatch.clear_autotune_cache()
+            again = resolve_all()
+            out["blocked"] = {"tiles": {k: list(v) for k, v in first.items()},
+                              "cache_hit_same_tiles": again == first,
+                              "measured_on_second": len(measured)
+                              - out["blocked_measured"],
+                              "candidates_us": {k: e["timings_us"]
+                                                for k, e in entries.items()}}
+            if not (out["blocked_measured"] > 0 and again == first
+                    and out["blocked"]["measured_on_second"] == 0
+                    and len(entries) == 2 * len(dispatch.OPS)):
+                fail.append(f"autotune under blocked: {out['blocked']}")
+        finally:
+            dispatch.measure_block_ns, dispatch.measure_tiles = real
+            if prev is None:
+                os.environ.pop("REPRO_TORCH_KERNELS_CACHE", None)
+            else:
+                os.environ["REPRO_TORCH_KERNELS_CACHE"] = prev
+            dispatch.clear_autotune_cache()
+    return out
+
+
+def session_cli(fail):
+    """``python -m repro_torch`` on the three example artifacts, each in its
+    own process on the card; each must exit 0 with ``ok`` last."""
+    import os
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (str(root / "src"), os.environ.get("PYTHONPATH")) if p)}
+    out = []
+    for cmd, artifact in CLI_RUNS:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch", cmd, "--config", artifact],
+            cwd=root, env=env, capture_output=True, text=True, timeout=300)
+        lines = proc.stdout.strip().splitlines()
+        for line in lines:
+            log(f"cli {cmd} {artifact} |", line)
+        rec = {"cmd": cmd, "config": artifact, "rc": proc.returncode,
+               "s": time.perf_counter() - t0,
+               "ok": proc.returncode == 0 and bool(lines)
+               and lines[-1] == "ok"}
+        out.append(rec)
+        if not rec["ok"]:
+            log(f"cli {cmd} {artifact} stderr |", proc.stderr[-4000:])
+            fail.append(f"python -m repro_torch {cmd} --config {artifact}: "
+                        f"rc {proc.returncode}")
+    return out
+
+
+def session_phase(dev, counted, kdd_np, kdd_truth, kdd_x, resident):
+    """The "session" phase (see the module docstring).  Raises on any
+    failure, after every part has run."""
+    import tempfile
+    t_phase = time.perf_counter()
+    fail = []
+    cfg = kdd_pipeline(kdd_truth, None)
+    direct = session_direct(dev, kdd_x, cfg)
+    out = {"config": cfg.to_dict()}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-session-") as tmp:
+        out["oneshot"] = counted(
+            "session_kdd", ("min_argmin", "lloyd_step", "score"),
+            lambda: session_oneshot(dev, kdd_np, kdd_truth, cfg, direct,
+                                    Path(tmp), fail))
+    log("session oneshot", json.dumps(out["oneshot"]))
+    out["stream"] = counted(
+        "session_stream", ("min_argmin", "lloyd_step", "score"),
+        lambda: session_stream(dev, resident, fail))
+    log("session stream", json.dumps(out["stream"]))
+    out["autotune"] = session_autotune(dev, fail)
+    log("session autotune", json.dumps(out["autotune"]))
+    out["cli"] = session_cli(fail)
+    log("session cli", json.dumps(out["cli"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"session_s {out['phase_s']:.2f}")
+    if fail:
+        raise AssertionError(f"session phase: {fail}")
+    return out
 
 
 # ----------------------------------------------------- rwkv6 serving path
@@ -2244,8 +2571,9 @@ def run_measure(dev: torch.device, card: str, phases) -> dict:
                                           kdd_res, auto)
         log("serve", json.dumps(out["serve"]))
     else:
-        model = _model_from_result(kdd_x, kdd_res, metric="l2sq",
-                                   policy=auto, version=1, device=dev)
+        model = _model_from_result(kdd_x, kdd_res,
+                                   kdd_pipeline(kdd_truth, auto), 1,
+                                   device=dev)
     _, g_out = run_oneshot(
         dev, gauss_x, gauss_truth, k=GAUSS["k"], t=GAUSS["t"],
         sites=GAUSS["sites"], second_iters=GAUSS["second_iters"],
@@ -2418,7 +2746,13 @@ def run(dev: torch.device, card: str) -> dict:
     log(f"h2h_s {time.perf_counter() - t0:.2f} (budget {b} per site)")
 
     # ---- 3d. the streaming service (the "stream" phase)
-    stream_out, stream_rows = stream_phase(dev, counted, kernels, checks)
+    stream_out, stream_rows, resident = stream_phase(dev, counted, kernels,
+                                                     checks)
+
+    # ---- 3e. the front door (the "session" phase)
+    session_out = session_phase(dev, counted, kdd_np, kdd_truth, kdd_x,
+                                resident)
+    del resident
 
     # ---- 3b and 4b. rwkv6-7b serving (prefill + decode), then its
     # plain-WKV twin and the teacher-forcing check
@@ -2455,7 +2789,7 @@ def run(dev: torch.device, card: str) -> dict:
               "main_path": [kdd_out, g_out], "serve": serve_out,
               "rwkv6_serving": rwkv_out,
               "kernel_vs_blocked": cmp, "head_to_head": h2h,
-              "stream": stream_out,
+              "stream": stream_out, "session": session_out,
               "h2h_budget_per_site": b, "timings": timings,
               "route_ladder": ladder,
               "launches": launches, "launches_per_run": per_run,

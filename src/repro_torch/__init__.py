@@ -9,7 +9,10 @@ hand-written CUDA kernels for Hopper (``kernels/csrc``), built with nvcc at
 first use; every other piece is plain torch code.
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when no
-GPU is present instead of silently running on the CPU.
+GPU is present instead of silently running on the CPU.  The front door is
+the reference's: a ``PipelineConfig`` (``pipeline_config(...)``) driven by
+``Session(config, device=...)``, or ``python -m repro_torch run|serve|
+bench-score --config FILE [--device cpu|cuda]``.
 """
 import torch
 
@@ -19,9 +22,6 @@ import torch
 # trusting the defaults (cuDNN's TF32 default is on).
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-
-__all__ = ["resolve_device"]
-
 
 def resolve_device(device="cuda") -> torch.device:
     """``torch.device`` for an entry point's ``device=`` argument.
@@ -35,3 +35,19 @@ def resolve_device(device="cuda") -> torch.device:
             f"device={device!r} requested but torch.cuda.is_available() is "
             f"False; pass device='cpu' to run the plain torch path")
     return dev
+
+
+# after resolve_device: the modules below import it from here
+from repro_torch.api import (  # noqa: E402
+    OneshotEngine, PARTITIONS, PipelineConfig, ProblemSpec, SITE_BUDGETS,
+    Session, ServingSpec, StoreSpec, TOPOLOGIES, TieredStore, TopologySpec,
+    TraceSpec, pipeline_config, register_config_migration,
+)
+
+__all__ = [
+    "resolve_device",
+    "PipelineConfig", "ProblemSpec", "TopologySpec", "TOPOLOGIES",
+    "PARTITIONS", "SITE_BUDGETS", "pipeline_config",
+    "register_config_migration", "Session", "OneshotEngine",
+    "StoreSpec", "TieredStore", "TraceSpec", "ServingSpec",
+]

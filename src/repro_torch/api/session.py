@@ -1,67 +1,249 @@
-"""The oneshot engine's two steps, as library functions.
+"""One verb set over every topology: the ``Session`` facade.
 
-Port of ``repro.api.session._run_oneshot`` (host-simulated branch) and
-``_model_from_result``.  They take the pipeline settings as keywords
-(``k, t, sites, partition, metric, second_iters, seed, policy,
-summarizer``), standing
-in for ``PipelineConfig`` until ``api/config.py`` and ``Session`` are
-ported (ROADMAP.md).
+Port of ``repro.api.session``.  ``Session(config)`` builds and drives the
+layer the config's topology names — ``simulate_coordinator`` (oneshot,
+through :class:`OneshotEngine`) or ``StreamService`` (stream) — behind one
+interface:
+
+    fit(points)      ingest + refresh in one call; returns the ModelState
+    ingest(points)   feed raw points (stream topologies refresh on cadence)
+    refresh()        (re)fit the serving model on everything ingested
+    score(queries)   nearest-center distance / outlier score per query row
+    save(dir)        checkpoint everything, config embedded in the manifest
+    Session.load(dir)  rebuild topology + policies from the manifest alone
+
+The facade adds **no math of its own**: the stream topology delegates
+verbs verbatim to the service, and the oneshot engine calls the same
+coordinator entry point a direct caller would, with the same sampler
+(``TorchSampler(config.seed)`` unless a ``sampler`` is given: the tests
+pass ``JaxReplaySampler(jax.random.key(seed))``, the reference's draws).
+Samplers are values, so every oneshot refresh starts from the same one
+and refreshing twice with no new data gives the same model bit for bit.
+
+Oneshot scoring: the coordinator returns centers and outlier ids but no
+serving model, so after the fit the engine derives one with the rule the
+stream service uses (threshold = the largest inlier distance among the
+summary records); queries then flow through ``ServingFrontEnd``'s
+micro-batched read path, giving both topologies the same ``QueryResult``
+surface and latency accounting.  ``save`` / ``load`` write the
+reference's ``oneshot-session-v1`` layout leaf for leaf (and a stream
+session the service's), so a checkpoint of either package's ``Session``
+loads in the other's.
+
+Not ported yet, and raising ``NotImplementedError`` that names the queue
+(ROADMAP.md): the ``sharded`` topology and ``topology.use_shard_map``
+(queue 3); the async serving scheduler behind ``serve`` /
+``score_stream`` / ``submit_stream``, the telemetry behind ``stats`` /
+``dump_trace``, and the flight recorder a config's ``tracing`` section
+configures (queue 4; ``Session`` refuses such a config rather than let
+the section be silently inert).  ``close()`` and the context manager are
+no-ops while no scheduler can be attached.  Entry points take
+``device=`` and default to ``"cuda"``.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.api.config import SHARDED_TODO, PipelineConfig
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.distributed import simulate_coordinator
 from repro_torch.core.sampler import Sampler, TorchSampler
-from repro_torch.kernels.dispatch import KernelPolicy
 from repro_torch.kernels.pdist.ops import min_argmin
-from repro_torch.stream.service import ModelState
-from repro_torch.summarize.base import SummarizerPolicy
+from repro_torch.stream.service import (ModelState, ServiceConfig,
+                                        ServingFrontEnd, StreamService)
 
 RESULT_KEYS = ("centers", "outlier_ids", "summary_ids", "summary_weights",
                "comm_records", "cost")
 
+SERVING_TODO = ("the async serving scheduler (ServingScheduler, "
+                "score_stream) is not ported yet (ROADMAP.md, queue 4)")
+OBS_TODO = ("the telemetry plane (repro.obs: metrics snapshot, flight "
+            "recorder, trace export) is not ported yet (ROADMAP.md, "
+            "queue 4)")
 
-def _run_oneshot(x, *, k: int, t: int, sites: int, partition: str = "random",
-                 metric: str = "l2sq", second_iters: int = 25, seed: int = 0,
-                 policy: Optional[KernelPolicy] = None,
-                 summarizer: Optional[SummarizerPolicy] = None,
-                 device="cuda", sampler: Optional[Sampler] = None) -> dict:
-    """Algorithm 3 over ``x`` split into ``sites`` contiguous parts
-    (``np.array_split`` sizes), keyed by ``TorchSampler(seed)`` unless a
-    ``sampler`` is given; ``summarizer`` picks each site's summary from the
-    registry (None: the paper's Alg. 2).  Returns the reference's six
-    result keys plus the port's ``summary_candidates``, ``site_records``,
-    ``site_rounds`` and ``phase_s``."""
+
+def _require_ported(pipeline: PipelineConfig) -> None:
+    topo = pipeline.topology
+    if topo.kind == "sharded" or topo.use_shard_map:
+        raise NotImplementedError(SHARDED_TODO)
+
+
+class OneshotEngine(ServingFrontEnd):
+    """Algorithm 3 behind the serving-front-end verb set.
+
+    ``ingest`` accumulates raw rows; ``refresh`` runs the coordinator on
+    everything accumulated (a pure function of the ingested points and the
+    sampler — refreshing twice with no new data reproduces the same model
+    bit for bit); the inherited read path serves queries on ``device``.
+    The coordinator result (the reference's six keys: centers, outlier
+    ids, summary ids and weights, communication, cost) stays available as
+    ``.result``.
+    """
+
+    def __init__(self, pipeline: PipelineConfig, *, device="cuda",
+                 sampler: Optional[Sampler] = None):
+        topo = pipeline.topology
+        if topo.kind != "oneshot":
+            raise ValueError(f"OneshotEngine needs topology.kind='oneshot', "
+                             f"got {topo.kind!r}")
+        _require_ported(pipeline)
+        p = pipeline.problem
+        # ServingFrontEnd only needs the shared serving knobs; reusing the
+        # stream dataclass keeps the read/checkpoint glue identical
+        super().__init__(ServiceConfig(
+            dim=p.dim, k=p.k, t=p.t, metric=p.metric,
+            micro_batch=topo.micro_batch, second_iters=pipeline.second_iters,
+            policy=pipeline.kernels, summarizer=pipeline.summarizer,
+            seed=pipeline.seed), device)
+        self.pipeline = pipeline
+        self.sampler = (sampler if sampler is not None
+                        else TorchSampler(pipeline.seed))
+        self._rows: list[np.ndarray] = []
+        self.result: Optional[dict] = None
+
+    # ------------------------------------------------------------ write path
+    def ingest(self, points, weights=None) -> None:
+        self.poll_refresh()
+        x, w = self._validate_points(points, weights)
+        if w is not None:
+            raise ValueError("oneshot topology clusters raw (unit-weight) "
+                             "points; weighted records are a stream concept")
+        self._rows.append(x)
+
+    @property
+    def total_ingested(self) -> int:
+        return int(sum(r.shape[0] for r in self._rows))
+
+    def _root_records(self) -> int:
+        # the oneshot "root" is every raw row the coordinator will see
+        return self.total_ingested
+
+    # ------------------------------------------------------------ refresh fit
+    def _fit_closure(self, version: int):
+        if not self._rows:
+            raise RuntimeError("refresh() before any point was ingested")
+        x = np.concatenate(self._rows)
+        self._rows = [x]          # compact the buffer while we have it
+        return functools.partial(self._fit, x, version)
+
+    def _fit(self, x: np.ndarray, version: int) -> ModelState:
+        xd = torch.as_tensor(x, device=self.device)   # one host->card copy
+        res = _run_oneshot(xd, self.pipeline, device=self.device,
+                           sampler=self.sampler)
+        self.result = {k: res[k] for k in RESULT_KEYS}
+        return _model_from_result(xd, res, self.pipeline, version,
+                                  device=self.device)
+
+    # ------------------------------------------------------------ checkpoint
+    def _result_arrays(self) -> dict:
+        r = self.result or {}
+        return {
+            "summary_ids": np.asarray(
+                r.get("summary_ids", np.zeros(0)), np.int64),
+            "summary_weights": np.asarray(
+                r.get("summary_weights", np.zeros(0)), np.float32),
+            "outlier_ids": np.asarray(
+                r.get("outlier_ids", np.zeros(0)), np.int64),
+            "comm_records": np.float64(r.get("comm_records", 0.0)),
+        }
+
+    def save(self, manager: CheckpointManager, step: int, *,
+             blocking: bool = True, extra_meta: Optional[dict] = None) -> None:
+        self.join_refresh()
+        x = (np.concatenate(self._rows) if self._rows
+             else np.zeros((0, self.cfg.dim), np.float32))
+        r = self.result
+        n_sum = 0 if r is None else len(r["summary_ids"])
+        n_out = 0 if r is None else len(r["outlier_ids"])
+        state = {"x": x, "model": self._model_arrays(),
+                 "result": self._result_arrays(),
+                 "counters": {"next_id": np.int64(self._next_id)}}
+        manager.save(step, state, blocking=blocking,
+                     meta={**(extra_meta or {}),
+                           "format": "oneshot-session-v1",
+                           "n_rows": int(x.shape[0]),
+                           "n_summary": n_sum, "n_outliers": n_out})
+
+    @classmethod
+    def restore(cls, pipeline: PipelineConfig, manager: CheckpointManager,
+                step: int | None = None, *, device="cuda",
+                sampler: Optional[Sampler] = None) -> "OneshotEngine":
+        meta = manager.read_meta(step)
+        fmt = meta.get("format")
+        if fmt != "oneshot-session-v1":
+            raise ValueError(
+                f"checkpoint format {fmt!r} is not a oneshot session "
+                f"checkpoint — restore it with the layer that wrote it")
+        eng = cls(pipeline, device=device, sampler=sampler)
+        n_sum, n_out = int(meta["n_summary"]), int(meta["n_outliers"])
+        skel = {"x": np.zeros((int(meta["n_rows"]), pipeline.problem.dim),
+                              np.float32),
+                "model": eng._model_skeleton(eng.cfg),
+                "result": {"summary_ids": np.zeros(n_sum, np.int64),
+                           "summary_weights": np.zeros(n_sum, np.float32),
+                           "outlier_ids": np.zeros(n_out, np.int64),
+                           "comm_records": np.float64(0)},
+                "counters": {"next_id": np.int64(0)}}
+        state, _ = manager.restore(skel, step)
+        x = np.asarray(state["x"], np.float32)
+        eng._rows = [x] if x.shape[0] else []
+        eng._next_id = int(state["counters"]["next_id"])
+        eng._install_model_arrays(state["model"])
+        if eng.model is not None:   # a fit happened: rebuild .result from
+            r = state["result"]     # the persisted arrays + the model
+            eng.result = {
+                "centers": eng.model.centers.cpu().numpy(),
+                "outlier_ids": np.asarray(r["outlier_ids"]),
+                "summary_ids": np.asarray(r["summary_ids"]),
+                "summary_weights": np.asarray(r["summary_weights"]),
+                "comm_records": float(r["comm_records"]),
+                "cost": float(eng.model.cost),
+            }
+        return eng
+
+
+def _run_oneshot(x, pipeline: PipelineConfig, *, device="cuda",
+                 sampler: Optional[Sampler] = None) -> dict:
+    """Algorithm 3 over ``x`` split into ``topology.sites`` contiguous parts
+    (``np.array_split`` sizes) — the coordinator entry point a direct
+    caller would drive, keyed by ``TorchSampler(pipeline.seed)`` unless a
+    ``sampler`` is given.  Returns the reference's six result keys plus the
+    port's ``summary_candidates``, ``site_records``, ``site_rounds`` and
+    ``phase_s``.  ``topology.use_shard_map`` is not ported yet (queue 3)."""
+    _require_ported(pipeline)
+    p, topo = pipeline.problem, pipeline.topology
     dev = resolve_device(device)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    parts = torch.tensor_split(x, sites)
     res = simulate_coordinator(
-        parts, sampler if sampler is not None else TorchSampler(seed),
-        k=k, t=t, partition=partition, summarizer=summarizer,
-        second_iters=second_iters, metric=metric, policy=policy, device=dev)
+        torch.tensor_split(x, topo.sites),
+        sampler if sampler is not None else TorchSampler(pipeline.seed),
+        k=p.k, t=p.t, partition=topo.partition,
+        summarizer=pipeline.summarizer, second_iters=pipeline.second_iters,
+        metric=p.metric, policy=pipeline.kernels, device=dev)
     return {key: res[key] for key in
             RESULT_KEYS + ("summary_candidates", "site_records",
                            "site_rounds", "phase_s")}
 
 
-def _model_from_result(x, res: dict, *, metric: str = "l2sq",
-                       policy: Optional[KernelPolicy] = None,
-                       version: int = 1, device="cuda") -> ModelState:
+def _model_from_result(x, res: dict, pipeline: PipelineConfig,
+                       version: int, *, device="cuda") -> ModelState:
     """Serving model from a coordinator result — the threshold is the
     largest inlier distance among the summary records the second level was
     fit on, as in ``stream.service.fit_model``."""
+    p = pipeline.problem
     dev = resolve_device(device)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
     centers = torch.as_tensor(res["centers"], dtype=torch.float32,
                               device=dev).contiguous()
     ids = torch.as_tensor(np.asarray(res["summary_ids"], np.int64),
                           device=dev)
-    dist, _ = min_argmin(x[ids], centers, metric=metric, policy=policy)
+    dist, _ = min_argmin(x[ids], centers, metric=p.metric,
+                         policy=pipeline.kernels)
     inlier = ~np.isin(res["summary_ids"], res["outlier_ids"])
     dist = dist.cpu().numpy()
     threshold = float(dist[inlier].max()) if inlier.any() else 0.0
@@ -75,3 +257,163 @@ def _model_from_result(x, res: dict, *, metric: str = "l2sq",
         cost=scalar(np.float32(res["cost"]), torch.float32),
         version=scalar(version, torch.int32),
         trained_weight=scalar(np.float32(x.shape[0]), torch.float32))
+
+
+class Session:
+    """The one front door: construct from a :class:`PipelineConfig`, then
+    ``fit`` / ``ingest`` / ``refresh`` / ``score`` / ``save`` regardless of
+    topology.  ``session.engine`` exposes the underlying layer
+    (``StreamService`` or ``OneshotEngine``) as the escape hatch for
+    layer-specific surface.  ``sampler`` (default
+    ``TorchSampler(config.seed)``) keys the engine's draws."""
+
+    def __init__(self, config: PipelineConfig, *, device="cuda",
+                 sampler: Optional[Sampler] = None, _engine=None):
+        _require_ported(config)
+        if config.tracing is not None:
+            raise NotImplementedError(
+                f"config.tracing is set, but {OBS_TODO}; drop the tracing "
+                f"section to run without a flight recorder")
+        self.config = config
+        if _engine is not None:
+            self.engine = _engine
+        elif config.topology.kind == "stream":
+            self.engine = StreamService(config.service_config(),
+                                        sampler=sampler, device=device)
+        else:
+            self.engine = OneshotEngine(config, device=device,
+                                        sampler=sampler)
+
+    # ------------------------------------------------------------ serving
+    def serve(self):
+        """Attach the async serving scheduler: not ported yet."""
+        raise NotImplementedError(SERVING_TODO)
+
+    def score_stream(self, queries, *, tenant: str = "default",
+                     timeout: Optional[float] = None):
+        """Score rows through the async serving path: not ported yet."""
+        raise NotImplementedError(SERVING_TODO)
+
+    def submit_stream(self, queries, *, tenant: str = "default"):
+        """Submit rows to the async serving path: not ported yet."""
+        raise NotImplementedError(SERVING_TODO)
+
+    def close(self) -> None:
+        """Stop the serving scheduler, if one is attached — none can be
+        until the scheduler is ported, so this is a no-op."""
+
+    def __enter__(self) -> "Session":
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.close()
+        return False
+
+    # ------------------------------------------------------------ verbs
+    def ingest(self, points, weights=None, *, site: int | None = None) -> None:
+        """Feed raw points.  ``site=`` pins a batch to one site (sharded
+        topology only — elsewhere routing is not a concept)."""
+        if site is not None:
+            raise ValueError(
+                f"site= routing needs topology.kind='sharded', this "
+                f"session is {self.config.topology.kind!r}")
+        self.engine.ingest(points, weights)
+
+    def refresh(self, *, blocking: bool = True) -> Optional[ModelState]:
+        """(Re)fit the serving model on everything ingested so far."""
+        return self.engine.refresh(blocking=blocking)
+
+    def fit(self, points=None, weights=None) -> ModelState:
+        """``ingest`` (optional) + blocking ``refresh`` in one call."""
+        if points is not None:
+            self.ingest(points, weights)
+        return self.engine.refresh(blocking=True)
+
+    def score(self, queries) -> list:
+        """Score query rows against the current model; returns the same
+        ``QueryResult`` records every topology's read path produces."""
+        return self.engine.score(queries)
+
+    def latency_stats(self) -> dict:
+        return self.engine.latency_stats()
+
+    def store_stats(self) -> Optional[dict]:
+        """The tiered store's movement tallies — ``{"spills", "page_ins",
+        "spill_bytes", "page_in_bytes"}`` — or None when the config has no
+        tiered store (oneshot topology, no ``store`` section, or an
+        untiered spec)."""
+        tree = getattr(self.engine, "tree", None)
+        if tree is None or tree._store is None:
+            return None
+        return dict(tree._store.stats())
+
+    def stats(self) -> dict:
+        """The process metrics snapshot: not ported yet."""
+        raise NotImplementedError(OBS_TODO)
+
+    def dump_trace(self, path, fmt: str = "chrome"):
+        """Write the flight recorder's spans: not ported yet."""
+        raise NotImplementedError(OBS_TODO)
+
+    @property
+    def last_fit(self):
+        """:class:`repro_torch.stream.service.FitStats` of the most recent
+        installed refresh (duration, records folded) — None before the
+        first fit.  Staleness is ``engine.seconds_since_install()``."""
+        return self.engine.last_fit
+
+    @property
+    def model(self) -> Optional[ModelState]:
+        return self.engine.model
+
+    @property
+    def result(self) -> Optional[dict]:
+        """Oneshot coordinator detail (outlier/summary ids, comm records);
+        None for the stream topology, whose model is the serving state."""
+        return getattr(self.engine, "result", None)
+
+    # ------------------------------------------------------------ persistence
+    def save(self, directory, *, step: int | None = None,
+             blocking: bool = True) -> int:
+        """Checkpoint the full session under ``directory``.
+
+        The serialized ``PipelineConfig`` is embedded in the checkpoint
+        manifest, so :meth:`load` reconstructs topology and policies with
+        no caller-side state.  Returns the step written."""
+        manager = CheckpointManager(directory)
+        if step is None:
+            latest = manager.latest_step()
+            step = (latest + 1) if latest is not None else 1
+        self.engine.save(
+            manager, step, blocking=blocking,
+            extra_meta={"pipeline_config": self.config.to_dict()})
+        return step
+
+    @classmethod
+    def load(cls, directory, *, step: int | None = None, device="cuda",
+             sampler_from_key_data: Optional[Callable] = None) -> "Session":
+        """Rebuild a session from a checkpoint alone: the manifest's
+        embedded config selects the topology and policies, then the
+        matching layer restores its state on ``device`` (post-restore
+        scores are bit-identical to the saved session's).  A stream
+        session's samplers are rebuilt by ``sampler_from_key_data``
+        (default ``TorchSampler.from_key_data``); a oneshot session keeps
+        no sampler state and refits from ``TorchSampler(config.seed)``."""
+        manager = CheckpointManager(directory)
+        meta = manager.read_meta(step)
+        cfg_dict = meta.get("pipeline_config")
+        if cfg_dict is None:
+            raise ValueError(
+                f"checkpoint in {directory} has no embedded pipeline config "
+                f"(was it written by Session.save?); restore it with the "
+                f"layer-specific restore() it was written by")
+        config = PipelineConfig.from_dict(cfg_dict)
+        _require_ported(config)
+        if config.topology.kind == "stream":
+            engine = StreamService.restore(
+                config.service_config(), manager, step,
+                sampler_from_key_data=sampler_from_key_data, device=device)
+        else:
+            engine = OneshotEngine.restore(config, manager, step,
+                                           device=device)
+        return cls(config, _engine=engine)

@@ -11,8 +11,10 @@ Port of ``repro.kernels.lloyd.ops``.  Backends (registered with
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import dispatch
@@ -20,10 +22,19 @@ from repro_torch.kernels.dispatch import KernelPolicy
 from repro_torch.kernels.lloyd.kernel import LLOYD_METRICS, lloyd_step_cuda
 from repro_torch.kernels.lloyd.ref import lloyd_step_ref
 from repro_torch.kernels.pdist.kernel import DTYPE_CODES
-from repro_torch.kernels.pdist.ops import min_argmin
+from repro_torch.kernels.pdist.ops import min_argmin, min_argmin_blocked
 
 _DEFAULT_BLOCK_N = 16384
+_TUNE_BLOCK_NS = (4096, 8192, 16384, 32768, 65536)
 _METRICS = ("l2sq", "l2", "l1", "cosine")
+
+
+def _lloyd_args(n: int, m: int, d: int, rng: np.random.Generator):
+    """The autotuner's operands (the reference's)."""
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    w = rng.uniform(0.0, 2.0, size=(n,)).astype(np.float32)
+    c = rng.standard_normal((m, d)).astype(np.float32)
+    return (x, w, c)
 
 
 def accumulate_by_assignment(x, w, amin, k: int):
@@ -41,12 +52,17 @@ def accumulate_by_assignment(x, w, amin, k: int):
 
 def lloyd_step_blocked(x, w, c, *, metric: str = "l2sq",
                        policy: Optional[KernelPolicy] = None,
-                       block_n: int = 0):
-    """Assignment through the dispatched ``min_argmin`` under ``policy``
-    (kernel A on the card, the chunked torch path on the CPU or under
-    ``backend="blocked"``) + one-hot matmul accumulate.  ``block_n`` is
-    unused: the assignment takes its tile from ``policy``."""
-    dist, amin = min_argmin(x, c, metric=metric, policy=policy)
+                       block_n: int = _DEFAULT_BLOCK_N):
+    """Assignment + one-hot matmul accumulate.  Given a ``policy``, the
+    assignment is the dispatched ``min_argmin`` under it (kernel A on the
+    card, the chunked torch path on the CPU or under ``backend="blocked"``)
+    and takes its tile from it; with none, it is the chunked torch path at
+    ``block_n`` rows (what the autotuner times, as the reference's blocked
+    Lloyd step is)."""
+    if policy is None:
+        dist, amin = min_argmin_blocked(x, c, metric=metric, block_n=block_n)
+    else:
+        dist, amin = min_argmin(x, c, metric=metric, policy=policy)
     sums, counts = accumulate_by_assignment(x, w, amin, c.shape[0])
     return sums, counts, amin, dist
 
@@ -66,6 +82,8 @@ dispatch.register(
     supports=lambda metric, platform, dtype, n, m, d: metric in _METRICS,
     priority=lambda platform: 1,
     default_block_n=lambda platform: _DEFAULT_BLOCK_N,
+    tune_candidates=_TUNE_BLOCK_NS,
+    make_args=_lloyd_args,
 )(lloyd_step_blocked)
 
 dispatch.register(
@@ -73,6 +91,7 @@ dispatch.register(
     supports=lambda metric, platform, dtype, n, m, d: metric in _METRICS,
     priority=lambda platform: 0,
     default_block_n=lambda platform: _DEFAULT_BLOCK_N,
+    make_args=_lloyd_args,
 )(lloyd_step_reference)
 
 dispatch.register(
@@ -81,6 +100,7 @@ dispatch.register(
         metric in LLOYD_METRICS and dtype in DTYPE_CODES),
     priority=lambda platform: 10 if platform == "cuda" else -1,
     default_block_n=lambda platform: 0,
+    make_args=_lloyd_args,
 )(lloyd_step_cuda_backend)
 
 
@@ -94,6 +114,9 @@ def lloyd_step(x, w, c, *, metric: str = "l2sq",
                                platform=dispatch.platform_of(x))
     if reg.name == "blocked":
         # the assignment follows the same policy: kernel A for l1 on the
-        # card, the blocked torch path on the CPU or under backend="blocked"
+        # card, the blocked torch path on the CPU or under backend="blocked";
+        # a tuned Lloyd tile is its assignment's, as in the reference
+        if policy.autotune and policy.block_n is None:
+            policy = dataclasses.replace(policy, block_n=bn)
         return lloyd_step_blocked(x, w, c, metric=metric, policy=policy)
     return reg.impl(x, w, c, metric=metric, block_n=bn)

@@ -25,6 +25,9 @@ from . import ref as _ref
 from .kernel import DTYPE_CODES, min_argmin_cuda
 
 _DEFAULT_BLOCK_N = 16384
+# the reference's blocked candidates; the cuda kernel's tiles are fixed
+# per width, so it registers none (dispatch.py)
+_TUNE_BLOCK_NS = (4096, 8192, 16384, 32768, 65536)
 _L1_CHUNK = 64
 
 
@@ -75,6 +78,7 @@ dispatch.register(
     supports=lambda metric, platform, dtype, n, m, d: metric in _ref.METRICS,
     priority=lambda platform: 1,
     default_block_n=lambda platform: _DEFAULT_BLOCK_N,
+    tune_candidates=_TUNE_BLOCK_NS,
 )(min_argmin_blocked)
 
 dispatch.register(

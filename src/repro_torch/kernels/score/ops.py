@@ -22,6 +22,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import dispatch
@@ -31,8 +32,18 @@ from repro_torch.kernels.pdist.kernel import DTYPE_CODES
 from repro_torch.kernels.score.kernel import score_cuda
 
 _DEFAULT_BLOCK_N = 16384
+_TUNE_BLOCK_NS = (4096, 8192, 16384, 32768, 65536)
 _DEFAULT_BLOCK_M = 128
+_TUNE_BLOCK_MS = (64, 128, 256, 512)
 _EPS = 1e-30  # threshold guard — matches the reference's serving divide
+
+
+def _score_args(n: int, m: int, d: int, rng: np.random.Generator):
+    """The autotuner's operands (the reference's): score takes a
+    threshold, pdist doesn't."""
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    c = rng.standard_normal((m, d)).astype(np.float32)
+    return (x, c, np.float32(1.0))
 
 
 def _finish(dist: torch.Tensor, amin: torch.Tensor, threshold):
@@ -116,20 +127,26 @@ def score_cuda_backend(x, c, threshold, *, metric: str = "l2sq",
                       metric=metric)
 
 
-def _register(name, fn, supports, priority):
+def _register(name, fn, supports, priority, tuned=False):
+    """``tuned``: the reference's blocked (block_n, block_m) candidates."""
     dispatch.register(
         "score", name, supports=supports, priority=priority,
         default_block_n=lambda platform: _DEFAULT_BLOCK_N,
-        default_block_m=lambda platform: _DEFAULT_BLOCK_M)(fn)
+        tune_candidates=_TUNE_BLOCK_NS if tuned else (),
+        make_args=_score_args,
+        default_block_m=lambda platform: _DEFAULT_BLOCK_M,
+        tune_candidates_m=_TUNE_BLOCK_MS if tuned else ())(fn)
 
 
 _any_metric = (lambda metric, platform, dtype, n, m, d:
                metric in _ref.METRICS)
 _register("ref", score_reference, _any_metric, lambda platform: 0)
-_register("blocked", score_blocked, _any_metric, lambda platform: 1)
+_register("blocked", score_blocked, _any_metric, lambda platform: 1,
+          tuned=True)
 # changes results (quantization error): explicit opt-in only
-_register("int8", score_int8, _any_metric, lambda platform: -1)
-# cosine stays on the plain path, matching pdist
+_register("int8", score_int8, _any_metric, lambda platform: -1, tuned=True)
+# cosine stays on the plain path, matching pdist; launch shape from n and
+# d, so no tile candidates
 _register("cuda", score_cuda_backend,
           lambda metric, platform, dtype, n, m, d: (
               metric in _ref.CUDA_METRICS and dtype in DTYPE_CODES),

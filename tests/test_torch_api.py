@@ -1,0 +1,501 @@
+"""The port's front door against the reference's, on the CPU.
+
+``PipelineConfig``: for the ``examples/`` artifacts and a set of configs
+covering every topology kind and section (``serving``, ``tracing``,
+``store`` in its bare-bool, bare-int and dict forms, a summarizer with
+params, kernel policies with tiles and the autotuner), the port's
+``to_json()`` must equal the reference's byte for byte; the reference's
+invalid configs raise ``ValueError`` in both packages; a version-1 payload
+warns and upgrades; an artifact's ``"pallas"`` backend reads as the port's
+``"cuda"``; ``service_config()`` equals the reference's field for field.
+
+``Session``: the oneshot (4 sites) and stream (with and without a
+``store``) topologies under ``JaxReplaySampler`` (the reference's draws)
+against the reference's ``Session`` on an integer grid
+(``test_torch_stream.grid``), where every distance between two rows is
+exact in f32 (ROADMAP.md, queue 3 item 1).  Centers, ids, versions,
+records and communication are held bit for bit.  A distance to a fitted
+center is not exact: under l1 it is a sum of |x - c| and the threshold
+and scores are held bit for bit, under l2sq it is a dot product that
+XLA's CPU dot and torch sum in other orders (queue 3 item 4), so the
+threshold is held to 1e-6 of the expansion's magnitude and scores to rtol
+1e-5.  The cost, a weighted sum over the records in another order, is held
+to rtol 1e-5 (as ``test_torch_oneshot.py`` holds it).  A refresh with no
+new data is pure; ``save`` / ``load`` round-trip bit for bit and cross
+between the packages both ways; the error surface is the reference's, plus
+``NotImplementedError`` naming the queue for what is not ported.
+"""
+import contextlib
+import dataclasses
+import json
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.api as J
+import repro.kernels.dispatch as jdispatch
+import repro.store as jstore
+import repro.summarize as jsummarize
+from repro.api.cli import load_config_file as j_load_config_file
+from repro_torch.api import (OneshotEngine, PipelineConfig, Session,
+                             pipeline_config)
+from repro_torch.api.cli import load_config_file
+from repro_torch.kernels.dispatch import KernelPolicy
+from repro_torch.store import StoreSpec
+from repro_torch.stream import ServiceConfig, StreamService
+from repro_torch.summarize import summarizer_policy
+from test_torch_replay import JaxReplaySampler
+from test_torch_stream import grid
+
+torch.set_num_threads(1)
+
+EXAMPLES = Path(__file__).resolve().parent.parent / "examples"
+ARTIFACTS = ("oneshot.json", "stream.toml", "stream_store.json")
+
+
+# ------------------------------------------------------------- serialization
+def _cases():
+    """Keyword sets both packages' ``pipeline_config`` take as they are."""
+    return {
+        "oneshot_default": dict(dim=3, k=4, t=12),
+        "oneshot_l1_adversarial": dict(dim=3, k=4, t=12, sites=5,
+                                       partition="adversarial", metric="l1",
+                                       seed=9),
+        "stream_uniform_blocked": dict(
+            dim=5, k=2, t=0, topology="stream", leaf_size=128,
+            refresh_every=512, window=4096, summarizer="uniform",
+            kernels="blocked"),
+        "stream_store_bool": dict(dim=4, k=3, t=10, topology="stream",
+                                  store=True, kernels="ref"),
+        "stream_store_int": dict(dim=4, k=3, t=10, topology="stream",
+                                 store=2, async_refresh=True,
+                                 kernels={"backend": "int8",
+                                          "block_n": 4096}),
+        "stream_store_dict": dict(
+            dim=4, k=3, t=10, topology="stream", window=9000,
+            store={"hot_levels": 1, "incremental_refresh": False,
+                   "warm_start_frac": 0.5},
+            kernels={"backend": "blocked", "autotune": True}),
+        "sharded_coreset": dict(
+            dim=2, k=3, t=7, topology="sharded", sites=3,
+            site_budget="paper", async_refresh=True, micro_batch=64,
+            summarizer={"name": "coreset", "params": [["budget", 64]]},
+            kernels={"backend": "ref", "block_n": 256}, store=0),
+        "serving_and_tracing_dicts": dict(
+            dim=3, k=4, t=12, sites=2,
+            serving={"queue_bound": 64, "batch_window_ms": 1,
+                     "shed_policy": "wait", "tenant_quota": 8,
+                     "max_batch": 32},
+            tracing={"sample_rate": 0.25, "ring": 128, "seed": 3}),
+        "serving_and_tracing_bare": dict(dim=3, k=4, t=12,
+                                         serving="shed", tracing=0.5),
+        "tracing_off": dict(dim=3, k=4, t=12, topology="stream",
+                            tracing=False, serving="wait"),
+    }
+
+
+@pytest.mark.parametrize("case", sorted(_cases()))
+def test_to_json_is_the_references_byte_for_byte(case):
+    kw = _cases()[case]
+    want = J.pipeline_config(**kw)
+    got = pipeline_config(**kw)
+    assert got.to_json() == want.to_json()
+    assert got.to_dict() == want.to_dict()
+    assert PipelineConfig.from_json(want.to_json()) == got
+    assert J.PipelineConfig.from_json(got.to_json()) == want
+
+
+@pytest.mark.parametrize("name", ARTIFACTS)
+def test_example_artifacts_read_as_the_references(name):
+    # examples/oneshot.json is a version-1 artifact
+    with pytest.warns(UserWarning) if name == "oneshot.json" else \
+            contextlib.nullcontext():
+        got, got_data = load_config_file(EXAMPLES / name)
+        want, want_data = j_load_config_file(EXAMPLES / name)
+    assert got.to_json() == want.to_json()
+    assert got_data == want_data
+
+
+# the reference's invalid configs (tests/test_api.py)
+BAD = [
+    dict(dim=0, k=4, t=10),
+    dict(dim=3, k=0, t=10),
+    dict(dim=3, k=4, t=-1),
+    dict(dim=3, k=4, t=10, metric="chebyshev"),
+    dict(dim=3, k=4, t=10, topology="ring"),
+    dict(dim=3, k=4, t=10, topology="stream", sites=3),
+    dict(dim=3, k=4, t=10, window=100),
+    dict(dim=3, k=4, t=10, async_refresh=True),
+    dict(dim=3, k=4, t=10, refresh_every=4096),
+    dict(dim=3, k=4, t=10, leaf_size=512),
+    dict(dim=3, k=4, t=10, topology="stream", partition="adversarial"),
+    dict(dim=3, k=4, t=10, topology="stream", site_budget="paper"),
+    dict(dim=3, k=4, t=10, topology="stream", use_shard_map=True),
+    dict(dim=3, k=4, t=10, topology="sharded", sites=0),
+    dict(dim=3, k=4, t=10, topology="stream", window=0),
+    dict(dim=3, k=4, t=10, summarizer="nope"),
+    dict(dim=3, k=4, t=10, use_shard_map=True, summarizer="ball_cover"),
+    dict(dim=3, k=4, t=10, kernels={"backend": "auto", "block_n": 0}),
+    dict(dim=3, k=4, t=10, store=1),                     # oneshot store
+]
+
+
+@pytest.mark.parametrize("idx", range(len(BAD)))
+def test_invalid_configs_raise_in_both_packages(idx):
+    with pytest.raises(ValueError) as want:
+        J.pipeline_config(**BAD[idx])
+    with pytest.raises(ValueError) as got:
+        pipeline_config(**BAD[idx])
+    assert str(got.value) == str(want.value)
+
+
+def test_from_dict_rejects_what_the_reference_rejects():
+    good = pipeline_config(dim=3, k=4, t=12).to_dict()
+    for bad, match in (({**good, "extra": 1}, "unknown config keys"),
+                       ({**good, "topology": {**good["topology"],
+                                              "n_sites": 2}},
+                        "unknown topology keys"),
+                       ({k: v for k, v in good.items() if k != "problem"},
+                        "missing"),
+                       ({**good, "version": 99}, "version")):
+        for cls in (PipelineConfig, J.PipelineConfig):
+            with pytest.raises(ValueError, match=match):
+                cls.from_dict(bad)
+
+
+def test_v1_payload_warns_and_upgrades():
+    d = pipeline_config(dim=3, k=4, t=12, sites=2).to_dict()
+    v1 = {**d, "version": 1}
+    with pytest.warns(UserWarning, match="version-1"):
+        got = PipelineConfig.from_dict(v1)
+    assert got == PipelineConfig.from_dict(d)
+    assert got.to_dict()["version"] == 2
+
+
+def test_pallas_backend_reads_as_cuda():
+    assert pipeline_config(dim=3, k=4, t=12,
+                           kernels="pallas").kernels.backend == "cuda"
+    d = J.pipeline_config(dim=3, k=4, t=12,
+                          kernels=jdispatch.KernelPolicy(
+                              backend="pallas", block_n=512,
+                              autotune=True)).to_dict()
+    got = PipelineConfig.from_dict(d)
+    assert got.kernels == KernelPolicy(backend="cuda", block_n=512,
+                                       autotune=True)
+    assert got.to_dict()["kernels"]["backend"] == "cuda"
+    with pytest.raises(ValueError):
+        KernelPolicy(backend="pallas")
+    # a port artifact naming "cuda" does not load in the reference
+    with pytest.raises(ValueError):
+        J.PipelineConfig.from_dict(got.to_dict())
+
+
+def test_service_config_is_the_references_field_for_field():
+    kw = dict(dim=4, k=3, t=10, topology="stream", leaf_size=512,
+              refresh_every=2048, micro_batch=128, window=9000,
+              async_refresh=True, second_iters=7, seed=4,
+              summarizer=summarizer_policy("uniform", budget=32),
+              kernels=KernelPolicy(backend="blocked", block_n=1024),
+              store=StoreSpec(hot_levels=1))
+    jkw = {**kw, "summarizer": jsummarize.summarizer_policy("uniform",
+                                                            budget=32),
+           "kernels": jdispatch.KernelPolicy(backend="blocked",
+                                             block_n=1024),
+           "store": jstore.StoreSpec(hot_levels=1)}
+    got = pipeline_config(**kw).service_config()
+    want = J.pipeline_config(**jkw).service_config()
+    assert isinstance(got, ServiceConfig)
+    names = [f.name for f in dataclasses.fields(want)]
+    assert [f.name for f in dataclasses.fields(got)] == names
+    for name in names:
+        g, w = getattr(got, name), getattr(want, name)
+        if dataclasses.is_dataclass(w):
+            assert dataclasses.asdict(g) == dataclasses.asdict(w), name
+        else:
+            assert g == w, name
+    with pytest.raises(ValueError, match="stream"):
+        pipeline_config(dim=3, k=4, t=12).service_config()
+
+
+# ------------------------------------------------------- session parity
+def _expansion_scale(rows, centers):
+    rows = np.asarray(rows, np.float64)
+    c = np.asarray(centers, np.float64)
+    return (rows ** 2).sum(1).max() + (c ** 2).sum(1).max()
+
+
+def assert_models_match(got, want, metric, rows):
+    """Centers, version and trained mass bit for bit; the threshold bit for
+    bit under l1, within 1e-6 of the expansion's magnitude under l2sq; the
+    cost to rtol 1e-5."""
+    for name in ("centers", "version", "trained_weight"):
+        np.testing.assert_array_equal(getattr(got, name).cpu().numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    g, w = float(got.threshold), float(want.threshold)
+    if metric == "l1":
+        assert g == w, (g, w)
+    else:
+        assert abs(g - w) <= 1e-6 * _expansion_scale(rows, want.centers)
+    np.testing.assert_allclose(float(got.cost), float(want.cost), rtol=1e-5)
+
+
+def assert_scores_match(got, want, metric, same_ids=True):
+    if same_ids:
+        assert [r.request_id for r in got] == [r.request_id for r in want]
+    assert [r.center for r in got] == [r.center for r in want]
+    assert [r.is_outlier for r in got] == [r.is_outlier for r in want]
+    for name in ("distance", "outlier_score"):
+        g = np.array([getattr(r, name) for r in got], np.float32)
+        w = np.array([getattr(r, name) for r in want], np.float32)
+        if metric == "l1":
+            np.testing.assert_array_equal(g, w, err_msg=name)
+        else:
+            np.testing.assert_allclose(g, w, rtol=1e-5, err_msg=name)
+
+
+def _sessions(kw, seed=0):
+    """(port, reference) sessions on one config, the port under the
+    reference's draws."""
+    want = J.Session(J.pipeline_config(**kw))
+    got = Session(pipeline_config(**kw), device="cpu",
+                  sampler=JaxReplaySampler(jax.random.key(kw.get("seed",
+                                                                 seed))))
+    return got, want
+
+
+ONESHOT = dict(dim=4, k=4, t=12, sites=4, seed=3)
+
+
+@pytest.mark.parametrize("metric", ["l2sq", "l1"])
+def test_oneshot_session_matches_reference(metric):
+    x = grid(2400, seed=21)
+    q = grid(300, seed=22)
+    got, want = _sessions({**ONESHOT, "metric": metric})
+    mg, mw = got.fit(x), want.fit(x)
+    for name in ("centers", "outlier_ids", "summary_ids", "summary_weights"):
+        np.testing.assert_array_equal(got.result[name], want.result[name],
+                                      err_msg=name)
+    assert got.result["comm_records"] == want.result["comm_records"]
+    np.testing.assert_allclose(got.result["cost"], want.result["cost"],
+                               rtol=1e-5)
+    assert sorted(got.result) == sorted(want.result)
+    assert_models_match(mg, mw, metric, x[want.result["summary_ids"]])
+    assert_scores_match(got.score(q), want.score(q), metric)
+    assert isinstance(got.engine, OneshotEngine)
+    assert got.last_fit.records_folded == want.last_fit.records_folded
+    assert got.store_stats() is None and want.store_stats() is None
+
+
+def test_oneshot_engine_is_the_sessions_engine():
+    x = grid(1600, seed=23)
+    kw = {**ONESHOT, "metric": "l1"}
+    sess = Session(pipeline_config(**kw), device="cpu",
+                   sampler=JaxReplaySampler(jax.random.key(3)))
+    eng = OneshotEngine(pipeline_config(**kw), device="cpu",
+                        sampler=JaxReplaySampler(jax.random.key(3)))
+    sess.fit(x)
+    eng.ingest(x[:800])
+    eng.ingest(x[800:])
+    eng.refresh()
+    for name in ("centers", "outlier_ids", "summary_ids"):
+        np.testing.assert_array_equal(eng.result[name], sess.result[name])
+    assert eng.total_ingested == 1600
+
+
+STREAM = dict(dim=4, k=4, t=12, topology="stream", leaf_size=256,
+              refresh_every=1500, micro_batch=64, window=3000, seed=5)
+
+
+@pytest.mark.parametrize("store", [None, 0], ids=["resident", "store"])
+@pytest.mark.parametrize("metric", ["l2sq", "l1"])
+def test_stream_session_matches_reference(metric, store, tmp_path):
+    kw = {**STREAM, "metric": metric}
+    if store is not None:
+        kw["store"] = {"hot_levels": store, "directory": str(tmp_path),
+                       "warm_start_frac": 0.3}
+    got, want = _sessions(kw)
+    x = grid(6000, seed=24)
+    for i in range(0, len(x), 700):
+        got.ingest(x[i:i + 700])
+        want.ingest(x[i:i + 700])
+        assert (got.model is None) == (want.model is None)
+    mg, mw = got.refresh(), want.refresh()
+    assert got.store_stats() == want.store_stats()
+    root = want.engine.tree.packed_root()[0]   # (pages the reference in)
+    assert_models_match(mg, mw, metric, root)
+    assert got.last_fit.records_folded == want.last_fit.records_folded
+    q = grid(200, seed=25)
+    assert_scores_match(got.score(q), want.score(q), metric)
+    assert got.result is None and want.result is None
+    if store is not None:
+        assert got.store_stats()["spills"] > 0
+        assert (got.engine.skipped_refreshes, got.engine.warm_starts) == \
+            (1, 0)   # the final refresh: the root did not change
+
+
+def test_oneshot_refresh_is_pure():
+    x = grid(1600, seed=26)
+    sess = Session(pipeline_config(dim=4, k=4, t=12, sites=2), device="cpu")
+    m1 = sess.fit(x)
+    r1 = {k: v for k, v in sess.result.items()}
+    m2 = sess.refresh()
+    assert torch.equal(m1.centers, m2.centers)
+    assert float(m1.threshold) == float(m2.threshold)
+    assert int(m2.version) == int(m1.version) + 1
+    for name in ("outlier_ids", "summary_ids"):
+        np.testing.assert_array_equal(sess.result[name], r1[name])
+
+
+# ------------------------------------------------------------- save / load
+@pytest.mark.parametrize("kind", ["oneshot", "stream"])
+def test_save_load_score_bit_identical(tmp_path, kind):
+    x = grid(2000, seed=27)
+    kw = ONESHOT if kind == "oneshot" else STREAM
+    sess = Session(pipeline_config(**kw), device="cpu")
+    sess.fit(x)
+    q = x[:100]
+    before = sess.score(q)
+    assert sess.save(tmp_path) == 1
+    restored = Session.load(tmp_path, device="cpu")
+    assert restored.config == sess.config
+    # request ids continue from the saved counter
+    assert_scores_match(restored.score(q), before, "l1", same_ids=False)
+    assert restored.engine._next_id == 2 * len(q)
+    assert int(restored.model.version) == int(sess.model.version)
+    if kind == "oneshot":
+        for key in ("outlier_ids", "summary_ids", "summary_weights",
+                    "centers"):
+            np.testing.assert_array_equal(restored.result[key],
+                                          sess.result[key])
+        assert restored.result["cost"] == sess.result["cost"]
+        assert restored.result["comm_records"] == \
+            sess.result["comm_records"]
+    # the restored session keeps working: ingest more, refresh, score
+    restored.ingest(x[:64])
+    restored.refresh()
+    assert int(restored.model.version) == int(sess.model.version) + 1
+    assert sess.save(tmp_path) == 2
+
+
+@pytest.mark.parametrize("kind", ["oneshot", "stream"])
+def test_checkpoints_cross_between_packages(tmp_path, kind):
+    """A reference ``Session.save`` loads in the port and scores as the
+    reference does, and the other way round (l1: scores bit for bit)."""
+    x = grid(2000, seed=28)
+    q = grid(100, seed=29)
+    kw = {**(ONESHOT if kind == "oneshot" else STREAM), "metric": "l1"}
+    ref = J.Session(J.pipeline_config(**kw))
+    ref.fit(x)
+    ref.save(tmp_path / "ref")
+    got = Session.load(tmp_path / "ref", device="cpu",
+                       sampler_from_key_data=JaxReplaySampler.from_key_data)
+    assert_scores_match(got.score(q), ref.score(q), "l1")
+
+    port = Session(pipeline_config(**kw), device="cpu",
+                   sampler=JaxReplaySampler(jax.random.key(kw["seed"])))
+    port.fit(x)
+    port.save(tmp_path / "port")
+    back = J.Session.load(tmp_path / "port")
+    assert_scores_match(port.score(q), back.score(q), "l1")
+    if kind == "stream":
+        # both continue on the same draws: ingest more and refit
+        got.ingest(x[:1500])
+        ref.ingest(x[:1500])
+        assert_models_match(got.refresh(), ref.refresh(), "l1", None)
+
+
+def test_load_refuses_checkpoint_without_embedded_config(tmp_path):
+    from repro_torch.checkpoint.manager import CheckpointManager
+    svc = StreamService(ServiceConfig(dim=4, k=4, t=12, leaf_size=256),
+                        device="cpu")
+    svc.ingest(grid(512, seed=30))
+    svc.refresh()
+    svc.save(CheckpointManager(tmp_path), step=1)
+    with pytest.raises(ValueError, match="embedded pipeline config"):
+        Session.load(tmp_path, device="cpu")
+
+
+# ------------------------------------------------------------ error surface
+def test_session_error_surface():
+    x = grid(400, seed=31)
+    sess = Session(pipeline_config(dim=4, k=4, t=12), device="cpu")
+    with pytest.raises(RuntimeError, match="refresh"):
+        sess.refresh()                  # a refresh before any ingest
+    with pytest.raises(RuntimeError, match="refresh"):
+        sess.score(x[:2])
+    with pytest.raises(ValueError, match="unit-weight"):
+        sess.ingest(x[:4], np.ones(4))
+    with pytest.raises(ValueError, match="sharded"):
+        sess.ingest(x[:4], site=0)
+    with pytest.raises(ValueError, match="(n, 4)"):
+        sess.ingest(x[:4, :2])
+    stream = Session(pipeline_config(dim=4, k=4, t=12, topology="stream"),
+                     device="cpu")
+    with pytest.raises(ValueError, match="sharded"):
+        stream.ingest(x[:4], site=0)
+    with pytest.raises(RuntimeError, match="refresh"):
+        stream.refresh()
+
+
+@pytest.mark.parametrize("verb", ["serve", "score_stream", "submit_stream",
+                                  "stats", "dump_trace"])
+def test_queue4_verbs_raise_naming_the_queue(verb):
+    sess = Session(pipeline_config(dim=4, k=4, t=12), device="cpu")
+    args = {"serve": (), "stats": (), "dump_trace": ("t.json",)}.get(
+        verb, (np.zeros((1, 4), np.float32),))
+    with pytest.raises(NotImplementedError, match="queue 4"):
+        getattr(sess, verb)(*args)
+    with sess as s:             # close() and the context manager: no-ops
+        assert s is sess
+    sess.close()
+
+
+@pytest.mark.parametrize("kw,queue", [
+    (dict(topology="sharded", sites=2), "queue 3"),
+    (dict(use_shard_map=True, sites=2), "queue 3"),
+    (dict(tracing=0.5), "queue 4"),
+    (dict(tracing=False, topology="stream"), "queue 4"),
+])
+def test_unported_topologies_and_tracing_raise(kw, queue):
+    cfg = pipeline_config(dim=4, k=4, t=12, **kw)
+    with pytest.raises(NotImplementedError, match=queue):
+        Session(cfg, device="cpu")
+    if kw.get("topology") == "sharded":
+        with pytest.raises(NotImplementedError, match="queue 3"):
+            cfg.sharded_config()
+    if kw.get("use_shard_map"):
+        from repro_torch.api.session import _run_oneshot
+        with pytest.raises(NotImplementedError, match="queue 3"):
+            _run_oneshot(grid(40, seed=32), cfg, device="cpu")
+
+
+def test_load_refuses_a_sharded_checkpoint(tmp_path):
+    x = grid(800, seed=34)
+    ref = J.Session(J.pipeline_config(dim=4, k=4, t=12, topology="sharded",
+                                      sites=2, leaf_size=256))
+    ref.fit(x)
+    ref.save(tmp_path)
+    with pytest.raises(NotImplementedError, match="queue 3"):
+        Session.load(tmp_path, device="cpu")
+
+
+def test_session_refuses_cuda_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Session(pipeline_config(dim=4, k=4, t=12))
+    with pytest.raises(RuntimeError, match="cuda"):
+        Session(pipeline_config(dim=4, k=4, t=12, topology="stream"))
+
+
+def test_serialized_artifact_runs_the_same_session():
+    """A config round-tripped through JSON text drives the same fit."""
+    x = grid(1600, seed=33)
+    cfg = pipeline_config(**ONESHOT)
+    a = Session(cfg, device="cpu")
+    b = Session(PipelineConfig.from_json(json.dumps(json.loads(
+        cfg.to_json()))), device="cpu")
+    assert torch.equal(a.fit(x).centers, b.fit(x).centers)

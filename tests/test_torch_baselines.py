@@ -22,6 +22,7 @@ import torch
 import repro.summarize as jsum
 from repro.api.config import pipeline_config
 from repro.api.session import _run_oneshot as jax_run_oneshot
+from repro_torch.api.config import pipeline_config as torch_pipeline_config
 from repro.core.distributed import simulate_coordinator as jax_simulate
 from repro.core.kmeans_parallel import kmeans_parallel_summary as jax_kpar
 from repro.core.rand_summary import rand_summary as jax_rand
@@ -143,9 +144,11 @@ def test_run_oneshot_summarizer_matches_reference(name):
                                summarizer=jsum.summarizer_policy(name,
                                                                  **params))
     want = jax_run_oneshot(x, pipeline)
-    got = _run_oneshot(x, k=K, t=T, sites=SITES, device="cpu",
-                       summarizer=summarizer_policy(name, **params),
-                       sampler=JaxReplaySampler(jax.random.key(2)))
+    got = _run_oneshot(
+        x, torch_pipeline_config(dim=5, k=K, t=T, sites=SITES, seed=2,
+                                 summarizer=summarizer_policy(name,
+                                                              **params)),
+        device="cpu", sampler=JaxReplaySampler(jax.random.key(2)))
     for f in ("summary_ids", "outlier_ids", "summary_weights"):
         np.testing.assert_array_equal(got[f], want[f], err_msg=f)
     np.testing.assert_allclose(got["centers"], want["centers"], rtol=1e-5,
@@ -220,5 +223,6 @@ def test_run_oneshot_summarizer_refuses_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x, _ = _gauss()
     with pytest.raises(RuntimeError, match="cuda"):
-        _run_oneshot(x, k=K, t=T, sites=SITES,
-                     summarizer=summarizer_policy("uniform", budget=50))
+        _run_oneshot(x, torch_pipeline_config(
+            dim=5, k=K, t=T, sites=SITES,
+            summarizer=summarizer_policy("uniform", budget=50)))

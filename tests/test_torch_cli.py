@@ -1,0 +1,136 @@
+"""``python -m repro_torch`` (``api/cli.py``) on the CPU, against the
+reference's CLI.
+
+Each ``examples/`` artifact runs unchanged through ``main([...,
+"--device", "cpu"])`` and prints the reference's lines — the same lines
+with every number masked (the draws differ: the CLI runs the port's own
+sampler) — ending in ``ok``.  ``run --save`` round-trips through
+``Session.load``; bad artifacts are rejected with the reference's
+``SystemExit`` messages; the subcommands and flags that need queue 4's
+telemetry and scheduler exit with a message naming the queue.
+"""
+import json
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.api.cli import main as jax_main
+from repro_torch.api import Session, pipeline_config
+from repro_torch.api.cli import main
+
+torch.set_num_threads(1)
+
+ROOT = Path(__file__).resolve().parent.parent
+EXAMPLES = ROOT / "examples"
+NUMBER = re.compile(r"[-+]?(\d+\.?\d*|\.\d+)(e[-+]?\d+)?")
+
+
+def _lines(text):
+    return [NUMBER.sub("#", ln) for ln in text.strip().splitlines()]
+
+
+@pytest.mark.parametrize("cmd,artifact", [
+    ("run", "oneshot.json"),
+    ("serve", "stream.toml"),
+    ("serve", "stream_store.json"),
+    ("bench-score", "oneshot.json"),
+])
+def test_examples_print_the_references_lines(cmd, artifact, capsys):
+    args = [cmd, "--config", str(EXAMPLES / artifact)]
+    if cmd == "bench-score":
+        args += ["--repeat", "3"]
+    main(args + ["--device", "cpu"])
+    got = capsys.readouterr().out
+    jax_main(args)
+    want = capsys.readouterr().out
+    assert got.strip().splitlines()[-1] == "ok"
+    assert _lines(got) == _lines(want)
+
+
+def test_run_save_and_load_round_trip(tmp_path, capsys):
+    artifact = {
+        "pipeline": pipeline_config(dim=3, k=4, t=12, sites=2).to_dict(),
+        "data": {"kind": "gauss", "n_centers": 4, "per_center": 250,
+                 "d": 3, "t": 12, "sigma": 0.1, "seed": 0},
+    }
+    cfg_path = tmp_path / "run.json"
+    cfg_path.write_text(json.dumps(artifact))
+    save_dir = tmp_path / "ckpt"
+    main(["run", "--config", str(cfg_path), "--queries", "16",
+          "--save", str(save_dir), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "outliers:" in out and out.strip().endswith("ok")
+    restored = Session.load(save_dir, device="cpu")
+    assert restored.config.topology.sites == 2
+    assert int(restored.model.version) == 1
+    assert len(restored.score(torch.zeros((3, 3)).numpy())) == 3
+
+
+def test_serve_checkpoint_and_bare_pipeline_file(tmp_path, capsys):
+    # a bare PipelineConfig dict: data defaults to a gauss set matched to it
+    cfg = pipeline_config(dim=3, k=4, t=12, topology="stream",
+                          leaf_size=256, refresh_every=512)
+    p = tmp_path / "bare.json"
+    p.write_text(cfg.to_json())
+    main(["serve", "--config", str(p), "--batch", "300",
+          "--checkpoint", str(tmp_path / "ck"), "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert "checkpointed to" in out and out.strip().endswith("ok")
+    assert Session.load(tmp_path / "ck", device="cpu").config == cfg
+
+
+def test_cli_rejects_bad_artifacts(tmp_path):
+    p = tmp_path / "bad.json"
+    p.write_text(json.dumps({"nope": 1}))
+    with pytest.raises(SystemExit, match="pipeline"):
+        main(["run", "--config", str(p), "--device", "cpu"])
+    p.write_text(json.dumps({
+        "pipeline": pipeline_config(dim=4, k=3, t=5).to_dict(),
+        "data": {"kind": "gauss", "d": 3, "n_centers": 3, "per_center": 50,
+                 "t": 5},
+    }))
+    with pytest.raises(SystemExit, match="dim"):
+        main(["run", "--config", str(p), "--device", "cpu"])
+    p.write_text(json.dumps({
+        "pipeline": pipeline_config(dim=3, k=3, t=5).to_dict(),
+        "data": {"kind": "blobs"}}))
+    with pytest.raises(SystemExit, match="data.kind"):
+        main(["run", "--config", str(p), "--device", "cpu"])
+    p.write_text(json.dumps({
+        "pipeline": pipeline_config(dim=3, k=3, t=5).to_dict(),
+        "extra": {}}))
+    with pytest.raises(SystemExit, match="unknown top-level keys"):
+        main(["run", "--config", str(p), "--device", "cpu"])
+    with pytest.raises(SystemExit, match="stream or sharded"):
+        main(["serve", "--config", str(EXAMPLES / "oneshot.json"),
+              "--device", "cpu"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["serve", "--config", "stream.toml", "--clients", "2"],
+    ["serve", "--config", "stream.toml", "--metrics-interval", "0"],
+    ["serve", "--config", "stream.toml", "--trace-out", "t.json"],
+    ["stats", "--config", "oneshot.json"],
+    ["trace", "--config", "oneshot.json"],
+])
+def test_queue4_commands_and_flags_exit_naming_the_queue(argv):
+    argv = [str(EXAMPLES / a) if a.endswith((".toml", ".json"))
+            and a != "t.json" else a for a in argv]
+    with pytest.raises(SystemExit, match="queue 4"):
+        main(argv)
+
+
+def test_python_dash_m_runs_on_the_cpu():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "run", "--config",
+         str(EXAMPLES / "oneshot.json"), "--device", "cpu"],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+    assert "jax" not in out.stderr

@@ -15,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro.api.config import pipeline_config
+from repro.api.config import pipeline_config as jax_pipeline_config
 from repro.api.session import _model_from_result as jax_model_from_result
+from repro.api.session import _run_oneshot as jax_run_oneshot
 from repro.core.distributed import simulate_coordinator as jax_simulate
 from repro.kernels.dispatch import KernelPolicy as JaxPolicy
 from repro.stream.service import _score_batch as jax_score_batch
+from repro_torch.api.config import pipeline_config
 from repro_torch.api.session import _model_from_result, _run_oneshot
 from repro_torch.core.distributed import local_budget, simulate_coordinator
 from repro_torch.core.metrics import clustering_losses, outlier_scores
@@ -46,10 +48,10 @@ def _data():
 def replayed():
     x, truth = _data()
     key = jax.random.key(0)
-    parts = np.array_split(x, SITES)
-    want = jax_simulate(parts, key, k=K, t=T)
-    got = _run_oneshot(x, k=K, t=T, sites=SITES, device="cpu",
-                       sampler=JaxReplaySampler(key))
+    want = jax_run_oneshot(x, jax_pipeline_config(dim=5, k=K, t=T,
+                                                  sites=SITES))
+    got = _run_oneshot(x, pipeline_config(dim=5, k=K, t=T, sites=SITES),
+                       device="cpu", sampler=JaxReplaySampler(key))
     return x, truth, want, got
 
 
@@ -80,10 +82,11 @@ def test_run_oneshot_matches_reference_host_sim(replayed):
 
 def test_model_from_result_matches_reference(replayed):
     x, _, want_res, got_res = replayed
-    pipeline = pipeline_config(dim=5, k=K, t=T, sites=SITES)
+    pipeline = jax_pipeline_config(dim=5, k=K, t=T, sites=SITES)
     want = jax_model_from_result(x, want_res, pipeline, 3)
-    got = _model_from_result(x, got_res, metric="l2sq", version=3,
-                             device="cpu")
+    got = _model_from_result(x, got_res,
+                             pipeline_config(dim=5, k=K, t=T, sites=SITES),
+                             3, device="cpu")
     np.testing.assert_allclose(got.centers.numpy(), np.asarray(want.centers),
                                rtol=1e-5, atol=1e-5)
     for name in ("threshold", "cost", "trained_weight"):
@@ -95,7 +98,7 @@ def test_model_from_result_matches_reference(replayed):
 
 def test_model_from_arrays_scores_like_reference(replayed):
     x, truth, want_res, _ = replayed
-    pipeline = pipeline_config(dim=5, k=K, t=T, sites=SITES)
+    pipeline = jax_pipeline_config(dim=5, k=K, t=T, sites=SITES)
     jm = jax_model_from_result(x, want_res, pipeline, 1)
     # the dict ServingFrontEnd._model_arrays produces, as numpy leaves
     md = {name: np.asarray(getattr(jm, name)) for name in
@@ -162,7 +165,7 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     x, _ = _data()
     with pytest.raises(RuntimeError, match="cuda"):
-        _run_oneshot(x, k=K, t=T, sites=SITES)
+        _run_oneshot(x, pipeline_config(dim=5, k=K, t=T, sites=SITES))
     with pytest.raises(RuntimeError, match="cuda"):
         model_from_arrays({"centers": np.zeros((K, 5))})
     with pytest.raises(RuntimeError, match="cuda"):
