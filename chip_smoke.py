@@ -84,6 +84,27 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    three example artifacts, each in its own process, each ending in
    ``ok``; min_argmin, lloyd_step and score must each launch in each
    Session run;
+   and the one round of communication (the "sharded" phase), its ranks
+   spawned processes of this script (gloo ranks share the one card: NCCL
+   refuses two ranks on a device, so the gathers go through host memory):
+   (a) ``distributed_cluster`` and ``Session(pipeline_config(...,
+   use_shard_map=True)).fit`` in each of 20 ranks on the kddFull-like rows
+   cut to 4,898,420 = 20 x 244,921 (an ``.npy`` each rank memory-maps,
+   reading its own block), every rank's result equal, rank 0's bit for bit
+   the same computation composed in this process with no group, the
+   Session bit for bit the direct call, the paper's invariants, its
+   quality beside the kdd fit's, min_argmin and lloyd_step launched in
+   every rank; (b) one NCCL rank on gauss-0.1, bit for bit its
+   composition; (c) the 1M stream deployment through
+   ``ShardedStreamService`` on 4 host-simulated sites at the paper's site
+   budget, all-resident and tiered (roots per site bit for bit, mass per
+   site against its window, refresh accounting = ``payload_bytes`` x s,
+   400 micro-batches, a save and restore that scores, ingests and refits
+   bit for bit) and through ``Session(topology="sharded")``, its model and
+   a drain bit for bit the service's; (d) the 200k grid stream on 4 gloo
+   ranks with ``use_shard_map=True``, each rank's refresh on the
+   collective path and its model and drain bit for bit the host-simulated
+   service's, score launched in each rank's drain;
 4. re-runs gauss with ``backend="blocked"`` (the plain torch path) from the
    same seed, and on the kernels from another seed as the yardstick of two
    independent draws, and compares the results; re-runs the rwkv6 prefill
@@ -1821,6 +1842,586 @@ def session_phase(dev, counted, kdd_np, kdd_truth, kdd_x, resident):
     return out
 
 
+# ----------------------------------------------------- sharded phase
+# The one round of communication as a torch.distributed collective.  The
+# card is one H100, and NCCL refuses two ranks on one device, so the
+# multi-rank runs are gloo groups whose ranks share the card (each gather
+# staged through host memory: these are no NVLink numbers); NCCL runs with
+# one rank.  Ranks are spawned processes of this script, started after the
+# kernels are built; each writes its result and launch counts to a file.
+SHARDED = dict(sites=20, stream_sites=4, collective_ranks=4, seed=0,
+               timeout_s=600)
+# the result fields every rank must agree on
+DIST_FIELDS = ("centers", "outlier_ids", "summary_ids", "summary_weights",
+               "comm_records", "cost")
+
+
+def _kernel_objects():
+    from repro_torch.kernels.lloyd.kernel import lloyd_step_cuda
+    from repro_torch.kernels.pdist.kernel import min_argmin_cuda
+    from repro_torch.kernels.score.kernel import score_cuda
+    from repro_torch.kernels.wkv.kernel import wkv_forward_cuda
+    return (min_argmin_cuda, lloyd_step_cuda, score_cuda, wkv_forward_cuda)
+
+
+def _count(kernels, fn):
+    """(fn(), launches per kernel while it ran): counters at 0 before."""
+    for kern in kernels:
+        kern.launches = 0
+    out = fn()
+    return out, {k.name: k.launches for k in kernels}
+
+
+def _rank_entry(rank, n, workdir, device, fn, args):
+    """One rank: join the group of ``n`` ranks (gloo: they share one
+    device), run ``fn(rank, n, workdir, device, *args)``, write its result
+    to ``workdir``."""
+    from datetime import timedelta
+    import torch.distributed as dist
+    from repro_torch.core.collective import init_sites
+    init_sites(rank, [device] * n, init_method=f"file://{workdir}/store",
+               timeout=timedelta(seconds=SHARDED["timeout_s"]))
+    try:
+        out = fn(rank, n, workdir, torch.device(device), *args)
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, Path(workdir) / f"rank{rank:03d}.pt")
+
+
+def spawn_ranks(fn, n, workdir, device, *args):
+    """``fn`` in ``n`` spawned rank processes; returns (every rank's result
+    in rank order, wall seconds).  A rank that raises fails the call, after
+    the others are stopped."""
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    mp.start_processes(_rank_entry, args=(n, str(workdir), str(device), fn,
+                                          args),
+                       nprocs=n, join=True, start_method="spawn")
+    outs = [torch.load(Path(workdir) / f"rank{r:03d}.pt", weights_only=False)
+            for r in range(n)]
+    return outs, time.perf_counter() - t0
+
+
+def _digest(arrays: dict) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for k in sorted(arrays):
+        a = np.ascontiguousarray(arrays[k])
+        h.update(k.encode() + str(a.dtype).encode() + str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def sharded_kdd_pipeline(n_sites, t):
+    from repro_torch.api import pipeline_config
+    return pipeline_config(dim=KDD["d"], k=KDD["k"], t=t, sites=n_sites,
+                           use_shard_map=True, seed=SHARDED["seed"],
+                           second_iters=KDD["second_iters"])
+
+
+def sharded_oneshot_rank(rank, n, workdir, dev, t):
+    """Rank ``rank`` of the one-shot collective: ``distributed_cluster``
+    directly on the memmapped rows (this rank reads its block), then
+    ``Session.fit`` of the same config; their launches and digests."""
+    from repro_torch.api import Session
+    from repro_torch.core.distributed import distributed_cluster
+    from repro_torch.core.sampler import TorchSampler
+    kernels = _kernel_objects()
+    x = np.load(Path(workdir) / "x.npy", mmap_mode="r")
+    cfg = sharded_kdd_pipeline(n, t)
+
+    def direct():
+        sync(dev)
+        t0 = time.perf_counter()
+        res = distributed_cluster(
+            x.reshape(n, -1, x.shape[1]), TorchSampler(cfg.seed), k=KDD["k"],
+            t=t, summarizer=cfg.summarizer, second_iters=cfg.second_iters,
+            policy=cfg.kernels, device=dev)
+        sync(dev)
+        return res, time.perf_counter() - t0
+
+    (res, direct_s), direct_launches = _count(kernels, direct)
+    arrays = {f: getattr(res, f).cpu().numpy() for f in DIST_FIELDS}
+
+    def session():
+        sess = Session(cfg, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        sess.fit(x)
+        sync(dev)
+        return sess, time.perf_counter() - t0
+
+    (sess, session_s), session_launches = _count(kernels, session)
+    sid, out = arrays["summary_ids"], arrays["outlier_ids"]
+    keep = sid >= 0
+    want = {"centers": arrays["centers"], "outlier_ids": out[out >= 0],
+            "summary_ids": sid[keep],
+            "summary_weights": arrays["summary_weights"][keep],
+            "comm_records": float(arrays["comm_records"]),
+            "cost": float(arrays["cost"])}
+    got = sess.result
+    session_equal = {k: bool(np.array_equal(np.asarray(got[k]),
+                                            np.asarray(want[k])))
+                     for k in want}
+    return {"rank": rank, "digest": _digest(arrays),
+            "arrays": arrays if rank == 0 else None,
+            "phase_s": res.phase_s, "direct_s": direct_s,
+            "session_s": session_s, "session_equal": session_equal,
+            "launches": {"direct": direct_launches,
+                         "session": session_launches}}
+
+
+def compose_sites(x_parts, sampler, *, k, t, summarizer, second_iters,
+                  policy, dev):
+    """``distributed_cluster``'s computation in this process with no group:
+    each site's ``_site_summarizer`` call with ``fold_in(i)``, concatenated
+    in site order, then ``_second_level``."""
+    from repro_torch.core.distributed import (_second_level,
+                                              _site_summarizer,
+                                              local_budget)
+    s, n_per = len(x_parts), x_parts[0].shape[0]
+    summarize = _site_summarizer(summarizer, "augmented", metric="l2sq",
+                                 k=k, t=local_budget(t, s, "random"))
+    pts, wts, val, gid = [], [], [], []
+    for i, xi in enumerate(x_parts):
+        summ = summarize(xi, sampler.fold_in(i), policy=policy)
+        pts.append(summ.points)
+        wts.append(summ.weights)
+        val.append(summ.valid)
+        gid.append(torch.where(summ.valid, summ.indices + i * n_per, -1))
+    pts, wts, val, gid = (torch.cat(a) for a in (pts, wts, val, gid))
+    sol, out_ids, _ = _second_level(pts, wts, val, gid,
+                                    sampler.fold_in(2**31 - 1), k=k, t=t,
+                                    iters=second_iters, metric="l2sq",
+                                    policy=policy)
+    return {"centers": sol.centers, "outlier_ids": out_ids,
+            "summary_ids": gid, "summary_weights": wts,
+            "comm_records": val.sum().to(torch.float32), "cost": sol.cost}
+
+
+def _as_numpy(d: dict) -> dict:
+    return {k: v.cpu().numpy() for k, v in d.items()}
+
+
+def dist_invariants(arrays, n_sites, n_per, fail, label):
+    """The paper's invariants on a ``distributed_cluster`` result: per-site
+    mass = n_per, ids unique, outlier ids a subset of the summary ids,
+    ``comm_records`` = the valid gathered records."""
+    sid, w = arrays["summary_ids"], arrays["summary_weights"]
+    out = arrays["outlier_ids"]
+    valid = sid >= 0
+    mass = w.reshape(n_sites, -1).sum(1)
+    checks = {
+        "site_mass_is_n_per": bool((mass == n_per).all()),
+        "ids_unique": bool(np.unique(sid[valid]).size == valid.sum()),
+        "ids_in_their_site": bool(
+            ((sid.reshape(n_sites, -1) // n_per
+              == np.arange(n_sites)[:, None]) | ~valid.reshape(
+                  n_sites, -1)).all()),
+        "outliers_subset_of_summary": bool(
+            np.isin(out[out >= 0], sid[valid]).all()),
+        "comm_records_is_valid_records": float(arrays["comm_records"])
+        == float(valid.sum()),
+        "finite_centers": bool(np.isfinite(arrays["centers"]).all()),
+    }
+    if not all(checks.values()):
+        fail.append(f"{label}: invariants {checks}")
+    return checks
+
+
+def sharded_oneshot(dev, kdd_np, kdd_x, kdd_truth, kdd_out, tmp, fail):
+    """(a): the one-shot collective at the paper's size on gloo ranks that
+    share the card, against its in-process composition."""
+    from repro_torch.core.metrics import outlier_scores
+    from repro_torch.core.sampler import TorchSampler
+    s = SHARDED["sites"]
+    n = (kdd_x.shape[0] // s) * s
+    n_per = n // s
+    truth = kdd_truth[kdd_truth < n]
+    t = len(kdd_truth)
+    np.save(tmp / "x.npy", kdd_np[:n])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()   # the ranks' contexts share the card
+    ranks, wall = spawn_ranks(sharded_oneshot_rank, s, tmp, dev, t)
+    cfg = sharded_kdd_pipeline(s, t)
+    sync(dev)
+    t0 = time.perf_counter()
+    want = _as_numpy(compose_sites(
+        torch.tensor_split(kdd_x[:n], s), TorchSampler(cfg.seed),
+        k=KDD["k"], t=t, summarizer=cfg.summarizer,
+        second_iters=cfg.second_iters, policy=cfg.kernels, dev=dev))
+    sync(dev)
+    compose_s = time.perf_counter() - t0
+    got = ranks[0]["arrays"]
+    out = {
+        "n": n, "dropped_rows": kdd_x.shape[0] - n, "sites": s,
+        "n_per": n_per, "k": KDD["k"], "t": t, "backend": "gloo",
+        "ranks_wall_s": wall, "compose_in_process_s": compose_s,
+        "all_ranks_equal": len({r["digest"] for r in ranks}) == 1,
+        "rank0_equals_composition": _digest(got) == _digest(want),
+        "session_equals_direct": all(all(r["session_equal"].values())
+                                     for r in ranks),
+        "rank_phase_s_max": {p: max(r["phase_s"][p] for r in ranks)
+                             for p in ranks[0]["phase_s"]},
+        "rank0_phase_s": ranks[0]["phase_s"],
+        "direct_s_max": max(r["direct_s"] for r in ranks),
+        "session_s_max": max(r["session_s"] for r in ranks),
+        "launches_per_rank": {
+            run: {name: [r["launches"][run][name] for r in ranks]
+                  for name in ("min_argmin", "lloyd_step", "score")}
+            for run in ("direct", "session")},
+    }
+    out["invariants"] = dist_invariants(got, s, n_per, fail, "sharded kdd")
+    sid, oid = got["summary_ids"], got["outlier_ids"]
+    sc = outlier_scores(truth, sid[sid >= 0], oid[oid >= 0])
+    out["quality"] = {"preRec": sc.pre_recall, "prec": sc.precision,
+                      "recall": sc.recall,
+                      "comm_records": float(got["comm_records"]),
+                      "gathered_rows": int(sid.size),
+                      "simulate_coordinator": {
+                          k: kdd_out[k] for k in ("preRec", "prec", "recall",
+                                                  "comm_records")}}
+    for key in ("all_ranks_equal", "rank0_equals_composition",
+                "session_equals_direct"):
+        if not out[key]:
+            fail.append(f"sharded kdd: {key} is false")
+    for run, counts in out["launches_per_rank"].items():
+        for name in ("min_argmin", "lloyd_step"):
+            if min(counts[name]) <= 0:
+                fail.append(f"sharded kdd: {name} not launched in every "
+                            f"rank's {run} run: {counts[name]}")
+    if not (sc.pre_recall > 0.5 and sc.recall > 0.5):
+        fail.append(f"sharded kdd: implausible quality {out['quality']}")
+    launches = {name: sum(r["launches"][run][name] for r in ranks
+                          for run in ("direct", "session"))
+                for name in ranks[0]["launches"]["direct"]}
+    return out, launches
+
+
+def sharded_nccl(dev, gauss_x, gauss_truth, counted, tmp, fail):
+    """(b): one rank on NCCL (the only NCCL group one card can hold) on
+    gauss-0.1 at the paper's size, bit for bit the composition."""
+    import torch.distributed as dist
+    from repro_torch.core.collective import init_sites
+    from repro_torch.core.distributed import distributed_cluster
+    from repro_torch.core.metrics import outlier_scores
+    from repro_torch.core.sampler import TorchSampler
+    kw = dict(k=GAUSS["k"], t=GAUSS["t"], second_iters=GAUSS["second_iters"])
+    init_sites(0, [str(dev)], init_method=f"file://{tmp}/nccl_store")
+    try:
+        backend = dist.get_backend()
+        sync(dev)
+        t0 = time.perf_counter()
+        res = counted("sharded_nccl", ("min_argmin", "lloyd_step"),
+                      lambda: distributed_cluster(
+                          gauss_x[None], TorchSampler(GAUSS["seed"]), **kw,
+                          device=dev))
+        sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    got = _as_numpy({f: getattr(res, f) for f in DIST_FIELDS})
+    want = _as_numpy(compose_sites([gauss_x], TorchSampler(GAUSS["seed"]),
+                                   summarizer=None, policy=None, dev=dev,
+                                   **kw))
+    sid, oid = got["summary_ids"], got["outlier_ids"]
+    sc = outlier_scores(gauss_truth, sid[sid >= 0], oid[oid >= 0])
+    out = {"n": int(gauss_x.shape[0]), "sites": 1, "backend": backend,
+           "wall_s": wall, "phase_s": res.phase_s,
+           "equals_composition": _digest(got) == _digest(want),
+           "comm_records": float(got["comm_records"]),
+           "preRec": sc.pre_recall, "prec": sc.precision,
+           "recall": sc.recall}
+    out["invariants"] = dist_invariants(got, 1, gauss_x.shape[0], fail,
+                                        "sharded nccl")
+    if dev.type == "cuda" and backend != "nccl":
+        fail.append(f"sharded nccl: the group's backend is {backend}")
+    if not out["equals_composition"]:
+        fail.append("sharded nccl: the result differs from the composition")
+    return out
+
+
+def sharded_stream_config(n, t, policy, n_sites, **over):
+    """``stream_config``'s deployment over ``n_sites`` sites, each at the
+    paper's budget 2t/s (what ``stream_bench.py::run_sharded`` sets)."""
+    from repro_torch.stream import ShardedServiceConfig
+    base = stream_config(n, t, policy)
+    return ShardedServiceConfig(
+        dim=base.dim, k=base.k, t=t, leaf_size=base.leaf_size,
+        refresh_every=base.refresh_every, micro_batch=base.micro_batch,
+        window=base.window, policy=policy, seed=base.seed, n_sites=n_sites,
+        site_budget="paper", **over)
+
+
+def _site_window_checks(svc, fail, label):
+    """Per site: mass = the unit rows its live nodes and buffer span
+    (1e-6), within the site's window plus one merge span and one leaf;
+    every node within ``record_cap``."""
+    from repro_torch.stream import record_cap
+    out = []
+    for i, tree in enumerate(svc.trees):
+        rows = sum(nd.count for nd in tree.nodes) + tree._buf_n
+        mass = tree.total_weight
+        w = tree.cfg.window
+        bound = w + w // 4 + tree.cfg.leaf_size
+        cap = record_cap(tree.cfg)
+        top = max(nd.n_records for nd in tree.nodes)
+        out.append({"rows": rows, "mass": mass, "nodes": len(tree.nodes),
+                    "max_node_records": top, "record_cap": cap})
+        if not (abs(mass - rows) <= 1e-6 * rows and rows <= bound
+                and top <= cap):
+            fail.append(f"{label} site {i}: mass/window/cap {out[-1]} "
+                        f"(bound {bound})")
+    return out
+
+
+def _comm_checks(svc, fail, label):
+    st = svc.last_refresh
+    d = svc.cfg.dim
+    ok = (st.payload_bytes == st.root_rows * (4 * d + 4 + 1)
+          and st.comm_bytes == st.payload_bytes * svc.cfg.n_sites
+          and st.comm_records == sum(st.per_site_records)
+          and st.root_rows >= max(st.per_site_records))
+    if not ok:
+        fail.append(f"{label}: refresh accounting {st}")
+    return st._asdict()
+
+
+def sharded_stream_main(dev, x, truth, tmp, fail):
+    """(c): the 1M deployment through ``ShardedStreamService`` (host-sim),
+    all-resident and tiered, with its checks, then through
+    ``Session(topology="sharded")``."""
+    from repro_torch.api import Session, pipeline_config
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.store import StoreSpec
+    from repro_torch.stream import ShardedStreamService
+    auto, s = KernelPolicy(), SHARDED["stream_sites"]
+    n, t = x.shape[0], STREAM["t"]
+    cfg = sharded_stream_config(n, t, auto, s)
+    resident = ShardedStreamService(cfg, device=dev)
+    wall_res, fits_res = stream_ingest(resident, x)
+    spec = StoreSpec(hot_levels=1, directory=str(tmp / "spill"))
+    tiered = ShardedStreamService(sharded_stream_config(n, t, auto, s,
+                                                        store=spec),
+                                  device=dev)
+    wall_tier, fits_tier = stream_ingest(tiered, x)
+    out = {"n": n, "sites": s, "t": t, "site_t": cfg.site_t(),
+           "site_window": cfg.site_tree_config().window,
+           "ingest_points_per_s": {"resident": n / wall_res,
+                                   "tiered": n / wall_tier},
+           "cadence_fit_s": {"resident": [f for _, f in fits_res.values()],
+                             "tiered": [f for _, f in fits_tier.values()]},
+           "refresh": _comm_checks(resident, fail, "sharded stream")}
+    same = [all(np.array_equal(a, b) for a, b in
+                zip(r.packed_root(), q.packed_root()))
+            for r, q in zip(resident.trees, tiered.trees)]
+    out["roots_bitwise_equal_per_site"] = same
+    if not all(same):
+        fail.append(f"sharded stream: tiered roots differ {same}")
+    stores = [tr.store.stats() for tr in tiered.trees]
+    out["store"] = {k: sum(st[k] for st in stores) for k in stores[0]}
+    if not all(st["spills"] >= 1 and st["page_ins"] >= 1 for st in stores):
+        fail.append(f"sharded stream: a site's tier never moved: {stores}")
+    out["sites_window"] = _site_window_checks(tiered, fail, "sharded stream")
+    q_res = x[np.random.default_rng(7).choice(n, MICRO_BATCH)]
+    drain_res = resident.score(q_res)
+
+    # serving: 224 rows live in every site's window + 32 planted
+    lo = max(min(nd.min_seq for nd in tr.nodes) * s + i
+             for i, tr in enumerate(tiered.trees))
+    in_window = np.arange(lo, n)
+    planted = np.intersect1d(truth, in_window)
+    clean = np.setdiff1d(in_window, truth)
+    rng = np.random.default_rng(3)
+    lat, hits = [], np.zeros(2, np.int64)
+    for _ in range(SERVE_BATCHES):
+        rows = np.concatenate([
+            rng.choice(planted, STREAM["planted"]),
+            rng.choice(clean, MICRO_BATCH - STREAM["planted"])])
+        t0 = time.perf_counter()
+        tiered.submit(x[rows])
+        res = tiered.drain()
+        lat.append(time.perf_counter() - t0)
+        flags = np.array([r.is_outlier for r in res])
+        hits += [flags[:STREAM["planted"]].sum(),
+                 flags[STREAM["planted"]:].sum()]
+        if len(res) != MICRO_BATCH:
+            fail.append("sharded stream: a drained micro-batch is short")
+            break
+    lat_ms = np.asarray(lat) * 1e3
+    out["serve"] = {
+        "batches": len(lat),
+        "batch_p50_ms": float(np.percentile(lat_ms, 50)),
+        "batch_p99_ms": float(np.percentile(lat_ms, 99)),
+        "outlier_rate_planted": float(hits[0]) / (len(lat) *
+                                                  STREAM["planted"]),
+        "outlier_rate_clean": float(hits[1]) / (
+            len(lat) * (MICRO_BATCH - STREAM["planted"]))}
+
+    # checkpoint: the restored service scores, ingests and refits as the
+    # saved one, bit for bit
+    q = x[rows]
+    before = tiered.score(q)
+    t0 = time.perf_counter()
+    tiered.save(CheckpointManager(tmp / "ckpt"), step=1)
+    out["checkpoint_save_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = ShardedStreamService.restore(tiered.cfg,
+                                            CheckpointManager(tmp / "ckpt"),
+                                            device=dev)
+    out["checkpoint_restore_s"] = time.perf_counter() - t0
+    out["restored_scores_bitwise"] = _same_results(restored.score(q), before)
+    for svc in (tiered, restored):
+        svc.ingest(x[:STREAM["extra"]])
+    same = [all(np.array_equal(a, b) for a, b in
+                zip(p.packed_root(), r.packed_root()))
+            for p, r in zip(tiered.trees, restored.trees)]
+    same.append(_same_models(tiered.refresh(), restored.refresh()))
+    out["restored_continues_bitwise"] = all(same)
+    if not (out["restored_scores_bitwise"]
+            and out["restored_continues_bitwise"]):
+        fail.append(f"sharded stream: the restored service parted: "
+                    f"{out['restored_scores_bitwise']}, {same}")
+    for svc in (tiered, restored):
+        for tr in svc.trees:
+            tr.store.close()    # no spill write outlives the directory
+
+    # the front door: the same deployment through Session
+    pcfg = pipeline_config(
+        dim=cfg.dim, k=cfg.k, t=t, topology="sharded", sites=s,
+        site_budget="paper", leaf_size=cfg.leaf_size,
+        refresh_every=cfg.refresh_every, micro_batch=cfg.micro_batch,
+        window=cfg.window, seed=cfg.seed)
+    sess = Session(pcfg, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    for i in range(0, n, STREAM["batch"]):
+        sess.ingest(x[i:i + STREAM["batch"]])
+    sync(dev)
+    wall_sess = time.perf_counter() - t0
+    out["session"] = {
+        "ingest_points_per_s": n / wall_sess,
+        "model_bitwise": _same_models(sess.model, resident.model),
+        "drain_bitwise": _same_results(sess.score(q_res), drain_res)}
+    if not (out["session"]["model_bitwise"]
+            and out["session"]["drain_bitwise"]):
+        fail.append(f"sharded stream: Session differs from the service "
+                    f"{out['session']}")
+    return out
+
+
+def sharded_collective_rank(rank, n, workdir, dev, t):
+    """Rank ``rank`` of the collective refresh: the grid stream through a
+    ``use_shard_map`` service; its model, drain and launches."""
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.stream import ShardedStreamService
+    kernels = _kernel_objects()
+    x = np.load(Path(workdir) / "grid.npy")
+    q = np.load(Path(workdir) / "q.npy")
+    svc = ShardedStreamService(sharded_stream_config(
+        x.shape[0], t, KernelPolicy(), n, use_shard_map=True), device=dev)
+
+    def ingest():
+        wall, _ = stream_ingest(svc, x)
+        return svc.refresh(), wall
+
+    (model, wall), fit_launches = _count(kernels, ingest)
+    res, drain_launches = _count(kernels, lambda: svc.score(q))
+    return {"rank": rank, "path": svc.last_refresh.path,
+            "stats": svc.last_refresh._asdict(), "ingest_s": wall,
+            "model": {f: getattr(model, f).cpu().numpy()
+                      for f in model._fields},
+            "drain": [(r.center, r.distance, r.outlier_score) for r in res],
+            "launches": {"ingest_refit": fit_launches,
+                         "drain": drain_launches}}
+
+
+def sharded_collective(dev, tmp, fail):
+    """(d): the grid stream on 4 gloo ranks with ``use_shard_map=True``,
+    against the host-simulated service on the same stream."""
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.stream import ShardedStreamService
+    x, far = stream_grid(**STREAM_GRID)
+    n, s = x.shape[0], SHARDED["collective_ranks"]
+    t = max(n // 100, 40)
+    q = np.concatenate([x[far[-32:]], x[-224:]])
+    np.save(tmp / "grid.npy", x)
+    np.save(tmp / "q.npy", q)
+    ranks, wall = spawn_ranks(sharded_collective_rank, s, tmp, dev, t)
+    host = ShardedStreamService(sharded_stream_config(
+        n, t, KernelPolicy(), s, use_shard_map=True), device=dev)
+    stream_ingest(host, x)
+    model = host.refresh()
+    drain = [(r.center, r.distance, r.outlier_score) for r in host.score(q)]
+    out = {"n": n, "t": t, "ranks": s, "backend": "gloo",
+           "ranks_wall_s": wall, "host_path": host.last_refresh.path,
+           "paths": [r["path"] for r in ranks],
+           "refresh": ranks[0]["stats"],
+           "rank_ingest_s": [r["ingest_s"] for r in ranks],
+           "models_bitwise": [all(np.array_equal(r["model"][f],
+                                                 getattr(model, f).cpu()
+                                                 .numpy())
+                                  for f in model._fields) for r in ranks],
+           "drains_bitwise": [r["drain"] == drain for r in ranks],
+           "launches_per_rank": [r["launches"] for r in ranks]}
+    if out["host_path"] != "host-sim" or set(out["paths"]) != {"shard_map"}:
+        fail.append(f"sharded collective: paths {out['host_path']}, "
+                    f"{out['paths']}")
+    if not (all(out["models_bitwise"]) and all(out["drains_bitwise"])):
+        fail.append(f"sharded collective: models {out['models_bitwise']}, "
+                    f"drains {out['drains_bitwise']}")
+    for r in ranks:
+        lf, ld = r["launches"]["ingest_refit"], r["launches"]["drain"]
+        if not (lf["min_argmin"] > 0 and lf["lloyd_step"] > 0
+                and ld["score"] > 0):
+            fail.append(f"sharded collective rank {r['rank']}: a kernel "
+                        f"was not launched: {r['launches']}")
+    launches = {name: sum(r["launches"][run][name] for r in ranks
+                          for run in ("ingest_refit", "drain"))
+                for name in ranks[0]["launches"]["drain"]}
+    return out, launches
+
+
+def sharded_phase(dev, counted, kdd_np, kdd_x, kdd_truth, kdd_out, gauss_x,
+                  gauss_truth):
+    """The "sharded" phase (see the module docstring): (a) to (d).  Raises
+    on any failure, after every part has run.  Returns (report, launches of
+    the rank processes per run label)."""
+    import tempfile
+    from repro_torch.data.synthetic import gauss
+    t_phase = time.perf_counter()
+    fail, out, rank_launches = [], {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-sharded-") as tmp:
+        tmp = Path(tmp)
+        (tmp / "a").mkdir()
+        out["oneshot"], rank_launches["sharded_kdd_ranks"] = \
+            sharded_oneshot(dev, kdd_np, kdd_x, kdd_truth, kdd_out,
+                            tmp / "a", fail)
+        log("sharded oneshot", json.dumps(out["oneshot"]))
+        out["nccl"] = sharded_nccl(dev, gauss_x, gauss_truth, counted, tmp,
+                                   fail)
+        log("sharded nccl", json.dumps(out["nccl"]))
+        x, truth = gauss(n_centers=STREAM["n_centers"],
+                         per_center=STREAM["per_center"], d=STREAM["d"],
+                         sigma=STREAM["sigma"], t=STREAM["t"],
+                         seed=STREAM["seed"])
+        (tmp / "c").mkdir()
+        out["stream"] = counted(
+            "sharded_stream", ("min_argmin", "lloyd_step", "score"),
+            lambda: sharded_stream_main(dev, x, truth, tmp / "c", fail))
+        log("sharded stream", json.dumps(out["stream"]))
+        (tmp / "d").mkdir()
+        out["collective"], rank_launches["sharded_collective_ranks"] = \
+            sharded_collective(dev, tmp / "d", fail)
+        log("sharded collective", json.dumps(out["collective"]))
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"sharded_s {out['phase_s']:.2f}")
+    if fail:
+        raise AssertionError(f"sharded phase: {fail}")
+    return out, rank_launches
+
+
 # ----------------------------------------------------- rwkv6 serving path
 # Tolerances.  The kernel route and the plain chunked route differ only in
 # WKV's summation order.  In float32 that leaves ~1e-6 of the output, and
@@ -2754,6 +3355,13 @@ def run(dev: torch.device, card: str) -> dict:
                                 resident)
     del resident
 
+    # ---- 3f. the one round of communication (the "sharded" phase): its
+    # rank processes report their own launch counts
+    sharded_out, rank_launches = sharded_phase(
+        dev, counted, kdd_np, kdd_x, kdd_truth, kdd_out, gauss_x,
+        gauss_truth)
+    per_run.update(rank_launches)
+
     # ---- 3b and 4b. rwkv6-7b serving (prefill + decode), then its
     # plain-WKV twin and the teacher-forcing check
     rwkv_out = rwkv_serving(dev, counted)
@@ -2790,6 +3398,7 @@ def run(dev: torch.device, card: str) -> dict:
               "rwkv6_serving": rwkv_out,
               "kernel_vs_blocked": cmp, "head_to_head": h2h,
               "stream": stream_out, "session": session_out,
+              "sharded": sharded_out,
               "h2h_budget_per_site": b, "timings": timings,
               "route_ladder": ladder,
               "launches": launches, "launches_per_run": per_run,

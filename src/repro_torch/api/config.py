@@ -25,12 +25,11 @@ so ``_kernels_from`` reads an artifact's ``"pallas"`` backend as ``"cuda"``;
 a ``KernelPolicy(backend="pallas")`` built in code still raises.  An
 artifact the port writes with ``"cuda"`` does not load in the reference.
 
-The stream layer's config is a *derived view*: :meth:`service_config`
-projects a ``PipelineConfig`` onto ``repro_torch.stream.ServiceConfig``;
-the oneshot topology maps onto ``simulate_coordinator``'s keywords
-(``api/session.py``).  The multi-host projection, :meth:`sharded_config`
-onto ``ShardedServiceConfig``, raises ``NotImplementedError``: the sharded
-service is not ported yet (ROADMAP.md, queue 3).
+The stream layers' configs are *derived views*: :meth:`service_config`
+projects a ``PipelineConfig`` onto ``repro_torch.stream.ServiceConfig``,
+:meth:`sharded_config` onto ``ShardedServiceConfig``; the oneshot topology
+maps onto ``simulate_coordinator``'s / ``distributed_cluster``'s keywords
+(``api/session.py``).
 """
 from __future__ import annotations
 
@@ -46,6 +45,7 @@ from repro_torch.obs.tracing import TraceSpec
 from repro_torch.serve.spec import SHED_POLICIES, ServingSpec
 from repro_torch.store.spec import StoreSpec
 from repro_torch.stream.service import ServiceConfig
+from repro_torch.stream.sharded import ShardedServiceConfig
 from repro_torch.summarize.base import (SummarizerPolicy,
                                         get_default_summarizer,
                                         select_summarizer)
@@ -55,10 +55,6 @@ PARTITIONS = ("random", "adversarial")
 SITE_BUDGETS = ("full", "paper")
 
 _CONFIG_VERSION = 2
-
-SHARDED_TODO = ("the sharded topology (ShardedServiceConfig, "
-                "ShardedStreamService, use_shard_map) is not ported yet "
-                "(ROADMAP.md, queue 3)")
 
 # version N -> migration upgrading a version-N payload dict to N+1; the
 # from_dict loop walks these until the payload reaches _CONFIG_VERSION.
@@ -337,13 +333,17 @@ class PipelineConfig:
                  f"got {self.topology.kind!r}")
         return ServiceConfig(**self._base_service_kwargs())
 
-    def sharded_config(self):
-        """The multi-host stream layer's projection (kind == 'sharded'):
-        not ported yet, so it raises."""
+    def sharded_config(self) -> ShardedServiceConfig:
+        """Project onto the multi-site stream layer (kind == 'sharded')."""
         _require(self.topology.kind == "sharded",
                  f"sharded_config() needs topology.kind='sharded', "
                  f"got {self.topology.kind!r}")
-        raise NotImplementedError(SHARDED_TODO)
+        return ShardedServiceConfig(
+            **self._base_service_kwargs(),
+            n_sites=self.topology.sites,
+            site_budget=self.topology.site_budget,
+            use_shard_map=self.topology.use_shard_map,
+        )
 
     def _base_service_kwargs(self) -> dict:
         p, topo = self.problem, self.topology

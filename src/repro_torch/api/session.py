@@ -1,9 +1,10 @@
 """One verb set over every topology: the ``Session`` facade.
 
 Port of ``repro.api.session``.  ``Session(config)`` builds and drives the
-layer the config's topology names — ``simulate_coordinator`` (oneshot,
-through :class:`OneshotEngine`) or ``StreamService`` (stream) — behind one
-interface:
+layer the config's topology names — ``simulate_coordinator`` /
+``distributed_cluster`` (oneshot, through :class:`OneshotEngine`),
+``StreamService`` (stream) or ``ShardedStreamService`` (sharded) — behind
+one interface:
 
     fit(points)      ingest + refresh in one call; returns the ModelState
     ingest(points)   feed raw points (stream topologies refresh on cadence)
@@ -12,9 +13,9 @@ interface:
     save(dir)        checkpoint everything, config embedded in the manifest
     Session.load(dir)  rebuild topology + policies from the manifest alone
 
-The facade adds **no math of its own**: the stream topology delegates
-verbs verbatim to the service, and the oneshot engine calls the same
-coordinator entry point a direct caller would, with the same sampler
+The facade adds **no math of its own**: the stream topologies delegate
+verbs verbatim to the services, and the oneshot engine calls the same
+coordinator entry points a direct caller would, with the same sampler
 (``TorchSampler(config.seed)`` unless a ``sampler`` is given: the tests
 pass ``JaxReplaySampler(jax.random.key(seed))``, the reference's draws).
 Samplers are values, so every oneshot refresh starts from the same one
@@ -26,13 +27,18 @@ stream service uses (threshold = the largest inlier distance among the
 summary records); queries then flow through ``ServingFrontEnd``'s
 micro-batched read path, giving both topologies the same ``QueryResult``
 surface and latency accounting.  ``save`` / ``load`` write the
-reference's ``oneshot-session-v1`` layout leaf for leaf (and a stream
-session the service's), so a checkpoint of either package's ``Session``
-loads in the other's.
+reference's ``oneshot-session-v1`` layout leaf for leaf (and a stream or
+sharded session the service's), so a checkpoint of either package's
+``Session`` loads in the other's.
+
+``topology.use_shard_map`` runs the oneshot fit as a collective: every
+rank of an initialized ``torch.distributed`` group of ``sites`` ranks
+(``repro_torch.core.collective.init_sites``) drives its own ``Session``
+on the same rows, and ``distributed_cluster`` copies only the rank's own
+block to its device.
 
 Not ported yet, and raising ``NotImplementedError`` that names the queue
-(ROADMAP.md): the ``sharded`` topology and ``topology.use_shard_map``
-(queue 3); the async serving scheduler behind ``serve`` /
+(ROADMAP.md): the async serving scheduler behind ``serve`` /
 ``score_stream`` / ``submit_stream``, the telemetry behind ``stats`` /
 ``dump_trace``, and the flight recorder a config's ``tracing`` section
 configures (queue 4; ``Session`` refuses such a config rather than let
@@ -47,15 +53,19 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
-from repro_torch.api.config import SHARDED_TODO, PipelineConfig
+from repro_torch.api.config import PipelineConfig
 from repro_torch.checkpoint.manager import CheckpointManager
-from repro_torch.core.distributed import simulate_coordinator
+from repro_torch.core.collective import sites_group
+from repro_torch.core.distributed import (distributed_cluster,
+                                          simulate_coordinator)
 from repro_torch.core.sampler import Sampler, TorchSampler
 from repro_torch.kernels.pdist.ops import min_argmin
 from repro_torch.stream.service import (ModelState, ServiceConfig,
                                         ServingFrontEnd, StreamService)
+from repro_torch.stream.sharded import ShardedStreamService
 
 RESULT_KEYS = ("centers", "outlier_ids", "summary_ids", "summary_weights",
                "comm_records", "cost")
@@ -65,12 +75,6 @@ SERVING_TODO = ("the async serving scheduler (ServingScheduler, "
 OBS_TODO = ("the telemetry plane (repro.obs: metrics snapshot, flight "
             "recorder, trace export) is not ported yet (ROADMAP.md, "
             "queue 4)")
-
-
-def _require_ported(pipeline: PipelineConfig) -> None:
-    topo = pipeline.topology
-    if topo.kind == "sharded" or topo.use_shard_map:
-        raise NotImplementedError(SHARDED_TODO)
 
 
 class OneshotEngine(ServingFrontEnd):
@@ -91,7 +95,6 @@ class OneshotEngine(ServingFrontEnd):
         if topo.kind != "oneshot":
             raise ValueError(f"OneshotEngine needs topology.kind='oneshot', "
                              f"got {topo.kind!r}")
-        _require_ported(pipeline)
         p = pipeline.problem
         # ServingFrontEnd only needs the shared serving knobs; reusing the
         # stream dataclass keeps the read/checkpoint glue identical
@@ -127,12 +130,16 @@ class OneshotEngine(ServingFrontEnd):
     def _fit_closure(self, version: int):
         if not self._rows:
             raise RuntimeError("refresh() before any point was ingested")
-        x = np.concatenate(self._rows)
+        x = (self._rows[0] if len(self._rows) == 1
+             else np.concatenate(self._rows))
         self._rows = [x]          # compact the buffer while we have it
         return functools.partial(self._fit, x, version)
 
     def _fit(self, x: np.ndarray, version: int) -> ModelState:
-        xd = torch.as_tensor(x, device=self.device)   # one host->card copy
+        # one host->card copy of the rows, but under use_shard_map, where
+        # each rank copies only its own block (distributed_cluster)
+        xd = (x if self.pipeline.topology.use_shard_map
+              else torch.as_tensor(x, device=self.device))
         res = _run_oneshot(xd, self.pipeline, device=self.device,
                            sampler=self.sampler)
         self.result = {k: res[k] for k in RESULT_KEYS}
@@ -210,24 +217,60 @@ class OneshotEngine(ServingFrontEnd):
 def _run_oneshot(x, pipeline: PipelineConfig, *, device="cuda",
                  sampler: Optional[Sampler] = None) -> dict:
     """Algorithm 3 over ``x`` split into ``topology.sites`` contiguous parts
-    (``np.array_split`` sizes) — the coordinator entry point a direct
-    caller would drive, keyed by ``TorchSampler(pipeline.seed)`` unless a
-    ``sampler`` is given.  Returns the reference's six result keys plus the
-    port's ``summary_candidates``, ``site_records``, ``site_rounds`` and
-    ``phase_s``.  ``topology.use_shard_map`` is not ported yet (queue 3)."""
-    _require_ported(pipeline)
+    — the coordinator entry point a direct caller would drive, keyed by
+    ``TorchSampler(pipeline.seed)`` unless a ``sampler`` is given.
+
+    Host-simulated (``np.array_split`` sizes, ``simulate_coordinator``):
+    returns the reference's six result keys plus the port's
+    ``summary_candidates``, ``site_records``, ``site_rounds`` and
+    ``phase_s``.  Under ``topology.use_shard_map`` (``distributed_cluster``
+    over the initialized group of ``sites`` ranks, called on every rank
+    with the same ``x``): the six keys plus ``phase_s``."""
     p, topo = pipeline.problem, pipeline.topology
     dev = resolve_device(device)
+    sampler = sampler if sampler is not None else TorchSampler(pipeline.seed)
+    common = dict(k=p.k, t=p.t, partition=topo.partition,
+                  summarizer=pipeline.summarizer,
+                  second_iters=pipeline.second_iters, metric=p.metric,
+                  policy=pipeline.kernels)
+    if topo.use_shard_map:
+        return _run_shard_map(x, topo.sites, sampler, common, dev)
     x = torch.as_tensor(x, dtype=torch.float32, device=dev)
-    res = simulate_coordinator(
-        torch.tensor_split(x, topo.sites),
-        sampler if sampler is not None else TorchSampler(pipeline.seed),
-        k=p.k, t=p.t, partition=topo.partition,
-        summarizer=pipeline.summarizer, second_iters=pipeline.second_iters,
-        metric=p.metric, policy=pipeline.kernels, device=dev)
+    res = simulate_coordinator(torch.tensor_split(x, topo.sites), sampler,
+                               **common, device=dev)
     return {key: res[key] for key in
             RESULT_KEYS + ("summary_candidates", "site_records",
                            "site_rounds", "phase_s")}
+
+
+def _run_shard_map(x, s: int, sampler: Sampler, common: dict,
+                   dev: torch.device) -> dict:
+    if x.shape[0] % s:
+        raise ValueError(
+            f"topology.use_shard_map needs len(points) divisible by "
+            f"sites={s}, got {x.shape[0]} rows; pad or drop the remainder")
+    group = sites_group(s)
+    if group is None:
+        have = dist.get_world_size() if dist.is_initialized() else 0
+        raise RuntimeError(
+            f"topology.use_shard_map needs an initialized torch.distributed "
+            f"group of {s} ranks for {s} sites "
+            f"(repro_torch.core.collective.init_sites), have {have}; drop "
+            f"use_shard_map to run host-simulated")
+    res = distributed_cluster(x.reshape(s, -1, x.shape[1]), sampler, group,
+                              **common, device=dev)
+    out = res.outlier_ids.cpu().numpy()
+    sid = res.summary_ids.cpu().numpy()
+    keep = sid >= 0
+    return {
+        "centers": res.centers.cpu().numpy(),
+        "outlier_ids": out[out >= 0],
+        "summary_ids": sid[keep],
+        "summary_weights": res.summary_weights.cpu().numpy()[keep],
+        "comm_records": float(res.comm_records),
+        "cost": float(res.cost),
+        "phase_s": res.phase_s,
+    }
 
 
 def _model_from_result(x, res: dict, pipeline: PipelineConfig,
@@ -237,16 +280,18 @@ def _model_from_result(x, res: dict, pipeline: PipelineConfig,
     fit on, as in ``stream.service.fit_model``."""
     p = pipeline.problem
     dev = resolve_device(device)
-    x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+    ids = np.asarray(res["summary_ids"], np.int64)
+    if isinstance(x, torch.Tensor):
+        pts = x.to(dev, torch.float32)[torch.as_tensor(ids, device=dev)]
+    else:   # rows on the host (a memmap too): copy only the summary's
+        pts = torch.from_numpy(np.asarray(x[ids], np.float32)).to(dev)
     centers = torch.as_tensor(res["centers"], dtype=torch.float32,
                               device=dev).contiguous()
-    ids = torch.as_tensor(np.asarray(res["summary_ids"], np.int64),
-                          device=dev)
-    dist, _ = min_argmin(x[ids], centers, metric=p.metric,
-                         policy=pipeline.kernels)
+    d_sum, _ = min_argmin(pts, centers, metric=p.metric,
+                          policy=pipeline.kernels)
     inlier = ~np.isin(res["summary_ids"], res["outlier_ids"])
-    dist = dist.cpu().numpy()
-    threshold = float(dist[inlier].max()) if inlier.any() else 0.0
+    d_sum = d_sum.cpu().numpy()
+    threshold = float(d_sum[inlier].max()) if inlier.any() else 0.0
 
     def scalar(v, dtype):
         return torch.tensor(v, dtype=dtype, device=dev)
@@ -263,13 +308,12 @@ class Session:
     """The one front door: construct from a :class:`PipelineConfig`, then
     ``fit`` / ``ingest`` / ``refresh`` / ``score`` / ``save`` regardless of
     topology.  ``session.engine`` exposes the underlying layer
-    (``StreamService`` or ``OneshotEngine``) as the escape hatch for
-    layer-specific surface.  ``sampler`` (default
+    (``StreamService``, ``ShardedStreamService`` or ``OneshotEngine``) as
+    the escape hatch for layer-specific surface.  ``sampler`` (default
     ``TorchSampler(config.seed)``) keys the engine's draws."""
 
     def __init__(self, config: PipelineConfig, *, device="cuda",
                  sampler: Optional[Sampler] = None, _engine=None):
-        _require_ported(config)
         if config.tracing is not None:
             raise NotImplementedError(
                 f"config.tracing is set, but {OBS_TODO}; drop the tracing "
@@ -280,6 +324,9 @@ class Session:
         elif config.topology.kind == "stream":
             self.engine = StreamService(config.service_config(),
                                         sampler=sampler, device=device)
+        elif config.topology.kind == "sharded":
+            self.engine = ShardedStreamService(config.sharded_config(),
+                                               sampler=sampler, device=device)
         else:
             self.engine = OneshotEngine(config, device=device,
                                         sampler=sampler)
@@ -313,11 +360,14 @@ class Session:
     def ingest(self, points, weights=None, *, site: int | None = None) -> None:
         """Feed raw points.  ``site=`` pins a batch to one site (sharded
         topology only — elsewhere routing is not a concept)."""
-        if site is not None:
+        if site is None:
+            self.engine.ingest(points, weights)
+        elif self.config.topology.kind != "sharded":
             raise ValueError(
                 f"site= routing needs topology.kind='sharded', this "
                 f"session is {self.config.topology.kind!r}")
-        self.engine.ingest(points, weights)
+        else:
+            self.engine.ingest(points, weights, site=site)
 
     def refresh(self, *, blocking: bool = True) -> Optional[ModelState]:
         """(Re)fit the serving model on everything ingested so far."""
@@ -338,14 +388,22 @@ class Session:
         return self.engine.latency_stats()
 
     def store_stats(self) -> Optional[dict]:
-        """The tiered store's movement tallies — ``{"spills", "page_ins",
-        "spill_bytes", "page_in_bytes"}`` — or None when the config has no
-        tiered store (oneshot topology, no ``store`` section, or an
-        untiered spec)."""
-        tree = getattr(self.engine, "tree", None)
-        if tree is None or tree._store is None:
+        """The tiered store's movement tallies summed over this session's
+        trees — ``{"spills", "page_ins", "spill_bytes", "page_in_bytes"}``
+        — or None when the config has no tiered store (oneshot topology, no
+        ``store`` section, or an untiered spec)."""
+        if hasattr(self.engine, "tree"):
+            trees = [self.engine.tree]
+        else:
+            trees = list(getattr(self.engine, "trees", []))
+        stores = [t._store for t in trees if t._store is not None]
+        if not stores:
             return None
-        return dict(tree._store.stats())
+        totals: dict = {}
+        for st in stores:
+            for k, v in st.stats().items():
+                totals[k] = totals.get(k, 0) + v
+        return totals
 
     def stats(self) -> dict:
         """The process metrics snapshot: not ported yet."""
@@ -396,9 +454,10 @@ class Session:
         embedded config selects the topology and policies, then the
         matching layer restores its state on ``device`` (post-restore
         scores are bit-identical to the saved session's).  A stream
-        session's samplers are rebuilt by ``sampler_from_key_data``
-        (default ``TorchSampler.from_key_data``); a oneshot session keeps
-        no sampler state and refits from ``TorchSampler(config.seed)``."""
+        or sharded session's samplers are rebuilt by
+        ``sampler_from_key_data`` (default ``TorchSampler.from_key_data``);
+        a oneshot session keeps no sampler state and refits from
+        ``TorchSampler(config.seed)``."""
         manager = CheckpointManager(directory)
         meta = manager.read_meta(step)
         cfg_dict = meta.get("pipeline_config")
@@ -408,10 +467,14 @@ class Session:
                 f"(was it written by Session.save?); restore it with the "
                 f"layer-specific restore() it was written by")
         config = PipelineConfig.from_dict(cfg_dict)
-        _require_ported(config)
-        if config.topology.kind == "stream":
+        kind = config.topology.kind
+        if kind == "stream":
             engine = StreamService.restore(
                 config.service_config(), manager, step,
+                sampler_from_key_data=sampler_from_key_data, device=device)
+        elif kind == "sharded":
+            engine = ShardedStreamService.restore(
+                config.sharded_config(), manager, step,
                 sampler_from_key_data=sampler_from_key_data, device=device)
         else:
             engine = OneshotEngine.restore(config, manager, step,

@@ -1,5 +1,14 @@
 """Algorithms of the paper (Alg. 1/2/3, k-means++, k-means--) and its
 baselines (`rand`, k-means||), ported from ``repro.core``: plain torch
-around the dispatched kernel ops."""
+around the dispatched kernel ops; Algorithm 3's one round of communication
+on ``torch.distributed`` (``collective``)."""
+from repro_torch.core.collective import (  # noqa: F401
+    choose_backend, gather_sites, gathered_bytes, init_sites, payload_bytes,
+    replicated_coordinator, sites_group,
+)
+from repro_torch.core.distributed import (  # noqa: F401
+    DistClusterResult, distributed_cluster, local_budget,
+    simulate_coordinator,
+)
 from repro_torch.core.kmeans_parallel import kmeans_parallel_summary  # noqa: F401
 from repro_torch.core.rand_summary import rand_summary  # noqa: F401

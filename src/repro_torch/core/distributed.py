@@ -1,36 +1,58 @@
 """Algorithm 3 (Distributed-Median/Means) in the coordinator model.
 
-Port of ``repro.core.distributed``'s host-driven path,
-``simulate_coordinator``: each site builds its local summary with
-Summary-Outliers(A_i, k, t_i) (Algorithm 1, augmented by Algorithm 2 by
-default), the summaries are gathered once, and the second-level weighted
-k-means-- runs at the coordinator.  Communication is the number of summary
-records gathered.
+Port of ``repro.core.distributed``.  Two execution paths, same algorithm:
+
+* ``distributed_cluster`` — the collective path: every site is a rank of a
+  ``torch.distributed`` group (``repro_torch.core.collective``).  Each rank
+  builds its local summary with Summary-Outliers(A_i, k, t_i) (Algorithm 1,
+  augmented by Algorithm 2 by default) on its own block, the fixed-shape
+  summaries are exchanged with a single all_gather (THE one round of
+  communication the paper allows), and the second-level weighted k-means--
+  runs replicated on the union, so every rank returns the same result.
+
+* ``simulate_coordinator`` — the host-driven loop over sites in one
+  process: the same summaries' live records, the same second level, and
+  communication counted in records.
 
 Partition modes: ``random`` uses the paper's local budget t_i = 2t/s
 (Chernoff: all sites respect it w.h.p.); ``adversarial`` uses t_i = t.
 
-``summarizer=`` runs any algorithm of the ``repro_torch.summarize``
-registry per site through its weighted entry point (unit weights).
-
-Not ported yet (ROADMAP.md): the collective ``distributed_cluster``.
+``summarizer=`` runs an algorithm of the ``repro_torch.summarize``
+registry per site: through its fixed-shape site path in
+``distributed_cluster``, through its weighted entry point (unit weights)
+in ``simulate_coordinator``.
 """
 from __future__ import annotations
 
 import math
 import time
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.core.augmented import augmented_summary_outliers
+from repro_torch.core.collective import gather_sites, replicated_coordinator
 from repro_torch.core.kmeans_mm import kmeans_minus_minus
 from repro_torch.core.sampler import Sampler
 from repro_torch.core.summary import summary_outliers, summary_outliers_compact
 from repro_torch.kernels.dispatch import KernelPolicy
-from repro_torch.summarize.base import SummarizerPolicy, summarize
+from repro_torch.summarize.base import (SummarizerPolicy, select_summarizer,
+                                        summarize, summarizer_policy)
+
+
+class DistClusterResult(NamedTuple):
+    centers: torch.Tensor        # (k, d)
+    outlier_ids: torch.Tensor    # (s*cap,) int32 global ids, flagged first, -1 padded
+    summary_ids: torch.Tensor    # (s*cap,) int32 global ids of summary records, -1 padded
+    summary_weights: torch.Tensor
+    comm_records: torch.Tensor   # () f32 — valid records gathered to the coordinator
+    cost: torch.Tensor           # () second-level objective (on the summary)
+    # the port's addition: wall seconds of this rank's site summary, the
+    # gather and the second level, each ended by a device synchronisation
+    phase_s: Optional[dict] = None
 
 
 def local_budget(t: int, s: int, partition: str) -> int:
@@ -42,6 +64,122 @@ def local_budget(t: int, s: int, partition: str) -> int:
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def _site_summarizer(summarizer: SummarizerPolicy | None, summary_alg: str,
+                     *, metric: str, k: int, t: int):
+    """Resolve the per-site summary algorithm to a fixed-shape callable.
+
+    ``summarizer=None`` maps the legacy ``summary_alg`` string onto the
+    registry's ``paper`` entry with the variant pinned, as the reference
+    does.
+    """
+    if summarizer is None:
+        if summary_alg not in ("augmented", "plain"):
+            raise ValueError(f"unknown summary_alg {summary_alg!r}")
+        summarizer = summarizer_policy("paper", variant=summary_alg)
+    spec = select_summarizer(summarizer, metric=metric, k=k, t=t)
+    if spec.site_summary is None:
+        raise ValueError(
+            f"summarizer {spec.name!r} has no fixed-shape site path and "
+            f"cannot run in distributed_cluster; use simulate_coordinator "
+            f"(host-driven) for it")
+    params = summarizer.params_dict()
+
+    def summarize_site(x, sampler, *, policy):
+        return spec.site_summary(x, sampler, k=k, t=t, alpha=2.0, beta=0.45,
+                                 metric=metric, kernel_policy=policy,
+                                 **params)
+
+    return summarize_site
+
+
+def _second_level(points, weights, valid, gids, sampler, *, k, t, iters,
+                  metric, policy):
+    sol = kmeans_minus_minus(points, weights, valid, sampler, k=k,
+                             t=float(t), iters=iters, metric=metric,
+                             policy=policy)
+    out_ids = torch.where(sol.outlier, gids, -1)
+    # flagged first, each group in index order: jnp.argsort is stable,
+    # torch.argsort only when asked
+    order = torch.argsort((~sol.outlier).to(torch.uint8), stable=True)
+    return sol, out_ids[order], order
+
+
+def _site_block(xp, dev: torch.device) -> torch.Tensor:
+    """This rank's ``(n_per, d)`` block of the ``(1, n_per, d)`` slice
+    ``xp``, as f32 on ``dev``: a memmapped block is read here, once."""
+    if isinstance(xp, torch.Tensor):
+        return xp[0].to(dev, torch.float32)
+    return torch.from_numpy(np.array(xp[0], np.float32)).to(dev)
+
+
+def distributed_cluster(
+    x_parts,
+    sampler: Sampler,
+    group=None,
+    *,
+    k: int,
+    t: int,
+    partition: str = "random",
+    summary_alg: str = "augmented",
+    summarizer: SummarizerPolicy | None = None,
+    second_iters: int = 25,
+    metric: str = "l2sq",
+    policy: KernelPolicy | None = None,
+    device="cuda",
+) -> DistClusterResult:
+    """Algorithm 3 as one collective over ``group`` (None: the default
+    group, initialized with ``collective.init_sites``), called by every rank
+    with the same arguments.
+
+    ``x_parts``: ``(s, n_per, d)`` — a numpy array, a memmap or a tensor —
+    with s the group's size; rank r copies only ``x_parts[r]`` to
+    ``device``.  Rank r summarizes with ``sampler.fold_in(r)``; its global
+    ids are ``indices + r * n_per`` (-1 on padding); one ``gather_sites``
+    of (points, weights, valid, gids); the second level draws from
+    ``sampler.fold_in(2**31 - 1)``.  The result, on ``device``, is identical
+    on every rank.
+
+    ``summarizer`` selects each site's summary algorithm from the
+    registry (it must provide a fixed-shape site path); None maps the
+    legacy ``summary_alg`` string to the registry's ``paper`` entry.
+    """
+    dev = resolve_device(device)
+    s, n_per, _ = x_parts.shape
+    t_i = local_budget(t, s, partition)
+    summarize_site = _site_summarizer(summarizer, summary_alg,
+                                      metric=metric, k=k, t=t_i)
+
+    def per_site(xp, sampler):
+        t0 = time.perf_counter()
+        site = dist.get_rank(group)
+        summ = summarize_site(_site_block(xp, dev), sampler.fold_in(site),
+                              policy=policy)
+        gids = torch.where(summ.valid, summ.indices + site * n_per, -1)
+        _sync(dev)
+        t1 = time.perf_counter()
+        # --- the one round of communication ---
+        pts, wts, val, gid = gather_sites(
+            (summ.points, summ.weights, summ.valid, gids), group)
+        _sync(dev)
+        t2 = time.perf_counter()
+        # --- replicated second level at the "coordinator" ---
+        sol, out_ids_sorted, _ = _second_level(
+            pts, wts, val, gid, sampler.fold_in(2**31 - 1), k=k, t=t,
+            iters=second_iters, metric=metric, policy=policy)
+        comm = val.sum().to(torch.float32)
+        _sync(dev)
+        t3 = time.perf_counter()
+        return DistClusterResult(
+            centers=sol.centers, outlier_ids=out_ids_sorted,
+            summary_ids=gid, summary_weights=wts, comm_records=comm,
+            cost=sol.cost,
+            phase_s={"site_summary": t1 - t0, "gather": t2 - t1,
+                     "second_level": t3 - t2})
+
+    return replicated_coordinator(per_site, group, n_sharded=1)(x_parts,
+                                                                 sampler)
 
 
 def simulate_coordinator(

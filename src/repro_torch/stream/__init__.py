@@ -4,9 +4,9 @@ Port of ``repro.stream`` (see its docstring for why merge-and-reduce is
 correct here): ``weighted`` (weighted Algorithm 1 + merge/reduce
 primitives), ``tree`` (buffer tree, sliding-window eviction, tiered store,
 checkpointable state), ``service`` (micro-batched scoring front end,
-double-buffered and incremental refresh, checkpoint glue).  The
-multi-host ``sharded`` module is not ported yet (ROADMAP.md, queue 1
-item 3).
+double-buffered and incremental refresh, checkpoint glue), ``sharded``
+(per-site trees + one gathered refresh, host-simulated or a
+``torch.distributed`` collective).
 """
 from repro_torch.stream.weighted import (  # noqa: F401
     WeightedSummary, merge_summaries, resummarize, weighted_summary_outliers,
@@ -17,4 +17,7 @@ from repro_torch.stream.tree import (  # noqa: F401
 from repro_torch.stream.service import (  # noqa: F401
     BaseServiceConfig, ModelState, QueryResult, ServiceConfig,
     ServingFrontEnd, StreamService, fit_model,
+)
+from repro_torch.stream.sharded import (  # noqa: F401
+    RefreshStats, ShardedServiceConfig, ShardedStreamService,
 )

@@ -1,8 +1,7 @@
 """Online scoring front end over the stream tree.
 
-Port of ``repro.stream.service``.  The reference's multi-host
-``ShardedStreamService``, which shares ``ServingFrontEnd``
-(``stream/sharded.py``), is not ported yet (ROADMAP.md, queue 1 item 3).
+Port of ``repro.stream.service``.  ``ServingFrontEnd`` is shared with the
+multi-site ``ShardedStreamService`` (``stream/sharded.py``).
 
 Write path: ``ingest`` feeds raw points into the merge-and-reduce tree;
 every ``refresh_every`` ingested points (or on demand) the tree root —

@@ -7,10 +7,12 @@ params, kernel policies with tiles and the autotuner), the port's
 ``to_json()`` must equal the reference's byte for byte; the reference's
 invalid configs raise ``ValueError`` in both packages; a version-1 payload
 warns and upgrades; an artifact's ``"pallas"`` backend reads as the port's
-``"cuda"``; ``service_config()`` equals the reference's field for field.
+``"cuda"``; ``service_config()`` and ``sharded_config()`` equal the
+reference's field for field.
 
-``Session``: the oneshot (4 sites) and stream (with and without a
-``store``) topologies under ``JaxReplaySampler`` (the reference's draws)
+``Session``: the oneshot (4 sites), stream (with and without a
+``store``) and sharded topologies under ``JaxReplaySampler`` (the
+reference's draws)
 against the reference's ``Session`` on an integer grid
 (``test_torch_stream.grid``), where every distance between two rows is
 exact in f32 (ROADMAP.md, queue 3 item 1).  Centers, ids, versions,
@@ -24,6 +26,12 @@ to rtol 1e-5 (as ``test_torch_oneshot.py`` holds it).  A refresh with no
 new data is pure; ``save`` / ``load`` round-trip bit for bit and cross
 between the packages both ways; the error surface is the reference's, plus
 ``NotImplementedError`` naming the queue for what is not ported.
+
+``topology.use_shard_map``: with four ranks of a gloo group
+(``test_torch_collective.spawn_ranks``) ``Session.fit`` is bit for bit
+the direct ``distributed_cluster`` and a save / load re-scores bit for
+bit (the reference's ``tests/test_api.py`` subprocess test, which cannot
+run on four CPU devices under the installed jax: ROADMAP.md).
 """
 import contextlib
 import dataclasses
@@ -44,9 +52,14 @@ from repro_torch.api import (OneshotEngine, PipelineConfig, Session,
                              pipeline_config)
 from repro_torch.api.cli import load_config_file
 from repro_torch.kernels.dispatch import KernelPolicy
+from repro_torch.core.collective import init_sites
+from repro_torch.core.distributed import distributed_cluster
+from repro_torch.core.sampler import TorchSampler
 from repro_torch.store import StoreSpec
-from repro_torch.stream import ServiceConfig, StreamService
+from repro_torch.stream import (ServiceConfig, ShardedServiceConfig,
+                                ShardedStreamService, StreamService)
 from repro_torch.summarize import summarizer_policy
+from test_torch_collective import spawn_ranks
 from test_torch_replay import JaxReplaySampler
 from test_torch_stream import grid
 
@@ -193,21 +206,23 @@ def test_pallas_backend_reads_as_cuda():
         J.PipelineConfig.from_dict(got.to_dict())
 
 
-def test_service_config_is_the_references_field_for_field():
-    kw = dict(dim=4, k=3, t=10, topology="stream", leaf_size=512,
-              refresh_every=2048, micro_batch=128, window=9000,
-              async_refresh=True, second_iters=7, seed=4,
-              summarizer=summarizer_policy("uniform", budget=32),
-              kernels=KernelPolicy(backend="blocked", block_n=1024),
-              store=StoreSpec(hot_levels=1))
+def _projections(**over):
+    """(port, reference) pipeline configs with every projected field set."""
+    kw = dict(dict(dim=4, k=3, t=10, topology="stream", leaf_size=512,
+                   refresh_every=2048, micro_batch=128, window=9000,
+                   async_refresh=True, second_iters=7, seed=4,
+                   summarizer=summarizer_policy("uniform", budget=32),
+                   kernels=KernelPolicy(backend="blocked", block_n=1024),
+                   store=StoreSpec(hot_levels=1)), **over)
     jkw = {**kw, "summarizer": jsummarize.summarizer_policy("uniform",
                                                             budget=32),
            "kernels": jdispatch.KernelPolicy(backend="blocked",
                                              block_n=1024),
            "store": jstore.StoreSpec(hot_levels=1)}
-    got = pipeline_config(**kw).service_config()
-    want = J.pipeline_config(**jkw).service_config()
-    assert isinstance(got, ServiceConfig)
+    return pipeline_config(**kw), J.pipeline_config(**jkw)
+
+
+def assert_fields_equal(got, want):
     names = [f.name for f in dataclasses.fields(want)]
     assert [f.name for f in dataclasses.fields(got)] == names
     for name in names:
@@ -216,8 +231,30 @@ def test_service_config_is_the_references_field_for_field():
             assert dataclasses.asdict(g) == dataclasses.asdict(w), name
         else:
             assert g == w, name
+
+
+def test_service_config_is_the_references_field_for_field():
+    got, want = _projections()
+    assert isinstance(got.service_config(), ServiceConfig)
+    assert_fields_equal(got.service_config(), want.service_config())
     with pytest.raises(ValueError, match="stream"):
         pipeline_config(dim=3, k=4, t=12).service_config()
+
+
+@pytest.mark.parametrize("sites,site_budget,use_shard_map", [
+    (2, "full", False), (4, "paper", True), (20, "paper", False)])
+def test_sharded_config_is_the_references_field_for_field(
+        sites, site_budget, use_shard_map):
+    got, want = _projections(topology="sharded", sites=sites,
+                             site_budget=site_budget,
+                             use_shard_map=use_shard_map)
+    cfg = got.sharded_config()
+    assert isinstance(cfg, ShardedServiceConfig)
+    assert_fields_equal(cfg, want.sharded_config())
+    assert cfg.site_t() == want.sharded_config().site_t()
+    with pytest.raises(ValueError, match="sharded"):
+        pipeline_config(dim=3, k=4, t=12,
+                        topology="stream").sharded_config()
 
 
 # ------------------------------------------------------- session parity
@@ -337,6 +374,56 @@ def test_stream_session_matches_reference(metric, store, tmp_path):
             (1, 0)   # the final refresh: the root did not change
 
 
+SHARDED = dict(dim=4, k=4, t=12, topology="sharded", sites=4,
+               leaf_size=256, refresh_every=1500, micro_batch=64,
+               window=3000, seed=6)
+
+
+@pytest.mark.parametrize("metric", ["l2sq", "l1"])
+def test_sharded_session_matches_reference(metric):
+    got, want = _sessions({**SHARDED, "metric": metric})
+    x = grid(8000, seed=35)
+    for i in range(0, len(x), 700):
+        got.ingest(x[i:i + 700])
+        want.ingest(x[i:i + 700])
+        assert (got.model is None) == (want.model is None)
+    for svc in (got, want):
+        svc.ingest(x[:50], site=3)
+    mg, mw = got.refresh(), want.refresh()
+    roots = np.concatenate([tr.root()[0] for tr in want.engine.trees])
+    assert_models_match(mg, mw, metric, roots)
+    assert tuple(got.engine.last_refresh) == tuple(want.engine.last_refresh)
+    assert got.last_fit.records_folded == want.last_fit.records_folded
+    q = grid(200, seed=36)
+    assert_scores_match(got.score(q), want.score(q), metric)
+    assert isinstance(got.engine, ShardedStreamService)
+    assert got.result is None and got.store_stats() is None
+
+
+def test_sharded_session_is_the_service(tmp_path):
+    """The facade adds no math: a sharded Session's model and drain are
+    the service's on the same config and sampler, bit for bit, and its
+    store tallies are the sum over the sites' trees."""
+    kw = {**SHARDED, "window": None,
+          "store": {"hot_levels": 1, "directory": str(tmp_path)}}
+    cfg = pipeline_config(**kw)
+    sess = Session(cfg, device="cpu", sampler=TorchSampler(7))
+    svc = ShardedStreamService(cfg.sharded_config(), TorchSampler(7),
+                               device="cpu")
+    x = grid(9000, seed=37)
+    for i in range(0, len(x), 1000):
+        sess.ingest(x[i:i + 1000])
+        svc.ingest(x[i:i + 1000])
+    a, b = sess.refresh(), svc.refresh()
+    for name in a._fields:
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    q = grid(100, seed=38)
+    assert_scores_match(sess.score(q), svc.score(q), "l1")
+    totals = sess.store_stats()
+    assert totals["spills"] == sum(tr._store.stats()["spills"]
+                                   for tr in svc.trees) > 0
+
+
 def test_oneshot_refresh_is_pure():
     x = grid(1600, seed=26)
     sess = Session(pipeline_config(dim=4, k=4, t=12, sites=2), device="cpu")
@@ -351,10 +438,13 @@ def test_oneshot_refresh_is_pure():
 
 
 # ------------------------------------------------------------- save / load
-@pytest.mark.parametrize("kind", ["oneshot", "stream"])
+KINDS = {"oneshot": ONESHOT, "stream": STREAM, "sharded": SHARDED}
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
 def test_save_load_score_bit_identical(tmp_path, kind):
     x = grid(2000, seed=27)
-    kw = ONESHOT if kind == "oneshot" else STREAM
+    kw = KINDS[kind]
     sess = Session(pipeline_config(**kw), device="cpu")
     sess.fit(x)
     q = x[:100]
@@ -381,13 +471,13 @@ def test_save_load_score_bit_identical(tmp_path, kind):
     assert sess.save(tmp_path) == 2
 
 
-@pytest.mark.parametrize("kind", ["oneshot", "stream"])
+@pytest.mark.parametrize("kind", sorted(KINDS))
 def test_checkpoints_cross_between_packages(tmp_path, kind):
     """A reference ``Session.save`` loads in the port and scores as the
     reference does, and the other way round (l1: scores bit for bit)."""
     x = grid(2000, seed=28)
     q = grid(100, seed=29)
-    kw = {**(ONESHOT if kind == "oneshot" else STREAM), "metric": "l1"}
+    kw = {**KINDS[kind], "metric": "l1"}
     ref = J.Session(J.pipeline_config(**kw))
     ref.fit(x)
     ref.save(tmp_path / "ref")
@@ -401,7 +491,7 @@ def test_checkpoints_cross_between_packages(tmp_path, kind):
     port.save(tmp_path / "port")
     back = J.Session.load(tmp_path / "port")
     assert_scores_match(port.score(q), back.score(q), "l1")
-    if kind == "stream":
+    if kind != "oneshot":
         # both continue on the same draws: ingest more and refit
         got.ingest(x[:1500])
         ref.ingest(x[:1500])
@@ -455,8 +545,6 @@ def test_queue4_verbs_raise_naming_the_queue(verb):
 
 
 @pytest.mark.parametrize("kw,queue", [
-    (dict(topology="sharded", sites=2), "queue 3"),
-    (dict(use_shard_map=True, sites=2), "queue 3"),
     (dict(tracing=0.5), "queue 4"),
     (dict(tracing=False, topology="stream"), "queue 4"),
 ])
@@ -464,23 +552,97 @@ def test_unported_topologies_and_tracing_raise(kw, queue):
     cfg = pipeline_config(dim=4, k=4, t=12, **kw)
     with pytest.raises(NotImplementedError, match=queue):
         Session(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("kw", [dict(topology="sharded", sites=2),
+                                dict(use_shard_map=True, sites=2)],
+                         ids=["sharded", "shard_map"])
+def test_sharded_topology_and_shard_map_sessions_build(kw):
+    """What raised until the sharded topology was ported: both configs
+    build a Session on the reference's layer, and ``sharded_config()``
+    projects."""
+    cfg = pipeline_config(dim=4, k=4, t=12, **kw)
+    sess = Session(cfg, device="cpu")
     if kw.get("topology") == "sharded":
-        with pytest.raises(NotImplementedError, match="queue 3"):
-            cfg.sharded_config()
-    if kw.get("use_shard_map"):
-        from repro_torch.api.session import _run_oneshot
-        with pytest.raises(NotImplementedError, match="queue 3"):
-            _run_oneshot(grid(40, seed=32), cfg, device="cpu")
+        assert isinstance(sess.engine, ShardedStreamService)
+        assert len(sess.engine.trees) == cfg.sharded_config().n_sites == 2
+    else:
+        assert isinstance(sess.engine, OneshotEngine)
 
 
-def test_load_refuses_a_sharded_checkpoint(tmp_path):
+def test_run_oneshot_shard_map_errors(tmp_path):
+    """The reference's two errors: rows not divisible by ``sites``, and
+    no group of ``sites`` ranks (its "needs >= s devices")."""
+    from repro_torch.api.session import _run_oneshot
+    cfg = pipeline_config(dim=4, k=4, t=12, sites=2, use_shard_map=True)
+    with pytest.raises(ValueError, match="divisible by sites=2"):
+        _run_oneshot(grid(41, seed=32), cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="group of 2 ranks.*have 0"):
+        _run_oneshot(grid(40, seed=32), cfg, device="cpu")
+    init_sites(0, ["cpu"], init_method=f"file://{tmp_path}/store")
+    try:
+        with pytest.raises(RuntimeError, match="group of 2 ranks.*have 1"):
+            Session(cfg, device="cpu").fit(grid(40, seed=32))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def test_load_restores_a_reference_sharded_checkpoint(tmp_path):
     x = grid(800, seed=34)
-    ref = J.Session(J.pipeline_config(dim=4, k=4, t=12, topology="sharded",
-                                      sites=2, leaf_size=256))
+    kw = dict(dim=4, k=4, t=12, topology="sharded", sites=2, leaf_size=256,
+              metric="l1")
+    ref = J.Session(J.pipeline_config(**kw))
     ref.fit(x)
     ref.save(tmp_path)
-    with pytest.raises(NotImplementedError, match="queue 3"):
-        Session.load(tmp_path, device="cpu")
+    got = Session.load(tmp_path, device="cpu",
+                       sampler_from_key_data=JaxReplaySampler.from_key_data)
+    assert got.config == pipeline_config(**kw)
+    assert len(got.engine.trees) == 2
+    q = grid(64, seed=39)
+    assert_scores_match(got.score(q), ref.score(q), "l1")
+
+
+SHARD_MAP = dict(dim=4, k=4, t=16, sites=4, use_shard_map=True, seed=11)
+
+
+def _shard_map_rank(rank, n, workdir):
+    x = grid(2000, seed=40)
+    cfg = pipeline_config(**SHARD_MAP)
+    sess = Session(cfg, device="cpu")
+    sess.fit(x)
+    res = distributed_cluster(x.reshape(4, -1, 4), TorchSampler(11), k=4,
+                              t=16, summarizer=cfg.summarizer,
+                              policy=cfg.kernels, device="cpu")
+    out = res.outlier_ids.numpy()
+    q = x[:64]
+    before = sess.score(q)
+    sess.save(f"{workdir}/ckpt{rank}")
+    after = Session.load(f"{workdir}/ckpt{rank}", device="cpu").score(q)
+    return {"result": sess.result,
+            "centers_equal": np.array_equal(sess.result["centers"],
+                                            res.centers.numpy()),
+            "cost_equal": sess.result["cost"] == float(res.cost),
+            "outliers_equal": np.array_equal(sess.result["outlier_ids"],
+                                             out[out >= 0]),
+            "reload_scores_equal": [tuple(a)[1:5] for a in before]
+            == [tuple(b)[1:5] for b in after]}
+
+
+def test_shard_map_session_is_direct_distributed_cluster(tmp_path):
+    """Four ranks: each rank's ``Session.fit`` under ``use_shard_map`` is
+    its direct ``distributed_cluster`` call bit for bit, and a save / load
+    re-scores bit for bit (the reference's ``tests/test_api.py``
+    ``_ONESHOT_SHARD_MAP_EQ``)."""
+    ranks = spawn_ranks(_shard_map_rank, 4, tmp_path)
+    for got in ranks:
+        assert got["centers_equal"] and got["cost_equal"]
+        assert got["outliers_equal"] and got["reload_scores_equal"]
+        for key in ("centers", "outlier_ids", "summary_ids",
+                    "summary_weights"):
+            np.testing.assert_array_equal(got["result"][key],
+                                          ranks[0]["result"][key])
+        assert got["result"]["comm_records"] == len(
+            got["result"]["summary_ids"])
 
 
 def test_session_refuses_cuda_without_a_card(monkeypatch):

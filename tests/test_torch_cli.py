@@ -134,3 +134,24 @@ def test_python_dash_m_runs_on_the_cpu():
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
     assert "jax" not in out.stderr
+
+
+def test_serve_a_sharded_copy_of_the_stream_example(tmp_path, capsys):
+    """``examples/stream.toml`` with ``kind = "sharded"`` and ``sites = 4``
+    (what its own comment suggests): ``python -m repro_torch serve`` ends
+    in ``ok`` and prints the reference CLI's lines."""
+    text = (EXAMPLES / "stream.toml").read_text()
+    assert 'kind = "stream"' in text
+    p = tmp_path / "sharded.toml"
+    p.write_text(text.replace('kind = "stream"',
+                              'kind = "sharded"\nsites = 4'))
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch", "serve", "--config", str(p),
+         "--device", "cpu"],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"
+    assert "serving sharded topology" in out.stdout
+    jax_main(["serve", "--config", str(p)])
+    assert _lines(out.stdout) == _lines(capsys.readouterr().out)
