@@ -1,7 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py [--report PATH]
-    python3 chip_smoke.py --measure serve,lloyd_split,lloyd_ladder
+    python3 chip_smoke.py --measure serve,lloyd_split,lloyd_ladder,stream
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX, and:
@@ -105,6 +105,25 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    ranks with ``use_shard_map=True``, each rank's refresh on the
    collective path and its model and drain bit for bit the host-simulated
    service's, score launched in each rank's drain;
+   and the serving scheduler under concurrent clients (the "serving"
+   phase, the card's counterpart of ``benchmarks/serving_bench.py --mode
+   full``): ``Session(pipeline_config(..., topology="stream",
+   serving=ServingSpec(queue_bound=512, batch_window_ms=1.0)))`` fitted on
+   the stream phase's 1M rows; 1,024 of 4,096 query rows
+   (``default_rng(7)``) through ``score_stream`` from 16 client threads at
+   once, bit for bit ``Session.score``, the worker thread's ``score``
+   launches counted, and one tick's rows against the kernel and its plain
+   version; clients scoring while the session ingests and an async
+   refresh fits; ``estimate_capacity``, an open-loop probe, then a ladder
+   of 0.25 / 0.5 / 1 / 2 / 4 x the sustained rate (16 clients, 2 s a
+   rung: offered and completed rows/s, p50 / p99 ms, shed rate, batch
+   occupancy, peak queue depth) with the metrics plane and the flight
+   recorder on, then both off; a two-tenant rung under a quota;
+   ``Session.stats()`` through ``benchmarks/check_obs_snapshot.py
+   --require-set serving`` and ``dump_trace`` through
+   ``benchmarks/check_trace.py``; ``python -m repro_torch stats`` and
+   ``serve --clients 4 --metrics-interval 0 --metrics-out F --trace-out
+   F``, their files through the same validators;
 4. re-runs gauss with ``backend="blocked"`` (the plain torch path) from the
    same seed, and on the kernels from another seed as the yardstick of two
    independent draws, and compares the results; re-runs the rwkv6 prefill
@@ -124,8 +143,10 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
 ``--measure`` runs only the named readings, each after the fits that feed
 it, and prints them as one JSON line: ``serve`` (the serving p50 and p99),
 ``lloyd_split`` and ``lloyd_ladder`` (the Lloyd routes over k and over caps
-of CTAs).  One process per reading, in turns with another tree's, compares
-two trees; ``serve`` runs on any tree of the port.
+of CTAs), ``stream`` (the 1M stream's ingest rows/s resident and tiered,
+and its submit + drain p50 and p99).  One process per reading, in turns
+with another tree's, compares two trees; ``serve`` and ``stream`` run on
+any tree of the port from the stream slice on.
 
 It prints the card (``nvidia-smi``), one ``{"kernels": [...]}`` line and, as
 its last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises:
@@ -1272,13 +1293,15 @@ def stream_main(dev, x, truth, tmp):
     # incremental refresh: two refreshes on the final root.  The last
     # cadence fit may already have seen it (n a multiple of the cadence):
     # then both skip; either way the second must.
+    from repro_torch import obs
+    skipped = obs.counter("refresh.skipped", topology="stream")
     m1 = tiered.refresh()
-    skips = tiered.skipped_refreshes
+    skips = skipped.value
     t0 = time.perf_counter()
     m2 = tiered.refresh()
     out["skipped_refresh_s"] = time.perf_counter() - t0
     out["refresh_fit_s"] = tiered.last_fit.fit_s
-    out["refresh_skipped"] = (tiered.skipped_refreshes == skips + 1
+    out["refresh_skipped"] = (skipped.value == skips + 1
                               and int(m2.version) == int(m1.version))
     if not out["refresh_skipped"]:
         fail.append("the second refresh on an unchanged root was not "
@@ -1784,20 +1807,26 @@ def session_autotune(dev, fail):
     return out
 
 
-def session_cli(fail):
-    """``python -m repro_torch`` on the three example artifacts, each in its
-    own process on the card; each must exit 0 with ``ok`` last."""
+def repro_torch_cli(*args):
+    """``python -m repro_torch ARGS`` in its own process from the root of
+    the checkout: (the finished process, its stdout's lines)."""
     import os
     root = Path(__file__).resolve().parent
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (str(root / "src"), os.environ.get("PYTHONPATH")) if p)}
+    proc = subprocess.run([sys.executable, "-m", "repro_torch", *args],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=300)
+    return proc, proc.stdout.strip().splitlines()
+
+
+def session_cli(fail):
+    """``python -m repro_torch`` on the three example artifacts, each in its
+    own process on the card; each must exit 0 with ``ok`` last."""
     out = []
     for cmd, artifact in CLI_RUNS:
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch", cmd, "--config", artifact],
-            cwd=root, env=env, capture_output=True, text=True, timeout=300)
-        lines = proc.stdout.strip().splitlines()
+        proc, lines = repro_torch_cli(cmd, "--config", artifact)
         for line in lines:
             log(f"cli {cmd} {artifact} |", line)
         rec = {"cmd": cmd, "config": artifact, "rc": proc.returncode,
@@ -1839,6 +1868,356 @@ def session_phase(dev, counted, kdd_np, kdd_truth, kdd_x, resident):
     log(f"session_s {out['phase_s']:.2f}")
     if fail:
         raise AssertionError(f"session phase: {fail}")
+    return out
+
+
+# ----------------------------------------------------- serving phase
+# The async serving scheduler under concurrent clients, with the telemetry
+# plane on and off: the card's counterpart of benchmarks/serving_bench.py
+# --mode full, at the stream deployment's size (its 1M gauss rows).  Every
+# scheduler tick runs StreamService.drain on the worker thread, so each one
+# launches the score kernel from that thread.
+SERVING = dict(queue_bound=512, batch_window_ms=1.0, shed_policy="shed",
+               refresh_every=250_000, window=500_000, queries=4_096,
+               query_seed=7, bitwise_rows=1_024, clients=16, rung_s=2.0,
+               ladder=(0.25, 0.5, 1.0, 2.0, 4.0), capacity_s=0.5,
+               quota=256)
+SERVING_CLI = (
+    ("stats", "examples/oneshot.json", ("--out", "{dir}/stats.json")),
+    ("serve", "examples/stream.toml",
+     ("--clients", "4", "--load-seconds", "1", "--metrics-interval", "0",
+      "--metrics-out", "{dir}/metrics.jsonl", "--trace-out",
+      "{dir}/serve_trace.json")),
+)
+
+
+def _check_file(script, *args):
+    """One of the repo's stdlib validators (``benchmarks/``) on a file, in
+    its own process: (exit code, its output)."""
+    root = Path(__file__).resolve().parent
+    proc = subprocess.run(
+        [sys.executable, str(root / "benchmarks" / script),
+         *map(str, args)], cwd=root, capture_output=True, text=True,
+        timeout=120)
+    return proc.returncode, (proc.stdout + proc.stderr).strip()
+
+
+class _TickTally:
+    """Rows and ticks of a scheduler, read around ``_score_batch`` (the
+    same with the metrics plane off, where ``serve.ticks`` does not
+    count)."""
+
+    def __init__(self, sched):
+        self.ticks = self.rows = 0
+        inner = sched._score_batch
+
+        def tally(batch):
+            self.ticks += 1
+            self.rows += len(batch)
+            return inner(batch)
+
+        sched._score_batch = tally
+
+    def occupancy(self, max_batch, since):
+        ticks, rows = self.ticks - since[0], self.rows - since[1]
+        return rows / (ticks * max_batch) if ticks else None
+
+
+def serving_ladder(sched, queries, tally, sustained, label):
+    """The offered-load ladder (16 clients, 2 s a rung): per rung offered
+    and completed rows/s, p50 / p99 ms, shed rate, batch occupancy and
+    peak queue depth."""
+    from repro_torch.serve import run_load
+    rungs = []
+    for mult in SERVING["ladder"]:
+        sched.peak_depth = 0
+        since = (tally.ticks, tally.rows)
+        rep = run_load(sched, queries, offered_rps=mult * sustained,
+                       clients=SERVING["clients"],
+                       duration_s=SERVING["rung_s"],
+                       seed=int(mult * 100))
+        row = {"plane": label, "multiplier": mult,
+               "offered_rps": rep["offered_rps"],
+               "completed_rps": rep["goodput_rps"],
+               "p50_ms": rep["p50_ms"], "p99_ms": rep["p99_ms"],
+               "shed_rate": rep["shed_rate"],
+               "batch_occupancy": tally.occupancy(sched.max_batch, since),
+               "peak_queue_depth": int(sched.peak_depth),
+               "submitted": rep["submitted"], "completed": rep["completed"]}
+        log("serving rung", json.dumps(row))
+        rungs.append(row)
+    return rungs
+
+
+def serving_concurrent(sess, q):
+    """``score_stream`` from 16 client threads at once (a shed row is
+    submitted again): the results in row order and the resubmissions."""
+    import threading
+    from repro_torch.serve import ShedReject
+    n = SERVING["bitwise_rows"]
+    per = n // SERVING["clients"]
+    got = [None] * SERVING["clients"]
+    resubmits = [0] * SERVING["clients"]
+
+    def client(i):
+        rows = q[i * per:(i + 1) * per]
+        out = list(sess.score_stream(rows, timeout=120.0))
+        while True:
+            shed = [j for j, r in enumerate(out)
+                    if isinstance(r, ShedReject)]
+            if not shed:
+                break
+            resubmits[i] += len(shed)
+            again = list(sess.score_stream(rows[shed], timeout=120.0))
+            for j, r in zip(shed, again):
+                out[j] = r
+        got[i] = out
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVING["clients"])]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=300.0)
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a serving client did not finish in 300 s")
+    return [r for rs in got for r in rs], sum(resubmits)
+
+
+def serving_bitwise(sess, q, dev, want, conc, resubmits, checks, fail):
+    """The concurrent results against ``Session.score`` bit for bit, and
+    one tick's rows against the score kernel and its plain version."""
+    from repro_torch.kernels.score.kernel import score_cuda
+    same = len(conc) == len(want) and all(
+        (a.center, a.distance, a.outlier_score, a.is_outlier)
+        == (b.center, b.distance, b.outlier_score, b.is_outlier)
+        for a, b in zip(want, conc))
+    # one tick's rows (a padded micro-batch) on the kernel and its plain
+    # version, and the scheduler's results for them against the kernel's
+    model = sess.model
+    mb = sess.engine.cfg.micro_batch
+    xb = torch.from_numpy(np.ascontiguousarray(q[:mb])).to(dev)
+    rec = check_score(dev, "serving_tick", xb, model.centers,
+                      model.threshold, "l2sq", fail)
+    log("check", json.dumps(rec))
+    checks.append(rec)
+    dk, ak, sk = (a.cpu().numpy() for a in score_cuda(
+        xb, model.centers, model.threshold, metric="l2sq"))
+    tick = all((r.center, r.distance, r.outlier_score)
+               == (int(ak[j]), float(dk[j]), float(sk[j]))
+               for j, r in enumerate(conc[:mb]))
+    out = {"rows": len(want), "clients": SERVING["clients"],
+           "resubmitted_after_shed": resubmits,
+           "bitwise_vs_session_score": same,
+           "tick_equals_kernel_bitwise": tick}
+    if not (same and tick):
+        fail.append(f"concurrent scores differ: {out}")
+    return out
+
+
+def serving_async_refresh(sess, x, q, fail):
+    """Clients scoring through the scheduler while the session ingests and
+    an async refresh fits on its worker thread: every row resolves, and
+    the refresh installs."""
+    import threading
+    from repro_torch.serve import ShedReject
+    stop = threading.Event()
+    seen = [[0, 0] for _ in range(SERVING["clients"])]
+    errors = []
+
+    def client(i):
+        rows = q[i * 64:(i + 1) * 64]
+        try:
+            while not stop.is_set():
+                for r in sess.score_stream(rows, timeout=120.0):
+                    seen[i][isinstance(r, ShedReject)] += 1
+                time.sleep(0.001)   # a client that was shed backs off
+        except Exception as e:   # reported below, on the main thread
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(SERVING["clients"])]
+    for th in threads:
+        th.start()
+    sess.ingest(x[:8_192])
+    v0 = int(sess.model.version)
+    t0 = time.perf_counter()
+    sess.refresh(blocking=False)
+    # the worker's next drain installs the fit (poll_refresh, under the
+    # scheduler's engine lock)
+    while sess.engine.refresh_in_flight and time.perf_counter() - t0 < 120:
+        time.sleep(0.01)
+    stop.set()
+    for th in threads:
+        th.join(timeout=300.0)
+    out = {"version_before": v0, "version_after": int(sess.model.version),
+           "refresh_s": time.perf_counter() - t0,
+           "rows_scored": sum(s[0] for s in seen),
+           "rows_shed": sum(s[1] for s in seen), "errors": errors,
+           "clients_done": not any(th.is_alive() for th in threads)}
+    if errors or not out["clients_done"] or \
+            out["version_after"] != v0 + 1 or not out["rows_scored"]:
+        fail.append(f"scoring under an async refresh: {out}")
+    return out
+
+
+def serving_cli(tmp, fail):
+    """``python -m repro_torch stats`` and ``serve --clients ...
+    --metrics-interval 0 --metrics-out F --trace-out F`` in their own
+    processes on the card; what they write must pass the validators."""
+    out = []
+    for cmd, artifact, extra in SERVING_CLI:
+        t0 = time.perf_counter()
+        proc, lines = repro_torch_cli(cmd, "--config", artifact,
+                                      *[a.format(dir=tmp) for a in extra])
+        for line in lines[-12:]:
+            log(f"cli {cmd} {artifact} |", line)
+        rec = {"cmd": cmd, "config": artifact, "rc": proc.returncode,
+               "s": time.perf_counter() - t0}
+        if cmd == "stats":
+            # the reference's stats prints where it wrote, not "ok"
+            rec["ok"] = proc.returncode == 0 and bool(lines) and \
+                lines[-1].startswith("wrote json snapshot")
+            rc, msg = _check_file("check_obs_snapshot.py", "--snapshot",
+                                  tmp / "stats.json", "--require",
+                                  "kernels.dispatch", "--require",
+                                  "comm.records", "--require",
+                                  "serve.latency")
+            rec["snapshot_valid"] = rc == 0
+        else:
+            rec["ok"] = proc.returncode == 0 and bool(lines) and \
+                lines[-1] == "ok"
+            metrics = (tmp / "metrics.jsonl").read_text().splitlines() \
+                if (tmp / "metrics.jsonl").exists() else []
+            rec["metrics_lines"] = len(metrics)
+            (tmp / "metrics_last.json").write_text(
+                metrics[-1] if metrics else "{}")
+            rc, msg = _check_file("check_obs_snapshot.py", "--snapshot",
+                                  tmp / "metrics_last.json",
+                                  "--require-set", "serving")
+            rec["snapshot_valid"] = rc == 0
+            rc, tmsg = _check_file("check_trace.py",
+                                   tmp / "serve_trace.json", "--require",
+                                   "serve.request", "--require",
+                                   "score.fused")
+            rec["trace_valid"] = rc == 0
+            msg += "\n" + tmsg
+        log(f"cli {cmd} validators |", msg[-2000:])
+        out.append(rec)
+        if not (rec["ok"] and rec["snapshot_valid"]
+                and rec.get("trace_valid", True)):
+            log(f"cli {cmd} {artifact} stderr |", proc.stderr[-4000:])
+            fail.append(f"python -m repro_torch {cmd}: {rec}")
+    return out
+
+
+def serving_phase(dev, counted, x, checks):
+    """The "serving" phase (see the module docstring).  Raises on any
+    failure, after every part has run."""
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.api import Session, pipeline_config
+    from repro_torch.serve import (ServingScheduler, ServingSpec,
+                                   estimate_capacity, run_load)
+    t_phase = time.perf_counter()
+    fail = []
+    spec = ServingSpec(queue_bound=SERVING["queue_bound"],
+                       batch_window_ms=SERVING["batch_window_ms"],
+                       shed_policy=SERVING["shed_policy"])
+    cfg = pipeline_config(
+        dim=STREAM["d"], k=STREAM["k"], t=STREAM["t"], topology="stream",
+        leaf_size=STREAM["leaf_size"], refresh_every=SERVING["refresh_every"],
+        micro_batch=MICRO_BATCH, window=SERVING["window"], serving=spec,
+        seed=STREAM["seed"])
+    rng = np.random.default_rng(SERVING["query_seed"])
+    q = x[rng.integers(0, x.shape[0], SERVING["queries"])]
+    out = {"config": cfg.to_dict()}
+    with obs.using_registry(obs.MetricsRegistry()) as reg, \
+            tempfile.TemporaryDirectory(prefix="chip-smoke-serving-") as tmp:
+        tmp = Path(tmp)
+        sess = Session(cfg, device=dev)
+        sync(dev)
+        t0 = time.perf_counter()
+        counted("serving_fit", ("min_argmin", "lloyd_step"),
+                lambda: sess.fit(x))
+        sync(dev)
+        out["fit_s"] = time.perf_counter() - t0
+        want = sess.score(q[:SERVING["bitwise_rows"]])
+        conc, resubmits = counted("serving_concurrent", ("score",),
+                                  lambda: serving_concurrent(sess, q))
+        out["bitwise"] = serving_bitwise(sess, q, dev, want, conc,
+                                         resubmits, checks, fail)
+        log("serving bitwise", json.dumps(out["bitwise"]))
+        out["async_refresh"] = counted(
+            "serving_async_refresh", ("score", "min_argmin", "lloyd_step"),
+            lambda: serving_async_refresh(sess, x, q, fail))
+        log("serving async_refresh", json.dumps(out["async_refresh"]))
+
+        sched = sess.serve()
+        tally = _TickTally(sched)
+        capacity = estimate_capacity(sched, q,
+                                     duration_s=SERVING["capacity_s"])
+        probe = run_load(sched, q, offered_rps=capacity,
+                         clients=SERVING["clients"],
+                         duration_s=SERVING["capacity_s"], seed=17)
+        sustained = max(probe["goodput_rps"], 1.0)
+        out["capacity_rps_closed_loop"] = capacity
+        out["sustained_rps_probe"] = sustained
+        log("serving capacity", json.dumps(
+            {"closed_loop_rps": capacity, "sustained_rps": sustained}))
+        out["ladder_plane_on"] = counted(
+            "serving_ladder_plane_on", ("score",),
+            lambda: serving_ladder(sched, q, tally, sustained, "on"))
+        prev = (obs.set_metrics_enabled(False),
+                obs.set_tracing_enabled(False))
+        try:
+            out["ladder_plane_off"] = counted(
+                "serving_ladder_plane_off", ("score",),
+                lambda: serving_ladder(sched, q, tally, sustained, "off"))
+        finally:
+            obs.set_metrics_enabled(prev[0])
+            obs.set_tracing_enabled(prev[1])
+
+        # two tenants at 2x the sustained rate under a half-queue quota
+        fair_spec = ServingSpec(queue_bound=SERVING["queue_bound"],
+                                tenant_quota=SERVING["quota"],
+                                batch_window_ms=SERVING["batch_window_ms"],
+                                shed_policy="shed")
+        sess.close()     # one scheduler on the engine at a time
+        with ServingScheduler(sess.engine, fair_spec) as fair:
+            rep = run_load(fair, q, offered_rps=2.0 * sustained,
+                           clients=SERVING["clients"],
+                           duration_s=SERVING["rung_s"],
+                           tenants=("tenant-a", "tenant-b"), seed=31)
+        done = [v["completed"] for v in rep["per_tenant"].values()]
+        rep["completed_min_max_ratio"] = (min(done) / max(done)
+                                          if done and max(done) else 0.0)
+        out["fairness"] = rep
+        log("serving fairness", json.dumps(rep))
+
+        snap_path, trace_path = tmp / "snapshot.json", tmp / "trace.json"
+        snap_path.write_text(json.dumps(sess.stats()))
+        sess.dump_trace(trace_path)
+        rc, msg = _check_file("check_obs_snapshot.py", "--snapshot",
+                              snap_path, "--require-set", "serving")
+        log("serving snapshot |", msg[-2000:])
+        out["snapshot_valid"] = rc == 0
+        rc, msg = _check_file("check_trace.py", trace_path, "--require",
+                              "score.fused", "--require", "serve.request")
+        log("serving trace |", msg[-2000:])
+        out["trace_valid"] = rc == 0
+        out["trace"] = reg.recorder.snapshot_section()
+        if not (out["snapshot_valid"] and out["trace_valid"]):
+            fail.append("the serving snapshot or trace did not validate")
+        out["cli"] = serving_cli(tmp, fail)
+        log("serving cli", json.dumps(out["cli"]))
+    for rung in out["ladder_plane_on"] + out["ladder_plane_off"]:
+        if rung["completed"] <= 0 or rung["p99_ms"] is None:
+            fail.append(f"a ladder rung completed nothing: {rung}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"serving_s {out['phase_s']:.2f}")
+    if fail:
+        raise AssertionError(f"serving phase: {fail}")
     return out
 
 
@@ -3146,7 +3525,7 @@ def make_data(dev):
     return kdd_np, kdd_truth, kdd_x, gauss_np, gauss_truth, gauss_x, ks, gs
 
 
-MEASURES = ("serve", "lloyd_split", "lloyd_ladder")
+MEASURES = ("serve", "lloyd_split", "lloyd_ladder", "stream")
 
 
 def run_measure(dev: torch.device, card: str, phases) -> dict:
@@ -3188,6 +3567,48 @@ def run_measure(dev: torch.device, card: str, phases) -> dict:
                               for name, xwc in inputs.items()}
     if "lloyd_ladder" in phases:
         out["lloyd_ladder"] = lloyd_ladder(dev, inputs)
+    if "stream" in phases:
+        out["stream"] = stream_measure(dev)
+        log("stream", json.dumps(out["stream"]))
+    return out
+
+
+def stream_measure(dev) -> dict:
+    """The stream deployment's readings through ``StreamService``'s entry
+    points alone (so any tree of the port runs it): ingest rows/s resident
+    and under ``StoreSpec(hot_levels=1)``, then 400 micro-batches of 256
+    through submit + drain on the resident service (p50 / p99 ms)."""
+    import tempfile
+    from repro_torch.data.synthetic import gauss
+    from repro_torch.kernels.dispatch import KernelPolicy
+    from repro_torch.store import StoreSpec
+    from repro_torch.stream import StreamService
+    x, _ = gauss(n_centers=STREAM["n_centers"],
+                 per_center=STREAM["per_center"], d=STREAM["d"],
+                 sigma=STREAM["sigma"], t=STREAM["t"], seed=STREAM["seed"])
+    n, auto = x.shape[0], KernelPolicy()
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-measure-") as tmp:
+        for label, over in (("resident", {}), ("tiered", {"store": StoreSpec(
+                hot_levels=1, directory=str(Path(tmp) / "spill"))})):
+            svc = StreamService(stream_config(n, STREAM["t"], auto, **over),
+                                device=dev)
+            wall, _ = stream_ingest(svc, x)
+            out[f"ingest_rows_per_s_{label}"] = n / wall
+            if label == "resident":
+                rng = np.random.default_rng(3)
+                lat = []
+                for _ in range(SERVE_BATCHES):
+                    q = x[rng.integers(0, n, MICRO_BATCH)]
+                    t0 = time.perf_counter()
+                    svc.submit(q)
+                    svc.drain()
+                    lat.append(time.perf_counter() - t0)
+                lat_ms = np.asarray(lat) * 1e3
+                out["batch_p50_ms"] = float(np.percentile(lat_ms, 50))
+                out["batch_p99_ms"] = float(np.percentile(lat_ms, 99))
+            elif svc.tree.store is not None:
+                svc.tree.store.close()
     return out
 
 
@@ -3353,6 +3774,10 @@ def run(dev: torch.device, card: str) -> dict:
     # ---- 3e. the front door (the "session" phase)
     session_out = session_phase(dev, counted, kdd_np, kdd_truth, kdd_x,
                                 resident)
+
+    # ---- 3g. the serving scheduler under concurrent clients, the
+    # telemetry plane on and off (the "serving" phase)
+    serving_out = serving_phase(dev, counted, resident["x"], checks)
     del resident
 
     # ---- 3f. the one round of communication (the "sharded" phase): its
@@ -3398,6 +3823,7 @@ def run(dev: torch.device, card: str) -> dict:
               "rwkv6_serving": rwkv_out,
               "kernel_vs_blocked": cmp, "head_to_head": h2h,
               "stream": stream_out, "session": session_out,
+              "serving": serving_out,
               "sharded": sharded_out,
               "h2h_budget_per_site": b, "timings": timings,
               "route_ladder": ladder,

@@ -39,15 +39,61 @@ def resolve_device(device="cuda") -> torch.device:
 
 # after resolve_device: the modules below import it from here
 from repro_torch.api import (  # noqa: E402
-    OneshotEngine, PARTITIONS, PipelineConfig, ProblemSpec, SITE_BUDGETS,
-    Session, ServingSpec, StoreSpec, TOPOLOGIES, TieredStore, TopologySpec,
-    TraceSpec, pipeline_config, register_config_migration,
+    PipelineConfig, ProblemSpec, Session, TOPOLOGIES, TopologySpec,
+    pipeline_config, register_config_migration,
+)
+from repro_torch.store import StoreSpec, TieredStore  # noqa: E402
+from repro_torch.kernels.dispatch import (  # noqa: E402
+    KernelPolicy, get_default_policy, set_default_policy, using_policy,
+)
+from repro_torch.summarize import (  # noqa: E402
+    SummarizerPolicy, get_default_summarizer, registered_summarizers,
+    set_default_summarizer, summarizer_policy, using_summarizer,
+)
+from repro_torch.core import (  # noqa: E402
+    DistClusterResult, augmented_summary_outliers, distributed_cluster,
+    kmeans_minus_minus, simulate_coordinator, summary_outliers,
+)
+from repro_torch.stream import (  # noqa: E402
+    BaseServiceConfig, ModelState, QueryResult, ServiceConfig,
+    ShardedServiceConfig, ShardedStreamService, StreamService, StreamTree,
+    TreeConfig, WeightedSummary, weighted_summary_outliers,
+)
+from repro_torch.serve import (  # noqa: E402
+    ScoreTicket, ServingScheduler, ServingSpec, ShedReject,
+)
+from repro_torch.checkpoint.manager import CheckpointManager  # noqa: E402
+from repro_torch.obs import (  # noqa: E402
+    Alert, FlightRecorder, MetricsRegistry, TraceSpec, apply_trace_spec,
+    configure_tracing, dump_trace, render_prometheus, set_metrics_enabled,
+    set_tracing_enabled, using_registry,
 )
 
+# the reference's public surface (``repro.__all__``), name for name
 __all__ = [
-    "resolve_device",
+    # config + session
     "PipelineConfig", "ProblemSpec", "TopologySpec", "TOPOLOGIES",
-    "PARTITIONS", "SITE_BUDGETS", "pipeline_config",
-    "register_config_migration", "Session", "OneshotEngine",
-    "StoreSpec", "TieredStore", "TraceSpec", "ServingSpec",
+    "pipeline_config", "Session", "register_config_migration",
+    # tiered summary store
+    "StoreSpec", "TieredStore",
+    # policies
+    "KernelPolicy", "get_default_policy", "set_default_policy",
+    "using_policy",
+    "SummarizerPolicy", "get_default_summarizer", "set_default_summarizer",
+    "summarizer_policy", "using_summarizer", "registered_summarizers",
+    # summaries + algorithms
+    "summary_outliers", "augmented_summary_outliers",
+    "weighted_summary_outliers", "WeightedSummary", "StreamTree",
+    "TreeConfig", "kmeans_minus_minus", "distributed_cluster",
+    "simulate_coordinator", "DistClusterResult",
+    # serving + persistence
+    "BaseServiceConfig", "ServiceConfig", "ShardedServiceConfig",
+    "StreamService", "ShardedStreamService", "ModelState", "QueryResult",
+    "ServingSpec", "ServingScheduler", "ScoreTicket", "ShedReject",
+    "CheckpointManager",
+    # observability
+    "MetricsRegistry", "render_prometheus", "set_metrics_enabled",
+    "using_registry",
+    "Alert", "FlightRecorder", "TraceSpec", "apply_trace_spec",
+    "configure_tracing", "dump_trace", "set_tracing_enabled",
 ]

@@ -22,18 +22,28 @@ plain torch path):
 
 * ``run``         — fit the pipeline on the data, report model / comm /
                     outlier quality, optionally ``--save`` the session;
-* ``serve``       — stream the data in batches through a stream session
-                    (cadence refreshes), score sample queries, report
-                    latency, optionally ``--checkpoint``; configs with a
-                    ``store`` section additionally report tiered spill /
-                    page-in and skipped-refresh activity;
+* ``serve``       — stream the data in batches through a stream/sharded
+                    session (cadence refreshes), score sample queries,
+                    report latency, optionally ``--checkpoint``; with
+                    ``--clients N`` it then saturates the async serving
+                    scheduler (``repro_torch.serve``) with N open-loop
+                    client threads and reports goodput / shed rate / p99;
+                    configs with a ``store`` section additionally report
+                    tiered spill / page-in and skipped-refresh activity;
 * ``bench-score`` — fit, then measure the query path (p50/p99 latency and
-                    throughput over ``--repeat`` rounds of ``--queries``).
+                    throughput over ``--repeat`` rounds of ``--queries``);
+* ``stats``       — fit + score like ``run``, then emit the full metrics
+                    snapshot (``repro_torch.obs``) as JSON or Prometheus
+                    text;
+* ``trace``       — fit + score through the *async serving* path, then
+                    export the flight recorder as Chrome trace-event JSON
+                    (Perfetto / ``chrome://tracing``) or JSON-lines.
 
-Not ported yet (ROADMAP.md, queue 4): ``stats``, ``trace`` and ``serve``'s
-``--clients``, ``--metrics-interval`` and ``--trace-out`` need the
-telemetry plane and the async serving scheduler.  They are still parsed,
-and exit with a message that says so.
+``serve --trace-out FILE`` dumps the same Chrome trace after streaming.
+
+``serve --metrics-interval N`` additionally emits the live snapshot as one
+JSON line every ~N seconds while streaming (``--metrics-out`` to redirect
+the lines to a file; default stdout).
 """
 from __future__ import annotations
 
@@ -45,12 +55,12 @@ from pathlib import Path
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.api.config import PipelineConfig
 from repro_torch.api.session import Session
+from repro_torch.serve import ShedReject, estimate_capacity, run_load
 
 _DATA_KINDS = ("gauss", "drifting_gauss", "kdd_like", "susy_like")
-QUEUE4_TODO = ("needs the telemetry plane and the async serving scheduler, "
-               "which are not ported yet (ROADMAP.md, queue 4)")
 
 
 def load_config_file(path) -> tuple[PipelineConfig, dict]:
@@ -176,14 +186,44 @@ def cmd_run(args) -> None:
     print("ok")
 
 
+class _MetricsEmitter:
+    """Periodic JSON-lines snapshots: one ``json.dumps(session.stats())``
+    line per ~interval seconds, checked at batch boundaries (the serve
+    loop is synchronous).  ``interval=None`` disables; path "-" = stdout."""
+
+    def __init__(self, interval, path):
+        self.interval = interval
+        self._fh = None
+        self._last = time.perf_counter()
+        if interval is not None and path not in (None, "-"):
+            self._fh = open(path, "a")
+
+    def emit(self, session, *, force: bool = False) -> None:
+        if self.interval is None:
+            return
+        now = time.perf_counter()
+        if not force and now - self._last < self.interval:
+            return
+        self._last = now
+        line = json.dumps({"ts": time.time(), **session.stats()},
+                          sort_keys=True)
+        print(line, file=self._fh or sys.stdout, flush=True)
+
+    def close(self) -> None:
+        if self._fh is not None:
+            self._fh.close()
+
+
 def _report_store(session) -> None:
     """One line of tiered-store + incremental-refresh activity, printed
     only when the config has a store section (quiet otherwise)."""
     if session.config.store is None:
         return
-    # the service's own tallies stand in for the reference's obs counters
-    skipped = session.engine.skipped_refreshes
-    warm = session.engine.warm_starts
+    counters = session.stats().get("counters", {})
+    skipped = sum(v for k, v in counters.items()
+                  if k.startswith("refresh.skipped{"))
+    warm = sum(v for k, v in counters.items()
+               if k.startswith("refresh.warm_starts{"))
     st = session.store_stats()
     if st is not None:
         print(f"  store: {st['spills']} spills "
@@ -201,6 +241,7 @@ def cmd_serve(args) -> None:
                          "use `run` for oneshot configs")
     x, out_ids = make_data(pipeline, data_spec)
     session = Session(pipeline, device=args.device)
+    emitter = _MetricsEmitter(args.metrics_interval, args.metrics_out)
     n = x.shape[0]
     print(f"serving {pipeline.topology.kind} topology: streaming {n} points "
           f"in batches of {args.batch} "
@@ -208,6 +249,7 @@ def cmd_serve(args) -> None:
     t0 = time.perf_counter()
     for i in range(0, n, args.batch):
         session.ingest(x[i:i + args.batch])
+        emitter.emit(session)
     if session.model is None or not session.model.version:
         session.refresh()
     ingest_s = time.perf_counter() - t0
@@ -219,6 +261,9 @@ def cmd_serve(args) -> None:
     print(f"  query latency: p50 {stats['p50_ms']:.2f} ms, "
           f"p99 {stats['p99_ms']:.2f} ms over {stats['count']} requests")
     _report_store(session)
+    if args.clients:
+        _serve_load_phase(session, x, args)
+        emitter.emit(session)
     if session.last_fit is not None:
         print(f"  last refresh: v{session.last_fit.version} fit in "
               f"{session.last_fit.fit_s * 1e3:.1f} ms on "
@@ -228,7 +273,43 @@ def cmd_serve(args) -> None:
         step = session.save(args.checkpoint)
         print(f"checkpointed to {args.checkpoint} @ step {step}; "
               f"Session.load() restores topology + policies from it alone")
+    if args.trace_out:
+        path = session.dump_trace(args.trace_out)
+        print(f"wrote Chrome trace to {path} "
+              f"(load in Perfetto or chrome://tracing)")
+    # final snapshot after everything (incl. checkpoint metrics) happened
+    emitter.emit(session, force=True)
+    emitter.close()
     print("ok")
+
+
+def _serve_load_phase(session, x, args) -> None:
+    """``serve --clients N``: saturate the async scheduler with an
+    open-loop multi-client load phase and report goodput / shed / p99."""
+    sched = session.serve()
+    spec = sched.spec
+    rng = np.random.default_rng(session.config.seed + 7)
+    queries = x[rng.choice(x.shape[0], size=min(4096, x.shape[0]),
+                           replace=False)]
+    offered = args.offered_rps
+    if offered is None:
+        cap = estimate_capacity(sched, queries, duration_s=0.3)
+        offered = 1.5 * cap   # past saturation: show admission control work
+        print(f"  load: capacity ~{cap:.0f} rows/s (closed-loop); "
+              f"offering 1.5x = {offered:.0f} rows/s")
+    print(f"  load: {args.clients} clients, {args.load_seconds}s, "
+          f"queue_bound={spec.queue_bound} shed_policy={spec.shed_policy} "
+          f"batch_window={spec.batch_window_ms}ms")
+    rep = run_load(sched, queries, offered_rps=offered,
+                   clients=args.clients, duration_s=args.load_seconds,
+                   seed=session.config.seed)
+    print(f"  load: offered {rep['offered_rps']:.0f} rows/s -> goodput "
+          f"{rep['goodput_rps']:.0f} rows/s, shed rate "
+          f"{rep['shed_rate']:.1%} ({rep['shed']}/{rep['submitted']})")
+    if rep["p99_ms"] is not None:
+        print(f"  load: completed-request latency p50 {rep['p50_ms']:.2f} ms"
+              f", p99 {rep['p99_ms']:.2f} ms")
+    session.close()
 
 
 def cmd_bench_score(args) -> None:
@@ -258,8 +339,53 @@ def cmd_bench_score(args) -> None:
     print("ok")
 
 
-def cmd_not_ported(args) -> None:
-    raise SystemExit(f"python -m repro_torch {args.cmd}: {QUEUE4_TODO}")
+def cmd_stats(args) -> None:
+    """Exercise the pipeline end to end, then emit the telemetry snapshot
+    — the quickest way to see every metric the layers report."""
+    pipeline, data_spec = load_config_file(args.config)
+    x, out_ids = make_data(pipeline, data_spec)
+    session = Session(pipeline, device=args.device)
+    session.fit(x)
+    q, _ = _sample_queries(x, out_ids, args.queries, pipeline.seed)
+    session.score(q)
+    snap = session.stats()
+    if args.format == "prom":
+        out = obs.render_prometheus(snap)
+    else:
+        out = json.dumps(snap, indent=2, sort_keys=True) + "\n"
+    if args.out in (None, "-"):
+        sys.stdout.write(out)
+    else:
+        Path(args.out).write_text(out)
+        print(f"wrote {args.format} snapshot to {args.out}")
+
+
+def cmd_trace(args) -> None:
+    """Exercise the pipeline end to end *through the async serving
+    scheduler*, then export the flight recorder — the quickest way to a
+    Perfetto-loadable timeline of ingest -> refresh -> stitched serve
+    requests (admission / queue wait / tick / fused score / drain)."""
+    pipeline, data_spec = load_config_file(args.config)
+    x, out_ids = make_data(pipeline, data_spec)
+    session = Session(pipeline, device=args.device)
+    if args.sample_rate is not None:
+        # CLI override wins over the artifact's tracing section
+        obs.configure_tracing(sample_rate=args.sample_rate)
+    session.fit(x)
+    q, truth = _sample_queries(x, out_ids, args.queries, pipeline.seed)
+    results = list(session.score_stream(q, timeout=120.0))
+    session.close()
+    scored = [r for r in results if not isinstance(r, ShedReject)]
+    _report_scores(scored, truth if len(scored) == len(results) else None)
+    stats = obs.get_default_recorder().snapshot_section()
+    print(f"  flight recorder: {stats['recorded']} spans across "
+          f"{stats['traces']} traces (sample_rate={stats['sample_rate']}, "
+          f"dropped={stats['dropped']})")
+    path = session.dump_trace(args.out, fmt=args.format)
+    print(f"wrote {args.format} trace to {path}"
+          + (" (load in Perfetto or chrome://tracing)"
+             if args.format == "chrome" else ""))
+    print("ok")
 
 
 def main(argv=None) -> None:
@@ -321,7 +447,7 @@ def main(argv=None) -> None:
 
     p_st = sub.add_parser("stats",
                           help="fit + score a config, then emit the full "
-                               "repro.obs metrics snapshot")
+                               "repro_torch.obs metrics snapshot")
     p_st.add_argument("--config", required=True)
     p_st.add_argument("--queries", type=int, default=64,
                       help="sample queries to score before the snapshot")
@@ -330,7 +456,9 @@ def main(argv=None) -> None:
                            "exposition text)")
     p_st.add_argument("--out", default="-",
                       help="file path, or '-' for stdout")
-    p_st.set_defaults(fn=cmd_not_ported)
+    p_st.add_argument("--device", default="cuda",
+                      help="torch device to run on (cuda, cpu)")
+    p_st.set_defaults(fn=cmd_stats)
 
     p_tr = sub.add_parser("trace",
                           help="fit + score a config through the async "
@@ -346,17 +474,11 @@ def main(argv=None) -> None:
                            "config's tracing section, else 1.0)")
     p_tr.add_argument("--out", default="trace.json",
                       help="output file path")
-    p_tr.set_defaults(fn=cmd_not_ported)
+    p_tr.add_argument("--device", default="cuda",
+                      help="torch device to run on (cuda, cpu)")
+    p_tr.set_defaults(fn=cmd_trace)
 
     args = ap.parse_args(argv)
-    if args.cmd == "serve":
-        given = [flag for flag, on in (
-            ("--clients", args.clients > 0),
-            ("--metrics-interval", args.metrics_interval is not None),
-            ("--trace-out", args.trace_out is not None)) if on]
-        if given:
-            raise SystemExit(f"python -m repro_torch serve "
-                             f"{' '.join(given)}: {QUEUE4_TODO}")
     args.fn(args)
 
 

@@ -18,12 +18,13 @@ construction as the reference validates it (the same rules, the same
 messages, the ``sharded`` kind and ``use_shard_map`` included), with an
 exact ``to_dict`` / ``from_dict`` / JSON round-trip, so an artifact valid in
 one package is valid in the other, and ``to_json()`` is the reference's
-image byte for byte for any config whose kernel backend is not ``cuda``.
+image byte for byte for every config.
 
 **Backend names.** The port's kernels are the Pallas kernels' counterparts,
-so ``_kernels_from`` reads an artifact's ``"pallas"`` backend as ``"cuda"``;
-a ``KernelPolicy(backend="pallas")`` built in code still raises.  An
-artifact the port writes with ``"cuda"`` does not load in the reference.
+so ``_kernels_from`` reads an artifact's ``"pallas"`` backend as ``"cuda"``
+and ``to_dict`` writes ``"cuda"`` back as ``"pallas"``: an artifact either
+package writes loads in the other.  A ``KernelPolicy(backend="pallas")``
+built in code still raises.
 
 The stream layers' configs are *derived views*: :meth:`service_config`
 projects a ``PipelineConfig`` onto ``repro_torch.stream.ServiceConfig``,
@@ -256,7 +257,8 @@ class PipelineConfig:
                 "name": self.summarizer.name,
                 "params": [[k, v] for k, v in self.summarizer.params],
             },
-            "kernels": dataclasses.asdict(self.kernels),
+            "kernels": {**dataclasses.asdict(self.kernels),
+                        "backend": _backend_to(self.kernels.backend)},
             "second_iters": self.second_iters,
             "seed": self.seed,
         }
@@ -427,6 +429,11 @@ def _backend_from(name):
     # an artifact's "pallas" names the TPU kernels; the port's counterparts
     # are the "cuda" kernels
     return "cuda" if name == "pallas" else name
+
+
+def _backend_to(name):
+    # the inverse of _backend_from, for the artifact the port writes
+    return "pallas" if name == "cuda" else name
 
 
 def _kernels_from(d) -> Optional[KernelPolicy]:

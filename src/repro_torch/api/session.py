@@ -37,25 +37,27 @@ rank of an initialized ``torch.distributed`` group of ``sites`` ranks
 on the same rows, and ``distributed_cluster`` copies only the rank's own
 block to its device.
 
-Not ported yet, and raising ``NotImplementedError`` that names the queue
-(ROADMAP.md): the async serving scheduler behind ``serve`` /
-``score_stream`` / ``submit_stream``, the telemetry behind ``stats`` /
-``dump_trace``, and the flight recorder a config's ``tracing`` section
-configures (queue 4; ``Session`` refuses such a config rather than let
-the section be silently inert).  ``close()`` and the context manager are
-no-ops while no scheduler can be attached.  Entry points take
-``device=`` and default to ``"cuda"``.
+Serving under concurrent clients: ``serve()`` attaches the
+continuous-batching scheduler (``repro_torch.serve.ServingScheduler``,
+configured by ``config.serving``); ``score_stream`` / ``submit_stream``
+admit rows from any thread, and once a scheduler is attached the
+synchronous verbs take its ``engine_lock``.  ``stats()`` is the process
+metrics snapshot and ``dump_trace`` writes the flight recorder
+(``repro_torch.obs``); a config's ``tracing`` section configures that
+recorder.  Entry points take ``device=`` and default to ``"cuda"``.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable, Optional
+import threading
+from typing import Callable, Iterator, Optional, Union
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.api.config import PipelineConfig
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.collective import sites_group
@@ -63,18 +65,15 @@ from repro_torch.core.distributed import (distributed_cluster,
                                           simulate_coordinator)
 from repro_torch.core.sampler import Sampler, TorchSampler
 from repro_torch.kernels.pdist.ops import min_argmin
-from repro_torch.stream.service import (ModelState, ServiceConfig,
-                                        ServingFrontEnd, StreamService)
+from repro_torch.serve.scheduler import (ScoreTicket, ServingScheduler,
+                                         ShedReject)
+from repro_torch.stream.service import (ModelState, QueryResult,
+                                        ServiceConfig, ServingFrontEnd,
+                                        StreamService)
 from repro_torch.stream.sharded import ShardedStreamService
 
 RESULT_KEYS = ("centers", "outlier_ids", "summary_ids", "summary_weights",
                "comm_records", "cost")
-
-SERVING_TODO = ("the async serving scheduler (ServingScheduler, "
-                "score_stream) is not ported yet (ROADMAP.md, queue 4)")
-OBS_TODO = ("the telemetry plane (repro.obs: metrics snapshot, flight "
-            "recorder, trace export) is not ported yet (ROADMAP.md, "
-            "queue 4)")
 
 
 class OneshotEngine(ServingFrontEnd):
@@ -88,6 +87,8 @@ class OneshotEngine(ServingFrontEnd):
     ids, summary ids and weights, communication, cost) stays available as
     ``.result``.
     """
+
+    _topology = "oneshot"
 
     def __init__(self, pipeline: PipelineConfig, *, device="cuda",
                  sampler: Optional[Sampler] = None):
@@ -314,11 +315,13 @@ class Session:
 
     def __init__(self, config: PipelineConfig, *, device="cuda",
                  sampler: Optional[Sampler] = None, _engine=None):
-        if config.tracing is not None:
-            raise NotImplementedError(
-                f"config.tracing is set, but {OBS_TODO}; drop the tracing "
-                f"section to run without a flight recorder")
         self.config = config
+        self._serving: Optional[ServingScheduler] = None
+        self._attach_lock = threading.Lock()
+        if config.tracing is not None:
+            # pin the process flight recorder to the artifact's knobs
+            # (sampling, ring, seed) before the engine captures handles
+            obs.apply_trace_spec(config.tracing)
         if _engine is not None:
             self.engine = _engine
         elif config.topology.kind == "stream":
@@ -332,22 +335,55 @@ class Session:
                                         sampler=sampler)
 
     # ------------------------------------------------------------ serving
-    def serve(self):
-        """Attach the async serving scheduler: not ported yet."""
-        raise NotImplementedError(SERVING_TODO)
+    @property
+    def serving(self) -> Optional[ServingScheduler]:
+        """The attached async scheduler — None until the first
+        :meth:`score_stream` call (or explicit :meth:`serve`)."""
+        return self._serving
+
+    def serve(self) -> ServingScheduler:
+        """Attach (and return) the continuous-batching scheduler for this
+        session's engine, configured by ``config.serving`` (defaults apply
+        when the config has no serving section).  Idempotent; once a
+        scheduler is attached, the synchronous verbs route through its
+        ``engine_lock`` so direct ``score``/``refresh`` calls and worker
+        ticks never interleave on the engine.  Safe to race: concurrent
+        first callers attach exactly one scheduler."""
+        if self._serving is None:
+            with self._attach_lock:
+                if self._serving is None:
+                    self._serving = ServingScheduler(self.engine,
+                                                     self.config.serving)
+        return self._serving
 
     def score_stream(self, queries, *, tenant: str = "default",
-                     timeout: Optional[float] = None):
-        """Score rows through the async serving path: not ported yet."""
-        raise NotImplementedError(SERVING_TODO)
+                     timeout: Optional[float] = None,
+                     ) -> Iterator[Union[QueryResult, ShedReject]]:
+        """Score rows through the async serving path.
 
-    def submit_stream(self, queries, *, tenant: str = "default"):
-        """Submit rows to the async serving path: not ported yet."""
-        raise NotImplementedError(SERVING_TODO)
+        Rows are admitted (and possibly shed) *now*, on the caller's
+        thread — many threads calling ``score_stream`` concurrently share
+        one scheduler, and their rows coalesce into common worker ticks.
+        Returns an iterator yielding, per row in order, the engine's
+        ``QueryResult`` or a typed :class:`ShedReject`; iterate to block
+        on completion.  Scores are bit-identical to :meth:`score`.
+        """
+        tickets = self.serve().submit(queries, tenant=tenant)
+        return (t.result(timeout) for t in tickets)
+
+    def submit_stream(self, queries, *, tenant: str = "default",
+                      ) -> "list[ScoreTicket]":
+        """Like :meth:`score_stream` but returns the raw tickets, for
+        callers that want ``done()`` polling or per-ticket latency."""
+        return self.serve().submit(queries, tenant=tenant)
 
     def close(self) -> None:
-        """Stop the serving scheduler, if one is attached — none can be
-        until the scheduler is ported, so this is a no-op."""
+        """Drain and stop the serving scheduler, if one is attached.
+        The session's synchronous verbs keep working afterwards."""
+        with self._attach_lock:
+            serving, self._serving = self._serving, None
+        if serving is not None:
+            serving.close()
 
     def __enter__(self) -> "Session":
         return self
@@ -356,33 +392,45 @@ class Session:
         self.close()
         return False
 
+    def _engine_guard(self):
+        """The scheduler's engine lock when serving is attached (direct
+        verbs must not interleave with worker ticks), else a no-op."""
+        if self._serving is not None:
+            return self._serving.engine_lock
+        return contextlib.nullcontext()
+
     # ------------------------------------------------------------ verbs
     def ingest(self, points, weights=None, *, site: int | None = None) -> None:
         """Feed raw points.  ``site=`` pins a batch to one site (sharded
         topology only — elsewhere routing is not a concept)."""
         if site is None:
-            self.engine.ingest(points, weights)
+            with self._engine_guard():
+                self.engine.ingest(points, weights)
         elif self.config.topology.kind != "sharded":
             raise ValueError(
                 f"site= routing needs topology.kind='sharded', this "
                 f"session is {self.config.topology.kind!r}")
         else:
-            self.engine.ingest(points, weights, site=site)
+            with self._engine_guard():
+                self.engine.ingest(points, weights, site=site)
 
     def refresh(self, *, blocking: bool = True) -> Optional[ModelState]:
         """(Re)fit the serving model on everything ingested so far."""
-        return self.engine.refresh(blocking=blocking)
+        with self._engine_guard():
+            return self.engine.refresh(blocking=blocking)
 
     def fit(self, points=None, weights=None) -> ModelState:
         """``ingest`` (optional) + blocking ``refresh`` in one call."""
         if points is not None:
             self.ingest(points, weights)
-        return self.engine.refresh(blocking=True)
+        with self._engine_guard():
+            return self.engine.refresh(blocking=True)
 
     def score(self, queries) -> list:
         """Score query rows against the current model; returns the same
         ``QueryResult`` records every topology's read path produces."""
-        return self.engine.score(queries)
+        with self._engine_guard():
+            return self.engine.score(queries)
 
     def latency_stats(self) -> dict:
         return self.engine.latency_stats()
@@ -391,7 +439,8 @@ class Session:
         """The tiered store's movement tallies summed over this session's
         trees — ``{"spills", "page_ins", "spill_bytes", "page_in_bytes"}``
         — or None when the config has no tiered store (oneshot topology, no
-        ``store`` section, or an untiered spec)."""
+        ``store`` section, or an untiered spec).  Per-series detail lives
+        in :meth:`stats` under ``store.*``."""
         if hasattr(self.engine, "tree"):
             trees = [self.engine.tree]
         else:
@@ -406,12 +455,29 @@ class Session:
         return totals
 
     def stats(self) -> dict:
-        """The process metrics snapshot: not ported yet."""
-        raise NotImplementedError(OBS_TODO)
+        """The process metrics snapshot (``repro_torch.obs``): one plain
+        dict of every counter, gauge and latency/phase histogram the layers
+        under this session reported — serve latency, ingest/refresh/score
+        phase timings, tree activity, comm records+bytes per site,
+        kernel-backend dispatch counts, checkpoint durations.
+        JSON-serializable as-is; render for Prometheus with
+        ``repro_torch.obs.render_prometheus``.
+
+        The snapshot is process-wide by design (one registry, like any
+        exporter) — two sessions of the same topology share series.
+        """
+        return obs.snapshot()
 
     def dump_trace(self, path, fmt: str = "chrome"):
-        """Write the flight recorder's spans: not ported yet."""
-        raise NotImplementedError(OBS_TODO)
+        """Write the flight recorder's buffered spans to ``path``.
+
+        ``fmt="chrome"`` (default) writes Chrome trace-event JSON — load
+        it in Perfetto or ``chrome://tracing`` to see each request/refresh
+        as one stitched timeline.  ``fmt="jsonl"`` writes one JSON record
+        per span/event.  Returns the path written.  The recorder is
+        process-wide, like :meth:`stats`.
+        """
+        return obs.dump_trace(path, fmt=fmt)
 
     @property
     def last_fit(self):
@@ -442,9 +508,10 @@ class Session:
         if step is None:
             latest = manager.latest_step()
             step = (latest + 1) if latest is not None else 1
-        self.engine.save(
-            manager, step, blocking=blocking,
-            extra_meta={"pipeline_config": self.config.to_dict()})
+        with self._engine_guard():
+            self.engine.save(
+                manager, step, blocking=blocking,
+                extra_meta={"pipeline_config": self.config.to_dict()})
         return step
 
     @classmethod

@@ -24,9 +24,10 @@ device); ``None`` holds no leaf.  :func:`flatten` orders the leaves as
 ``jax.tree_util.tree_flatten`` does: dict keys sorted, sequences in order.
 ``restore`` returns numpy leaves, or tensors on the ``device=`` the caller
 names.  The reference's ``shardings=`` argument (cross-mesh placement with
-``jax.device_put``) has no meaning in the port and is left out.  The
-reference's telemetry (``obs`` spans and counters) is not ported yet
-(ROADMAP.md, queue 1 item 4).
+``jax.device_put``) has no meaning in the port and is left out.
+Telemetry is the reference's: the ``checkpoint.save`` / ``.restore`` spans
+and the ``checkpoint.saves`` / ``.restores`` / ``.bytes_written`` /
+``.bytes_read`` counters.
 """
 from __future__ import annotations
 
@@ -40,6 +41,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from repro_torch import obs
 
 
 def _is_namedtuple(x) -> bool:
@@ -123,17 +126,26 @@ class CheckpointManager:
         treedef = repr(unflatten(tree, ["*"] * len(host_leaves)))
         self.wait()
 
+        def _write():
+            # runs on the writer thread for async saves — the registry is
+            # mutation-thread-safe, so recording from here is fine
+            with obs.trace("checkpoint.save"):
+                self._do_write(step, treedef, meta, host_leaves)
+            obs.counter("checkpoint.saves").inc()
+            obs.counter("checkpoint.bytes_written").inc(
+                sum(arr.nbytes for arr in host_leaves))
+
         def _write_guarded():
             # an exception on the daemon writer thread would otherwise die
             # silently; park it for the next wait()/save()/restore() to
             # re-raise on a caller thread
             try:
-                self._do_write(step, treedef, meta, host_leaves)
+                _write()
             except BaseException as e:
                 self._error = e
 
         if blocking:
-            self._do_write(step, treedef, meta, host_leaves)
+            _write()
         else:
             self._thread = threading.Thread(target=_write_guarded, daemon=True)
             self._thread.start()
@@ -215,23 +227,28 @@ class CheckpointManager:
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.root}")
         d = self.root / f"step_{step:09d}"
-        manifest = json.loads((d / "manifest.json").read_text())
-        leaves_like = flatten(tree_like)
-        if len(manifest["leaves"]) != len(leaves_like):
-            raise ValueError(
-                f"checkpoint has {len(manifest['leaves'])} leaves, "
-                f"expected {len(leaves_like)}")
-        out = []
-        for meta, like in zip(manifest["leaves"], leaves_like):
-            arr = np.load(d / meta["file"])
-            if verify and zlib.crc32(
-                    np.ascontiguousarray(arr).tobytes()) != meta["crc32"]:
-                raise IOError(
-                    f"crc mismatch in {meta['file']} (step {step})")
-            if tuple(arr.shape) != _shape(like):
+        with obs.trace("checkpoint.restore"):
+            manifest = json.loads((d / "manifest.json").read_text())
+            leaves_like = flatten(tree_like)
+            if len(manifest["leaves"]) != len(leaves_like):
                 raise ValueError(
-                    f"shape mismatch {arr.shape} vs {_shape(like)}")
-            arr = arr.astype(_numpy_dtype(like))
-            out.append(arr if device is None
-                       else torch.as_tensor(arr, device=device))
+                    f"checkpoint has {len(manifest['leaves'])} leaves, "
+                    f"expected {len(leaves_like)}")
+            out = []
+            read = 0
+            for meta, like in zip(manifest["leaves"], leaves_like):
+                arr = np.load(d / meta["file"])
+                read += arr.nbytes
+                if verify and zlib.crc32(
+                        np.ascontiguousarray(arr).tobytes()) != meta["crc32"]:
+                    raise IOError(
+                        f"crc mismatch in {meta['file']} (step {step})")
+                if tuple(arr.shape) != _shape(like):
+                    raise ValueError(
+                        f"shape mismatch {arr.shape} vs {_shape(like)}")
+                arr = arr.astype(_numpy_dtype(like))
+                out.append(arr if device is None
+                           else torch.as_tensor(arr, device=device))
+        obs.counter("checkpoint.restores").inc()
+        obs.counter("checkpoint.bytes_read").inc(read)
         return unflatten(tree_like, out), step

@@ -21,6 +21,11 @@ Partition modes: ``random`` uses the paper's local budget t_i = 2t/s
 registry per site: through its fixed-shape site path in
 ``distributed_cluster``, through its weighted entry point (unit weights)
 in ``simulate_coordinator``.
+
+Both paths report their one round through ``obs.record_comm`` (valid
+records and padded bytes per site; ``path="host-sim"`` or
+``"shard_map"``), and ``simulate_coordinator`` traces its site summaries
+and second level (``oneshot.site_summary``, ``oneshot.second_level``).
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core.augmented import augmented_summary_outliers
 from repro_torch.core.collective import gather_sites, replicated_coordinator
 from repro_torch.core.kmeans_mm import kmeans_minus_minus
@@ -146,7 +151,7 @@ def distributed_cluster(
     legacy ``summary_alg`` string to the registry's ``paper`` entry.
     """
     dev = resolve_device(device)
-    s, n_per, _ = x_parts.shape
+    s, n_per, d = x_parts.shape
     t_i = local_budget(t, s, partition)
     summarize_site = _site_summarizer(summarizer, summary_alg,
                                       metric=metric, k=k, t=t_i)
@@ -178,8 +183,18 @@ def distributed_cluster(
             phase_s={"site_summary": t1 - t0, "gather": t2 - t1,
                      "second_level": t3 - t2})
 
-    return replicated_coordinator(per_site, group, n_sharded=1)(x_parts,
-                                                                 sampler)
+    res = replicated_coordinator(per_site, group, n_sharded=1)(x_parts,
+                                                                sampler)
+    # comm accounting happens post-hoc on the host (the gather itself ran
+    # inside the collective): valid records per site from the id blocks,
+    # padded bytes from the per-site slice of the gathered payload
+    if obs.get_default_registry().enabled:
+        gids_h = res.summary_ids.cpu().numpy().reshape(s, -1)
+        cap = gids_h.shape[1]
+        per_rec = [int((gids_h[i] >= 0).sum()) for i in range(s)]
+        site_bytes = cap * (4 * d + 4 + 1 + 4)   # pts + w + valid + gid
+        obs.record_comm(per_rec, [site_bytes] * s, path="shard_map")
+    return res
 
 
 def simulate_coordinator(
@@ -225,36 +240,44 @@ def simulate_coordinator(
     for i, part in enumerate(parts):
         x = torch.as_tensor(part, dtype=torch.float32, device=dev)
         skey = sampler.fold_in(i)
-        if summarizer is not None:
-            ws = summarize(x, torch.ones((x.shape[0],), device=dev), skey,
-                           k=k, t=t_i, metric=metric, policy=summarizer,
-                           kernel_policy=policy)
-            all_pts.append(ws.points)
-            all_w.append(ws.weights)
-            all_gid.append(ws.indices + int(offs[i]))
-            all_cand.append(ws.is_candidate)
-            rounds.append(ws.n_rounds)
-            continue
-        if summary_alg == "augmented":
-            summ = augmented_summary_outliers(x, skey, k=k, t=t_i,
-                                              metric=metric, policy=policy)
-        elif compact:
-            summ = summary_outliers_compact(x, skey, k=k, t=t_i,
-                                            metric=metric, policy=policy)
-        else:
-            summ = summary_outliers(x, skey, k=k, t=t_i, metric=metric,
-                                    policy=policy)
-        valid = summ.valid
-        all_pts.append(summ.points[valid])
-        all_w.append(summ.weights[valid])
-        all_gid.append(summ.indices[valid].long() + int(offs[i]))
-        all_cand.append(summ.is_candidate[valid])
-        rounds.append(int(summ.n_rounds))
+        with obs.trace("oneshot.site_summary", site=i):
+            if summarizer is not None:
+                ws = summarize(x, torch.ones((x.shape[0],), device=dev), skey,
+                               k=k, t=t_i, metric=metric, policy=summarizer,
+                               kernel_policy=policy)
+                all_pts.append(ws.points)
+                all_w.append(ws.weights)
+                all_gid.append(ws.indices + int(offs[i]))
+                all_cand.append(ws.is_candidate)
+                rounds.append(ws.n_rounds)
+                continue
+            if summary_alg == "augmented":
+                summ = augmented_summary_outliers(x, skey, k=k, t=t_i,
+                                                  metric=metric, policy=policy)
+            elif compact:
+                summ = summary_outliers_compact(x, skey, k=k, t=t_i,
+                                                metric=metric, policy=policy)
+            else:
+                summ = summary_outliers(x, skey, k=k, t=t_i, metric=metric,
+                                        policy=policy)
+            valid = summ.valid
+            all_pts.append(summ.points[valid])
+            all_w.append(summ.weights[valid])
+            all_gid.append(summ.indices[valid].long() + int(offs[i]))
+            all_cand.append(summ.is_candidate[valid])
+            rounds.append(int(summ.n_rounds))
     _sync(dev)
     t1 = time.perf_counter()
-    res = coordinator_fit(all_pts, all_w, all_gid, all_cand, rounds, sampler,
-                          k=k, t=t, second_iters=second_iters, metric=metric,
-                          policy=policy)
+    # each site "sends" exactly its live summary records to the coordinator
+    obs.record_comm(
+        [p.shape[0] for p in all_pts],
+        [sum(a.numel() * a.element_size() for a in arrs)
+         for arrs in zip(all_pts, all_w, all_gid, all_cand)],
+        path="host-sim")
+    with obs.trace("oneshot.second_level"):
+        res = coordinator_fit(all_pts, all_w, all_gid, all_cand, rounds,
+                              sampler, k=k, t=t, second_iters=second_iters,
+                              metric=metric, policy=policy)
     t2 = time.perf_counter()
     res["phase_s"] = {"site_summaries": t1 - t0, "second_level": t2 - t1}
     return res
@@ -272,7 +295,6 @@ def coordinator_fit(points, weights, gids, candidates, rounds,
     dict of :func:`simulate_coordinator` without ``phase_s``; the device
     work is finished when it returns.
     """
-    # each site "sends" exactly its live summary records to the coordinator
     pts = torch.cat(points).float()
     wts = torch.cat(weights).float()
     n_rec = pts.shape[0]

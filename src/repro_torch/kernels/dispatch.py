@@ -29,10 +29,19 @@ per padded width (``csrc/*.cu``) and their wrappers ignore ``block_n``, so
 a call that resolves to ``cuda`` gets the defaults and measures nothing,
 as the reference does for a backend with no candidates; the reference's
 Pallas candidates are VMEM choices and do not carry over.  A route or tile
-tuner for the CUDA kernels is ROADMAP.md's R2, not this tuner.  The
-reference's ``kernels.dispatch`` and ``kernels.autotune_cache`` counters
-and its ``kernels.autotune`` trace are not ported yet (ROADMAP.md, queue
-4).
+tuner for the CUDA kernels is ROADMAP.md's R2, not this tuner.
+
+Telemetry: ``kernels.dispatch{op=,backend=}`` counts registry decisions,
+``kernels.autotune_cache{result=hit|miss}`` the tuner's cache lookups, and
+a ``kernels.autotune`` span times each measurement.  The reference
+resolves at trace time, so under ``jit`` its ``kernels.dispatch`` counts
+one decision per compiled (op, policy, shape, dtype), not one per call.
+The port resolves on every call, through a memo keyed by (op, policy,
+metric, platform, dtype, n, m, d), so it counts on a memo miss: one per
+distinct resolution, the counterpart of one trace.  A per-call count would
+cost the serving read host time it cannot spare.  The memo is dropped when
+a new default metrics registry is installed, so each registry counts the
+resolutions made under it.
 
 The fourth kernel, the chunked WKV6 forward (``kernels/wkv``), is not an op
 of this registry, as in the reference: the RWKV6 block routes to it by
@@ -52,6 +61,8 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch import obs
 
 _log = logging.getLogger("repro_torch.kernels.dispatch")
 
@@ -226,6 +237,7 @@ def select_backend(op: str, policy: Optional[KernelPolicy] = None, *,
 # fit's calls vary n).
 _MEMO_MAX = 4096
 _memo: dict[tuple, tuple[Registration, int, int]] = {}
+_memo_registry = None   # the metrics registry the memo's misses counted in
 
 
 def _tiles(op, reg, policy, metric, n, m, d, platform):
@@ -253,7 +265,12 @@ def _tiles(op, reg, policy, metric, n, m, d, platform):
 
 
 def _resolved(op, policy, metric, n, m, d, dtype, platform):
+    global _memo_registry
     policy = resolve_policy(policy)
+    metrics = obs.get_default_registry()
+    if metrics is not _memo_registry:
+        _memo.clear()
+        _memo_registry = metrics
     key = (op, policy, metric, platform, dtype, n, m, d)
     hit = _memo.get(key)
     if hit is None:
@@ -262,6 +279,7 @@ def _resolved(op, policy, metric, n, m, d, dtype, platform):
         hit = (reg, *_tiles(op, reg, policy, metric, n, m, d, platform))
         if _tuning:
             return hit   # a measurement's inner call: defaults, not memoized
+        obs.counter("kernels.dispatch", op=op, backend=reg.name).inc()
         if len(_memo) >= _MEMO_MAX:
             _memo.clear()
         _memo[key] = hit
@@ -456,13 +474,16 @@ def autotune_block_n(op: str, backend: str, *, metric: str, n: int, m: int,
     key = _tune_key(op, backend, platform, metric, bn_rows, bm, bd)
     hit = _cache_hit(key, ("block_n",))
     if hit is not None:
+        obs.counter("kernels.autotune_cache", result="hit").inc()
         return int(hit["block_n"])
+    obs.counter("kernels.autotune_cache", result="miss").inc()
     _tuning = True
     try:
-        cands = sorted({min(c, bn_rows) for c in reg.tune_candidates})
-        timings = measure_block_ns(op, backend, metric=metric, n=bn_rows,
-                                   m=bm, d=bd, candidates=cands,
-                                   repeats=repeats, platform=platform)
+        with obs.trace("kernels.autotune", op=op, backend=backend):
+            cands = sorted({min(c, bn_rows) for c in reg.tune_candidates})
+            timings = measure_block_ns(op, backend, metric=metric, n=bn_rows,
+                                       m=bm, d=bd, candidates=cands,
+                                       repeats=repeats, platform=platform)
     finally:
         _tuning = False
     best = min(timings, key=timings.get)
@@ -497,17 +518,20 @@ def autotune_tiles(op: str, backend: str, *, metric: str, n: int, m: int,
     key = _tune_key(op, backend, platform, metric, bn_rows, bm_cols, bd)
     hit = _cache_hit(key, ("block_n", "block_m"))
     if hit is not None:
+        obs.counter("kernels.autotune_cache", result="hit").inc()
         return int(hit["block_n"]), int(hit["block_m"])
+    obs.counter("kernels.autotune_cache", result="miss").inc()
     _tuning = True
     try:
-        bns = sorted({min(c, bn_rows) for c in reg.tune_candidates})
-        bms = sorted({min(c, bm_cols) for c in (
-            reg.tune_candidates_m or (reg.default_block_m(platform),))})
-        timings = measure_tiles(op, backend, metric=metric, n=bn_rows,
-                                m=bm_cols, d=bd,
-                                candidates=[(bn, bm) for bn in bns
-                                            for bm in bms],
-                                repeats=repeats, platform=platform)
+        with obs.trace("kernels.autotune", op=op, backend=backend):
+            bns = sorted({min(c, bn_rows) for c in reg.tune_candidates})
+            bms = sorted({min(c, bm_cols) for c in (
+                reg.tune_candidates_m or (reg.default_block_m(platform),))})
+            timings = measure_tiles(op, backend, metric=metric, n=bn_rows,
+                                    m=bm_cols, d=bd,
+                                    candidates=[(bn, bm) for bn in bns
+                                                for bm in bms],
+                                    repeats=repeats, platform=platform)
     finally:
         _tuning = False
     best = min(timings, key=timings.get)

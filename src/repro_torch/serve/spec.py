@@ -4,9 +4,7 @@ Port of ``repro.serve.spec``, whole: one frozen, JSON-scalar dataclass
 describing how a serving scheduler admits and batches concurrent score
 requests.  ``PipelineConfig`` carries an optional ``serving`` section of
 exactly this shape, so an artifact valid in one package is valid in the
-other.  The scheduler that reads it (``repro.serve.scheduler``) is not
-ported yet (ROADMAP.md, queue 4); until then the section is carried and
-validated but nothing serves through it.
+other.  ``repro_torch.serve.scheduler`` reads it.
 
 The knobs, and why each exists:
 

@@ -22,10 +22,10 @@ budget plus one summary.
 The store never changes *values*: a paged-in summary is field-for-field
 identical to what was spilled (float32/bool payloads round-trip exactly;
 ``n_rounds`` / ``total_weight`` are carried verbatim), so the tree root —
-and every downstream score — is bit-identical to an untiered tree.  The
-movement tallies (``stats()``) are kept on the store; the reference's
-telemetry counters, gauges and spans are not ported yet (ROADMAP.md,
-queue 1 item 4).
+and every downstream score — is bit-identical to an untiered tree.
+Telemetry is the reference's: the ``store.spill`` / ``store.page_in``
+spans, the ``store.*`` movement counters and residency gauges, labelled
+by the owning tree's ``obs_labels``.
 """
 from __future__ import annotations
 
@@ -33,14 +33,18 @@ import shutil
 import tempfile
 import weakref
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.store.spec import StoreSpec
 from repro_torch.stream.weighted import WeightedSummary
+
+_COUNTERS = ("store.spills", "store.page_ins", "store.spill_bytes",
+             "store.page_in_bytes")
 
 
 def summary_nbytes(summ: WeightedSummary) -> int:
@@ -52,7 +56,7 @@ def summary_nbytes(summ: WeightedSummary) -> int:
 class TieredStore:
     """Spill/page-in engine for one tree's summaries.
 
-    ``nodes`` passed to :meth:`enforce` are
+    ``nodes`` passed to :meth:`enforce` / :meth:`sync` are
     ``repro_torch.stream.tree.TreeNode`` objects (duck-typed: the store
     reads ``summary`` / ``level`` / ``n_records`` / ``nbytes`` and owns
     ``spill_step``).  Each spilled summary becomes one checkpoint step
@@ -61,9 +65,11 @@ class TieredStore:
     summaries land on ``device`` (the tree's).
     """
 
-    def __init__(self, spec: StoreSpec, *, dim: int, device="cuda"):
+    def __init__(self, spec: StoreSpec, *, dim: int,
+                 labels: Optional[dict] = None, device="cuda"):
         self.spec = spec
         self.dim = dim
+        self.labels = labels if labels is not None else {}
         self.device = resolve_device(device)
         if spec.directory is None:
             base = Path(tempfile.mkdtemp(prefix="repro-store-"))
@@ -75,6 +81,8 @@ class TieredStore:
         self.dir = Path(tempfile.mkdtemp(prefix="tier-", dir=base))
         self.manager = CheckpointManager(self.dir, keep_last=0)
         self._next_step = 0
+        # local tallies mirror the obs counters so tests/benches can read
+        # them even with the metrics plane disabled
         self.spills = 0
         self.page_ins = 0
         self.spill_bytes = 0
@@ -89,20 +97,23 @@ class TieredStore:
         resident copy.  The manager's writer thread is the spill worker;
         enqueueing joins at most the one previous in-flight write."""
         summ = nd.summary
-        payload = {
-            "points": summ.points.to(torch.float32),
-            "weights": summ.weights.to(torch.float32),
-            "is_candidate": summ.is_candidate.to(torch.bool),
-            "n_rounds": np.int64(summ.n_rounds),
-            "total_weight": np.float64(summ.total_weight),
-        }
-        step = self._next_step
-        self._next_step += 1
-        self.manager.save(step, payload, blocking=False)
+        with obs.trace("store.spill", **self.labels):
+            payload = {
+                "points": summ.points.to(torch.float32),
+                "weights": summ.weights.to(torch.float32),
+                "is_candidate": summ.is_candidate.to(torch.bool),
+                "n_rounds": np.int64(summ.n_rounds),
+                "total_weight": np.float64(summ.total_weight),
+            }
+            step = self._next_step
+            self._next_step += 1
+            self.manager.save(step, payload, blocking=False)
         nd.spill_step = step
         nd.summary = None
         self.spills += 1
         self.spill_bytes += nd.nbytes
+        obs.counter("store.spills", **self.labels).inc()
+        obs.counter("store.spill_bytes", **self.labels).inc(nd.nbytes)
 
     def page_in(self, nd) -> WeightedSummary:
         """Fault ``nd``'s spilled summary back from disk (crc-verified).
@@ -118,9 +129,12 @@ class TieredStore:
             "n_rounds": np.int64(0),
             "total_weight": np.float64(0),
         }
-        state, _ = self.manager.restore(like, nd.spill_step)
+        with obs.trace("store.page_in", **self.labels):
+            state, _ = self.manager.restore(like, nd.spill_step)
         self.page_ins += 1
         self.page_in_bytes += nd.nbytes
+        obs.counter("store.page_ins", **self.labels).inc()
+        obs.counter("store.page_in_bytes", **self.labels).inc(nd.nbytes)
         return WeightedSummary(
             points=torch.as_tensor(state["points"], device=self.device),
             weights=torch.as_tensor(state["weights"], device=self.device),
@@ -161,10 +175,30 @@ class TieredStore:
                     break
                 resident_bytes -= resident[i].nbytes
                 self.spill(resident[i])
+        self.sync(nodes)
+
+    def sync(self, nodes) -> None:
+        """Recompute the residency gauges from the live node list (and make
+        sure every store series exists, at zero, from the first flush on)."""
+        reg = obs.get_default_registry()
+        if not reg.enabled:
+            return
+        for name in _COUNTERS:
+            reg.counter(name, **self.labels)
+        hot = [nd for nd in nodes if nd.summary is not None]
+        cold = [nd for nd in nodes if getattr(nd, "spill_step", None)
+                is not None]
+        reg.gauge("store.hot_bytes", **self.labels).set(
+            sum(nd.nbytes for nd in hot))
+        reg.gauge("store.hot_nodes", **self.labels).set(len(hot))
+        reg.gauge("store.cold_bytes", **self.labels).set(
+            sum(nd.nbytes for nd in cold))
+        reg.gauge("store.cold_nodes", **self.labels).set(len(cold))
 
     # ------------------------------------------------------------ admin
     def stats(self) -> dict:
-        """Movement tallies (for tests and the smoke run)."""
+        """Movement tallies (metrics-plane-independent, for tests and the
+        smoke run)."""
         return {"spills": self.spills, "page_ins": self.page_ins,
                 "spill_bytes": self.spill_bytes,
                 "page_in_bytes": self.page_in_bytes}

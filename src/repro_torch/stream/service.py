@@ -14,9 +14,6 @@ each (min-distance → argmin → dist/threshold in a single pass; backend
 selection via ``ServiceConfig.policy``).  The queue holds whole submitted
 *blocks*, not per-row tuples, so enqueue and batch assembly are O(blocks)
 array copies.  Every micro-batch is padded to the same static shape.
-Per-request latency (enqueue -> scored) is kept in a bounded ring of the
-most recent 4,096 samples (the reference's ``serve.latency`` histogram
-ring) for p50/p99 reporting.
 
 Double-buffered refresh (``async_refresh=True``): a cadence refresh
 snapshots the tree root on the ingest thread, then fits the next
@@ -40,10 +37,17 @@ restored service returns bit-identical scores and draws what the
 uninterrupted one draws; a checkpoint written by either package restores
 in the other.
 
-``model_from_arrays`` carries a model fitted by the reference across.  The
-reference's telemetry (``obs`` traces, counters, gauges, the drift
-monitors) is not ported yet (ROADMAP.md, queue 1 item 4); the front end
-keeps plain tallies of skipped refreshes and warm starts instead.
+``model_from_arrays`` carries a model fitted by the reference across.
+
+Telemetry is the reference's (``repro_torch.obs``): per-request latency
+in the bounded ``serve.latency{topology=...}`` histogram, the ``ingest``,
+``refresh.*`` and ``score.*`` phase spans under the ``ingest.request`` and
+``refresh`` root traces (an async refresh carries its trace across the
+worker thread), the ``ingest.points`` / ``score.requests`` /
+``refresh.*`` counters, the ``model.seconds_since_install`` gauge and the
+drift monitors.  A span that covers device work ends where the code
+already waits for the device: ``refresh.fit`` at ``_complete``,
+``score.fused`` at the copies of its results to the host.
 """
 from __future__ import annotations
 
@@ -57,7 +61,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.kmeans_mm import kmeans_minus_minus
 from repro_torch.core.sampler import Sampler, TorchSampler
@@ -68,9 +72,9 @@ from repro_torch.stream.tree import StreamTree, TreeConfig
 from repro_torch.summarize.base import (SummarizerPolicy,
                                         get_default_summarizer)
 
-# recent latency samples kept for the percentiles (the reference's
-# ``obs.registry.DEFAULT_RING``)
-LATENCY_RING = 4096
+# recent latency samples the ``serve.latency`` histogram keeps for its
+# percentiles
+LATENCY_RING = obs.DEFAULT_RING
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,7 +215,18 @@ class ServingFrontEnd:
     thread, that computes the next ``ModelState``.  The front end decides
     *when* it runs (inline for blocking refreshes, on a worker thread for
     async ones) and installs the result.  Queries are scored on ``device``.
+
+    Telemetry: per-request latency goes to the bounded
+    ``serve.latency{topology=...}`` histogram in the process metrics
+    registry; refresh phases are traced (``phase.refresh.gather|fit|
+    install``); the last installed refresh is summarized in ``last_fit``
+    (:class:`FitStats`) with a live ``model.seconds_since_install``
+    staleness gauge.  Metrics are keyed per *topology*, so two services of
+    the same class in one process share series — the registry is
+    process-level, like any Prometheus exporter.
     """
+
+    _topology = "serve"   # subclasses: "stream" | "sharded" | "oneshot"
 
     def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
@@ -222,8 +237,7 @@ class ServingFrontEnd:
         self._queue: deque = deque()
         self._queued_rows = 0
         self._next_id = 0
-        self._lat: deque = deque(maxlen=LATENCY_RING)
-        self._lat_count = 0
+        self._lat = obs.histogram("serve.latency", topology=self._topology)
         self._worker: Optional[threading.Thread] = None
         self._worker_box: list = []
         self._backlog = False
@@ -235,8 +249,11 @@ class ServingFrontEnd:
         self._last_fit_epoch = None
         self._pending_fit_epoch = None
         self.last_fit: Optional[FitStats] = None
-        self.skipped_refreshes = 0
-        self.warm_starts = 0
+        # (recorder, ctx, t_start) of the in-flight async refresh trace
+        self._refresh_trace: tuple = (None, None, 0.0)
+        self._monitors = obs.get_default_registry().monitors
+        obs.gauge("model.seconds_since_install",
+                  topology=self._topology).set_fn(self.seconds_since_install)
 
     # ------------------------------------------------------------ write path
     def _validate_points(self, points, weights):
@@ -257,16 +274,24 @@ class ServingFrontEnd:
         the refresh cadence, so one huge call still refreshes on schedule
         rather than once at the end."""
         i, n = 0, x.shape[0]
-        while i < n:
-            take = min(self.cfg.refresh_every - self._since_refresh, n - i)
-            if take <= 0:   # e.g. restored with a smaller refresh_every
-                self._cadence_refresh()
-                continue
-            sink(x[i:i + take], None if w is None else w[i:i + take])
-            self._since_refresh += take
-            i += take
-            if self._since_refresh >= self.cfg.refresh_every:
-                self._cadence_refresh()
+        # one trace per ingest call: chunk + tree spans nest under it,
+        # while any cadence refresh it triggers opens its own trace
+        with obs.root_trace("ingest.request", topology=self._topology,
+                            points=n):
+            while i < n:
+                take = min(self.cfg.refresh_every - self._since_refresh,
+                           n - i)
+                if take <= 0:   # e.g. restored with a smaller refresh_every
+                    self._cadence_refresh()
+                    continue
+                with obs.trace("ingest", topology=self._topology):
+                    sink(x[i:i + take], None if w is None else w[i:i + take])
+                obs.counter("ingest.points",
+                            topology=self._topology).inc(take)
+                self._since_refresh += take
+                i += take
+                if self._since_refresh >= self.cfg.refresh_every:
+                    self._cadence_refresh()
 
     def _cadence_refresh(self) -> None:
         self.refresh(blocking=not self.cfg.async_refresh)
@@ -278,7 +303,7 @@ class ServingFrontEnd:
         raise NotImplementedError
 
     def _root_records(self) -> int:
-        """Live root records a refresh fits on (reporting only)."""
+        """Live root records a refresh fits on (telemetry only)."""
         return 0
 
     def _timed_fit(self, fit: Callable[[], ModelState]):
@@ -286,19 +311,34 @@ class ServingFrontEnd:
         returns (a model is published to another thread only so).
         Returns (model, fit wall seconds)."""
         t0 = time.perf_counter()
-        model = fit()
-        _complete(model)
+        with obs.trace("refresh.fit", topology=self._topology):
+            model = fit()
+            _complete(model)
         return model, time.perf_counter() - t0
 
     def _install(self, model: ModelState, fit_s: float,
                  records: int) -> None:
-        self.model = model
-        if self._pending_fit_epoch is not None:
-            self._last_fit_epoch = self._pending_fit_epoch
-            self._pending_fit_epoch = None
-        self.last_fit = FitStats(
-            version=int(model.version), records_folded=int(records),
-            fit_s=float(fit_s), installed_at=time.perf_counter())
+        with obs.trace("refresh.install", topology=self._topology):
+            self.model = model
+            if self._pending_fit_epoch is not None:
+                self._last_fit_epoch = self._pending_fit_epoch
+                self._pending_fit_epoch = None
+            self.last_fit = FitStats(
+                version=int(model.version), records_folded=int(records),
+                fit_s=float(fit_s), installed_at=time.perf_counter())
+        obs.counter("refresh.count", topology=self._topology).inc()
+        obs.counter("refresh.records_folded",
+                    topology=self._topology).inc(int(records))
+        # re-anchor the drift monitors to the newly installed model: the
+        # healthy outlier fraction is the paper's z/n budget — the share
+        # of the trained mass the fit was allowed to discard
+        t = getattr(self.cfg, "t", None)
+        if t is not None:
+            self._monitors.set_outlier_budget(
+                self._topology,
+                float(t) / max(float(model.trained_weight), 1.0))
+        self._monitors.set_staleness_source(self._topology,
+                                            self.seconds_since_install)
 
     def refresh(self, *, blocking: bool = True) -> Optional[ModelState]:
         """Fit a new model on the current root.
@@ -315,18 +355,21 @@ class ServingFrontEnd:
         the last fit, ``_fit_closure`` returns None and the refresh is
         *skipped*: the serving model — provably bit-identical to what a
         refit would install — stays, the version does not advance, and
-        the skip is counted (``skipped_refreshes``).
+        the skip is counted (``refresh.skipped``).
         """
         if blocking:
             self.join_refresh()
             self._next_version += 1
-            fit = self._fit_closure(self._next_version)
-            records = self._root_records()
-            if fit is None:
-                self._skip_refresh()
-                return self.model
-            model, fit_s = self._timed_fit(fit)
-            self._install(model, fit_s, records)
+            with obs.root_trace("refresh", topology=self._topology,
+                                version=self._next_version):
+                with obs.trace("refresh.gather", topology=self._topology):
+                    fit = self._fit_closure(self._next_version)
+                    records = self._root_records()
+                if fit is None:
+                    self._skip_refresh()
+                    return self.model
+                model, fit_s = self._timed_fit(fit)
+                self._install(model, fit_s, records)
             self._since_refresh = 0
             return model
         if self._worker is not None:
@@ -336,29 +379,53 @@ class ServingFrontEnd:
         self._since_refresh = 0
         return None
 
+    def _end_refresh_trace(self, status: str = "ok",
+                           error: Optional[BaseException] = None) -> None:
+        """Record the async refresh trace's root span at install time."""
+        rec, tctx, t_start = self._refresh_trace
+        self._refresh_trace = (None, None, 0.0)
+        if tctx is None:
+            return
+        attrs: dict = {"topology": self._topology}
+        if error is not None:
+            attrs["error"] = type(error).__name__
+        rec.record_span("refresh", tctx, t0=t_start, t1=time.perf_counter(),
+                        span_id=tctx.span_id, parent_id=None, status=status,
+                        force=status == "error", attrs=attrs)
+
     def _skip_refresh(self) -> None:
         """Account an incremental-refresh skip: the root is unchanged, so
         the installed model already equals what a refit would produce."""
         self._next_version -= 1   # the skipped fit never claimed a version
         self._pending_fit_epoch = None
-        self.skipped_refreshes += 1
+        obs.counter("refresh.skipped", topology=self._topology).inc()
         self._since_refresh = 0
 
     def _spawn_fit(self) -> None:
         self._next_version += 1
-        fit = self._fit_closure(self._next_version)
-        records = self._root_records()
+        # the refresh trace opens here and is carried explicitly across
+        # the worker-thread boundary (gather on this thread, fit on the
+        # worker, install + root span back on the polling thread)
+        rec = obs.get_default_recorder()
+        tctx = rec.new_trace()
+        self._refresh_trace = (rec, tctx, time.perf_counter())
+        with obs.use_context(tctx):
+            with obs.trace("refresh.gather", topology=self._topology):
+                fit = self._fit_closure(self._next_version)
+                records = self._root_records()
         if fit is None:
             self._skip_refresh()
+            self._end_refresh_trace("skipped")
             return
         box: list = []
 
         def run():
-            try:
-                model, fit_s = self._timed_fit(fit)
-                box.append(("ok", model, fit_s, records))
-            except BaseException as e:  # surfaced at poll/join
-                box.append(("err", e, 0.0, 0))
+            with obs.use_context(tctx):
+                try:
+                    model, fit_s = self._timed_fit(fit)
+                    box.append(("ok", model, fit_s, records))
+                except BaseException as e:  # surfaced at poll/join
+                    box.append(("err", e, 0.0, 0))
 
         self._worker_box = box
         self._worker = threading.Thread(
@@ -377,8 +444,12 @@ class ServingFrontEnd:
         self._worker, self._worker_box = None, []
         if status == "err":
             self._backlog = False   # don't respawn on top of a failed fit
+            self._end_refresh_trace("error", payload)
             raise payload
-        self._install(payload, fit_s, records)
+        _, tctx, _ = self._refresh_trace
+        with obs.use_context(tctx):
+            self._install(payload, fit_s, records)
+        self._end_refresh_trace()
         if self._backlog:
             self._backlog = False
             self._spawn_fit()
@@ -402,18 +473,20 @@ class ServingFrontEnd:
         # already dequeued
         x, _ = self._validate_points(points, None)
         now = time.perf_counter()
-        n = x.shape[0]
-        ids = list(range(self._next_id, self._next_id + n))
-        self._queue.append((self._next_id, x, now))
-        self._queued_rows += n
-        self._next_id += n
+        with obs.trace("score.enqueue", topology=self._topology):
+            n = x.shape[0]
+            ids = list(range(self._next_id, self._next_id + n))
+            self._queue.append((self._next_id, x, now))
+            self._queued_rows += n
+            self._next_id += n
+        obs.counter("score.requests", topology=self._topology).inc(len(ids))
         return ids
 
     def discard_pending(self) -> int:
         """Drop every submitted-but-undrained request; returns the count.
-        A caller whose tick fails after ``submit`` calls this — rows left
-        queued would be drained by the *next* tick and misalign its
-        results."""
+        The serving scheduler calls this when a tick fails after
+        ``submit`` — rows left queued would be drained by the *next* tick
+        and misalign its results."""
         n = self._queued_rows
         self._queue.clear()
         self._queued_rows = 0
@@ -429,42 +502,50 @@ class ServingFrontEnd:
         cfg = self.cfg
         out: list[QueryResult] = []
         budget = self._queued_rows if max_requests is None else max_requests
-        while self._queue and budget > 0:
-            take = min(cfg.micro_batch, self._queued_rows, budget)
-            xb = np.zeros((cfg.micro_batch, cfg.dim), np.float32)
-            # slice whole blocks into the pad buffer; a block that
-            # overhangs the batch is split, its tail re-queued
-            runs, filled = [], 0
-            while filled < take:
-                rid0, rows, t0 = self._queue[0]
-                r = min(rows.shape[0], take - filled)
-                xb[filled:filled + r] = rows[:r]
-                runs.append((rid0, r, t0))
-                if r == rows.shape[0]:
-                    self._queue.popleft()
-                else:
-                    self._queue[0] = (rid0 + r, rows[r:], t0)
-                filled += r
-            self._queued_rows -= take
-            budget -= take
-            dist, amin, score = _score_batch(
-                torch.from_numpy(xb).to(self.device), self.model.centers,
-                self.model.threshold, metric=cfg.metric, policy=cfg.policy)
-            # the copies to the host wait for the kernel
-            dist, amin, score = (a.cpu().numpy() for a in (dist, amin, score))
-            done = time.perf_counter()
-            i = 0
-            for rid0, r, t0 in runs:
-                lat = done - t0
-                self._lat.extend([lat] * r)
-                self._lat_count += r
-                for j in range(i, i + r):
-                    out.append(QueryResult(
-                        request_id=rid0 + (j - i), center=int(amin[j]),
-                        distance=float(dist[j]),
-                        outlier_score=float(score[j]),
-                        is_outlier=bool(score[j] > 1.0), latency_s=lat))
-                i += r
+        with obs.trace("score.drain", topology=self._topology):
+            while self._queue and budget > 0:
+                with obs.trace("score.batch", topology=self._topology):
+                    take = min(cfg.micro_batch, self._queued_rows, budget)
+                    xb = np.zeros((cfg.micro_batch, cfg.dim), np.float32)
+                    # slice whole blocks into the pad buffer; a block that
+                    # overhangs the batch is split, its tail re-queued
+                    runs, filled = [], 0
+                    while filled < take:
+                        rid0, rows, t0 = self._queue[0]
+                        r = min(rows.shape[0], take - filled)
+                        xb[filled:filled + r] = rows[:r]
+                        runs.append((rid0, r, t0))
+                        if r == rows.shape[0]:
+                            self._queue.popleft()
+                        else:
+                            self._queue[0] = (rid0 + r, rows[r:], t0)
+                        filled += r
+                    self._queued_rows -= take
+                    budget -= take
+                with obs.trace("score.fused", topology=self._topology):
+                    dist, amin, score = _score_batch(
+                        torch.from_numpy(xb).to(self.device),
+                        self.model.centers, self.model.threshold,
+                        metric=cfg.metric, policy=cfg.policy)
+                    # the copies to the host wait for the kernel
+                    dist, amin, score = (a.cpu().numpy()
+                                         for a in (dist, amin, score))
+                done = time.perf_counter()
+                i = 0
+                for rid0, r, t0 in runs:
+                    lat = done - t0
+                    self._lat.observe(lat, r)
+                    for j in range(i, i + r):
+                        out.append(QueryResult(
+                            request_id=rid0 + (j - i), center=int(amin[j]),
+                            distance=float(dist[j]),
+                            outlier_score=float(score[j]),
+                            is_outlier=bool(score[j] > 1.0), latency_s=lat))
+                    i += r
+        if out:
+            self._monitors.observe_scores(
+                self._topology, len(out),
+                sum(1 for r in out if r.is_outlier))
         return out
 
     def score(self, points) -> list[QueryResult]:
@@ -473,22 +554,24 @@ class ServingFrontEnd:
         return self.drain()
 
     def latency_stats(self) -> dict:
-        """Request count and p50/p99 latency in ms, exact (``np.percentile``)
-        over the most recent ``LATENCY_RING`` requests."""
-        if self._lat_count == 0:
+        """Request count and p50/p99 latency in ms, read from the
+        ``serve.latency`` histogram: percentiles exact (``np.percentile``)
+        over its ring of the most recent ``LATENCY_RING`` requests (the
+        full snapshot — buckets, p95, min/max — lives in
+        ``obs.snapshot()``)."""
+        if self._lat.count == 0:
             return {"count": 0, "p50_ms": float("nan"), "p99_ms": float("nan")}
-        ring = np.asarray(self._lat, np.float64)
-        return {"count": int(self._lat_count),
-                "p50_ms": float(np.percentile(ring, 50)) * 1e3,
-                "p99_ms": float(np.percentile(ring, 99)) * 1e3}
+        return {"count": int(self._lat.count),
+                "p50_ms": float(self._lat.percentile(50)) * 1e3,
+                "p99_ms": float(self._lat.percentile(99)) * 1e3}
 
     def reset_latency_stats(self) -> None:
-        """Forget the latency samples (benchmark epochs)."""
-        self._lat.clear()
-        self._lat_count = 0
+        """Zero the ``serve.latency`` histogram (benchmark epochs)."""
+        self._lat.reset()
 
     def seconds_since_install(self) -> Optional[float]:
-        """Age of the serving model — None before the first refresh."""
+        """Age of the serving model — None before the first refresh.  Also
+        exported live as the ``model.seconds_since_install`` gauge."""
         if self.last_fit is None:
             return None
         return time.perf_counter() - self.last_fit.installed_at
@@ -521,6 +604,8 @@ class StreamService(ServingFrontEnd):
     tree's sampler and the model sampler, as the reference splits its key.
     """
 
+    _topology = "stream"
+
     def __init__(self, cfg: ServiceConfig, sampler: Optional[Sampler] = None,
                  device="cuda"):
         super().__init__(cfg, device)
@@ -551,6 +636,11 @@ class StreamService(ServingFrontEnd):
             raise RuntimeError("refresh() before any point was ingested")
         store, init = cfg.store, None
         if store is not None:
+            # touch the incremental-refresh series so a store-configured
+            # run always exposes them (at zero until the first skip)
+            obs.counter("refresh.skipped", topology=self._topology).inc(0)
+            obs.counter("refresh.warm_starts",
+                        topology=self._topology).inc(0)
             epoch = self.tree.root_epoch
             if (store.incremental_refresh and self.model is not None
                     and epoch == self._last_fit_epoch):
@@ -562,7 +652,8 @@ class StreamService(ServingFrontEnd):
                     self._last_fit_epoch)
                 if changed <= store.warm_start_frac * total:
                     init = self.model.centers
-                    self.warm_starts += 1
+                    obs.counter("refresh.warm_starts",
+                                topology=self._topology).inc()
             self._pending_fit_epoch = epoch
         else:
             key = self._model_key.fold_in(version)

@@ -40,11 +40,9 @@ double-buffered async refresh are inherited from ``ServingFrontEnd``.
 
 Communication cost per refresh is exactly the packed roots: s sites x
 root_rows records x (4d + 4 + 1) bytes — reported per refresh in
-``last_refresh``.  The reference's telemetry (``obs.record_comm``, the
-``refresh.site_root`` trace, the ``refresh.skipped`` /
-``refresh.warm_starts`` counters, the trees' ``site`` label) is not ported
-yet (ROADMAP.md, queue 4); ``skipped_refreshes`` and ``warm_starts`` keep
-the tallies.
+``last_refresh`` and through ``obs.record_comm`` (``topology=sharded``),
+with one ``refresh.site_root`` span per site's root snapshot; each site's
+tree carries its ``site`` label.
 """
 from __future__ import annotations
 
@@ -56,6 +54,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.core.collective import (gather_sites, gathered_bytes,
                                          payload_bytes, sites_group)
@@ -118,6 +117,8 @@ class ShardedStreamService(ServingFrontEnd):
     model sampler, as the reference splits its key.
     """
 
+    _topology = "sharded"
+
     def __init__(self, cfg: ShardedServiceConfig,
                  sampler: Optional[Sampler] = None, device="cuda"):
         if cfg.n_sites < 1:
@@ -128,6 +129,8 @@ class ShardedStreamService(ServingFrontEnd):
         site_cfg = cfg.site_tree_config()
         self.trees = [StreamTree(site_cfg, kt.fold_in(i), device=self.device)
                       for i in range(cfg.n_sites)]
+        for i, tr in enumerate(self.trees):
+            tr.obs_labels["site"] = i
         self._routed = 0             # round-robin cursor over sites
         self.last_refresh: Optional[RefreshStats] = None
 
@@ -196,16 +199,27 @@ class ShardedStreamService(ServingFrontEnd):
         store, init = cfg.store, None
         epochs = tuple(tr.root_epoch for tr in self.trees)
         if store is not None:
+            # touch the incremental-refresh series so a store-configured
+            # run always exposes them (at zero until the first skip)
+            obs.counter("refresh.skipped", topology=self._topology).inc(0)
+            obs.counter("refresh.warm_starts",
+                        topology=self._topology).inc(0)
             if (store.incremental_refresh and self.model is not None
                     and epochs == self._last_fit_epoch):
                 return None
             self._pending_fit_epoch = epochs
         # one static row count for every site: the all_gather payload shape
         rows = _bucket(max(max(recs), 1))
-        roots = [tr.packed_root(rows) for tr in self.trees]
+        # per-site gather spans: inside refresh.gather, so one refresh
+        # trace stitches every site's root snapshot under a single root
+        roots = []
+        for i, tr in enumerate(self.trees):
+            with obs.trace("refresh.site_root", topology="sharded", site=i):
+                roots.append(tr.packed_root(rows))
         group = self._collective_group()
         use_sm = group is not None
         one_site = roots[0]
+        site_bytes = payload_bytes(one_site)
         self.last_refresh = RefreshStats(
             version=version,
             path="shard_map" if use_sm else "host-sim",
@@ -213,7 +227,9 @@ class ShardedStreamService(ServingFrontEnd):
             per_site_records=tuple(recs),
             comm_records=int(sum(recs)),
             comm_bytes=gathered_bytes(one_site, cfg.n_sites),
-            payload_bytes=payload_bytes(one_site))
+            payload_bytes=site_bytes)
+        # every site ships the same padded root shape, hence equal bytes
+        obs.record_comm(recs, [site_bytes] * cfg.n_sites, topology="sharded")
         if store is not None:
             # epoch-keyed: the same roots refit to the same model.  The sum
             # is strictly monotone in the per-site epochs, so it collides
@@ -227,7 +243,8 @@ class ShardedStreamService(ServingFrontEnd):
                 total = sum(t_ for _, t_ in parts)
                 if changed <= store.warm_start_frac * total:
                     init = self.model.centers
-                    self.warm_starts += 1
+                    obs.counter("refresh.warm_starts",
+                                topology=self._topology).inc()
         else:
             key = self._model_key.fold_in(version)
         fit = functools.partial(
@@ -334,6 +351,8 @@ class ShardedStreamService(ServingFrontEnd):
                                   sampler_from_key_data=rebuild,
                                   device=svc.device)
             for i in range(cfg.n_sites)]
+        for i, tr in enumerate(svc.trees):
+            tr.obs_labels["site"] = i
         svc._since_refresh = int(state["counters"]["since_refresh"])
         svc._next_id = int(state["counters"]["next_id"])
         svc._routed = int(state["counters"]["routed"])

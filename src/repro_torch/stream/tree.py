@@ -41,8 +41,9 @@ summaries are paged in for the pack (a checkpoint is self-contained) and
 the restored tree re-applies its hot budget.
 
 ``root()``, ``packed_root()`` and ``pack_state()`` return numpy, as the
-reference's do.  The reference's telemetry (``obs`` spans, counters and
-gauges, ``obs_labels``) is not ported yet (ROADMAP.md, queue 1 item 4).
+reference's do.  Telemetry is the reference's: the ``ingest.leaf_flush``
+and ``ingest.merge_reduce`` spans, the ``tree.*`` counters and gauges,
+labelled by ``obs_labels`` (the sharded service adds each site's id).
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ from typing import Callable, List, Optional, TYPE_CHECKING
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
 from repro_torch.core.sampler import Sampler, TorchSampler
 from repro_torch.kernels.dispatch import KernelPolicy, get_default_policy
 from repro_torch.store.spec import StoreSpec
@@ -182,6 +183,9 @@ class StreamTree:
         # the spill tier is created lazily, on the first budget enforcement:
         # skeleton/throwaway trees never touch disk
         self._store: Optional[TieredStore] = None
+        # telemetry labels; owners may add context after construction (the
+        # sharded service tags each site's tree with its site id)
+        self.obs_labels: dict = {"summarizer": cfg.summarizer.name}
 
     # ------------------------------------------------------------ ingest
     def ingest(self, points, weights=None) -> None:
@@ -215,11 +219,13 @@ class StreamTree:
 
     def _flush_leaf(self) -> None:
         cfg = self.cfg
-        summ = summarize(
-            self._buf[:self._buf_n], self._buf_w[:self._buf_n],
-            self._next_key(), k=cfg.k, t=cfg.t, alpha=cfg.alpha,
-            beta=cfg.beta, metric=cfg.metric, policy=cfg.summarizer,
-            kernel_policy=cfg.policy, device=self.device)
+        with obs.trace("ingest.leaf_flush", **self.obs_labels):
+            summ = summarize(
+                self._buf[:self._buf_n], self._buf_w[:self._buf_n],
+                self._next_key(), k=cfg.k, t=cfg.t, alpha=cfg.alpha,
+                beta=cfg.beta, metric=cfg.metric, policy=cfg.summarizer,
+                kernel_policy=cfg.policy, device=self.device)
+        obs.counter("tree.leaf_flushes", **self.obs_labels).inc()
         self._check_cap(summ)
         self._epoch += 1
         self.nodes.append(self._make_node(
@@ -230,6 +236,16 @@ class StreamTree:
         self._evict()
         self._compact()
         self._enforce_store()
+        self._update_gauges()
+
+    def _update_gauges(self) -> None:
+        reg = obs.get_default_registry()
+        if not reg.enabled:
+            return
+        reg.gauge("tree.records", **self.obs_labels).set(self.num_records)
+        reg.gauge("tree.summaries", **self.obs_labels).set(len(self.nodes))
+        reg.gauge("tree.max_level", **self.obs_labels).set(
+            max((nd.level for nd in self.nodes), default=0))
 
     def _check_cap(self, summ: WeightedSummary) -> None:
         if summ.points.shape[0] > self._cap:
@@ -257,6 +273,7 @@ class StreamTree:
         if self._store is None and cfg.store is not None and cfg.store.tiered:
             from repro_torch.store.tiered import TieredStore
             self._store = TieredStore(cfg.store, dim=cfg.dim,
+                                      labels=self.obs_labels,
                                       device=self.device)
         return self._store
 
@@ -307,6 +324,8 @@ class StreamTree:
         cutoff = self.total_ingested - self.cfg.window
         keep = [nd for nd in self.nodes if nd.max_seq > cutoff]
         if len(keep) < len(self.nodes):
+            obs.counter("tree.evictions",
+                        **self.obs_labels).inc(len(self.nodes) - len(keep))
             self._epoch += 1
             for nd in self.nodes:
                 if nd.max_seq <= cutoff:
@@ -316,13 +335,15 @@ class StreamTree:
     def _merge_pair(self, i: int, j: int) -> None:
         a, b = self.nodes[i], self.nodes[j]
         cfg = self.cfg
-        # demand-page spilled operands exactly here, where the merge
-        # actually consumes them
-        summ = reduce_summaries(
-            [self._node_summary(a), self._node_summary(b)],
-            self._next_key(), k=cfg.k, t=cfg.t,
-            alpha=cfg.alpha, beta=cfg.beta, metric=cfg.metric,
-            policy=cfg.summarizer, kernel_policy=cfg.policy)
+        with obs.trace("ingest.merge_reduce", **self.obs_labels):
+            # demand-page spilled operands exactly here, where the merge
+            # actually consumes them
+            summ = reduce_summaries(
+                [self._node_summary(a), self._node_summary(b)],
+                self._next_key(), k=cfg.k, t=cfg.t,
+                alpha=cfg.alpha, beta=cfg.beta, metric=cfg.metric,
+                policy=cfg.summarizer, kernel_policy=cfg.policy)
+        obs.counter("tree.merges", **self.obs_labels).inc()
         self._check_cap(summ)
         self._epoch += 1
         self.nodes[i] = self._make_node(

@@ -24,8 +24,10 @@ threshold is held to 1e-6 of the expansion's magnitude and scores to rtol
 1e-5.  The cost, a weighted sum over the records in another order, is held
 to rtol 1e-5 (as ``test_torch_oneshot.py`` holds it).  A refresh with no
 new data is pure; ``save`` / ``load`` round-trip bit for bit and cross
-between the packages both ways; the error surface is the reference's, plus
-``NotImplementedError`` naming the queue for what is not ported.
+between the packages both ways, ``kernels="cuda"`` included (written as
+the reference's ``"pallas"``); the error surface is the reference's.  The
+serving verbs, ``stats`` and ``dump_trace`` work on a fitted session, and a
+``tracing`` section configures the flight recorder.
 
 ``topology.use_shard_map``: with four ranks of a gloo group
 (``test_torch_collective.spawn_ranks``) ``Session.fit`` is bit for bit
@@ -48,6 +50,7 @@ import repro.kernels.dispatch as jdispatch
 import repro.store as jstore
 import repro.summarize as jsummarize
 from repro.api.cli import load_config_file as j_load_config_file
+from repro_torch import obs as tobs
 from repro_torch.api import (OneshotEngine, PipelineConfig, Session,
                              pipeline_config)
 from repro_torch.api.cli import load_config_file
@@ -188,6 +191,16 @@ def test_v1_payload_warns_and_upgrades():
     assert got.to_dict()["version"] == 2
 
 
+def test_package_surface_is_the_references():
+    """``repro_torch.__all__`` is the reference's ``repro.__all__`` name
+    for name, and every name resolves."""
+    import repro
+    import repro_torch
+    assert sorted(repro_torch.__all__) == sorted(repro.__all__)
+    missing = [n for n in repro_torch.__all__ if not hasattr(repro_torch, n)]
+    assert missing == []
+
+
 def test_pallas_backend_reads_as_cuda():
     assert pipeline_config(dim=3, k=4, t=12,
                            kernels="pallas").kernels.backend == "cuda"
@@ -198,12 +211,32 @@ def test_pallas_backend_reads_as_cuda():
     got = PipelineConfig.from_dict(d)
     assert got.kernels == KernelPolicy(backend="cuda", block_n=512,
                                        autotune=True)
-    assert got.to_dict()["kernels"]["backend"] == "cuda"
+    # the port writes its "cuda" back as the reference's "pallas": the
+    # artifact is the reference's byte for byte and loads there
+    assert got.to_dict()["kernels"]["backend"] == "pallas"
+    assert got.to_json() == J.PipelineConfig.from_dict(d).to_json()
+    assert J.PipelineConfig.from_dict(got.to_dict()) == \
+        J.PipelineConfig.from_dict(d)
     with pytest.raises(ValueError):
         KernelPolicy(backend="pallas")
-    # a port artifact naming "cuda" does not load in the reference
-    with pytest.raises(ValueError):
-        J.PipelineConfig.from_dict(got.to_dict())
+
+
+def test_cuda_session_checkpoint_loads_in_the_reference(tmp_path):
+    """A port ``Session.save`` with ``kernels="cuda"`` loads through the
+    reference's ``Session.load`` (it raised "unknown backend 'cuda'" when the
+    port wrote ``"cuda"`` into the artifact)."""
+    rng = np.random.default_rng(0)
+    x = rng.integers(-3, 4, size=(600, 4)).astype(np.float32)
+    cfg = pipeline_config(dim=4, k=3, t=10, sites=3, kernels="cuda")
+    sess = Session(cfg, device="cpu")
+    sess.ingest(x)
+    sess.refresh()
+    sess.save(tmp_path)
+    back = J.Session.load(tmp_path)
+    assert back.config.kernels == jdispatch.KernelPolicy(backend="pallas")
+    assert back.config.to_json() == cfg.to_json()
+    np.testing.assert_array_equal(np.asarray(back.model.centers),
+                                  sess.model.centers.numpy())
 
 
 def _projections(**over):
@@ -350,6 +383,11 @@ STREAM = dict(dim=4, k=4, t=12, topology="stream", leaf_size=256,
 @pytest.mark.parametrize("store", [None, 0], ids=["resident", "store"])
 @pytest.mark.parametrize("metric", ["l2sq", "l1"])
 def test_stream_session_matches_reference(metric, store, tmp_path):
+    with tobs.using_registry(tobs.MetricsRegistry()) as reg:
+        _stream_session_matches_reference(metric, store, tmp_path, reg)
+
+
+def _stream_session_matches_reference(metric, store, tmp_path, reg):
     kw = {**STREAM, "metric": metric}
     if store is not None:
         kw["store"] = {"hot_levels": store, "directory": str(tmp_path),
@@ -370,7 +408,9 @@ def test_stream_session_matches_reference(metric, store, tmp_path):
     assert got.result is None and want.result is None
     if store is not None:
         assert got.store_stats()["spills"] > 0
-        assert (got.engine.skipped_refreshes, got.engine.warm_starts) == \
+        c = reg.snapshot()["counters"]
+        assert (c["refresh.skipped{topology=stream}"],
+                c["refresh.warm_starts{topology=stream}"]) == \
             (1, 0)   # the final refresh: the root did not change
 
 
@@ -533,15 +573,37 @@ def test_session_error_surface():
 
 @pytest.mark.parametrize("verb", ["serve", "score_stream", "submit_stream",
                                   "stats", "dump_trace"])
-def test_queue4_verbs_raise_naming_the_queue(verb):
-    sess = Session(pipeline_config(dim=4, k=4, t=12), device="cpu")
-    args = {"serve": (), "stats": (), "dump_trace": ("t.json",)}.get(
-        verb, (np.zeros((1, 4), np.float32),))
-    with pytest.raises(NotImplementedError, match="queue 4"):
-        getattr(sess, verb)(*args)
-    with sess as s:             # close() and the context manager: no-ops
-        assert s is sess
-    sess.close()
+def test_queue4_verbs_raise_naming_the_queue(verb, tmp_path):
+    """The verbs that raised before the serving scheduler and the telemetry
+    plane were ported now work on a fitted session (the name is kept)."""
+    x = grid(400, seed=31)
+    with tobs.using_registry(tobs.MetricsRegistry()):
+        sess = Session(pipeline_config(dim=4, k=4, t=12), device="cpu")
+        sess.fit(x)
+        want = sess.score(x[:8])
+        if verb == "serve":
+            sched = sess.serve()
+            assert sess.serve() is sched and sess.serving is sched
+        elif verb == "score_stream":
+            assert_scores_match(
+                list(sess.score_stream(x[:8], timeout=60.0)), want, "l2sq",
+                same_ids=False)
+        elif verb == "submit_stream":
+            tickets = sess.submit_stream(x[:8])
+            assert [t.result(timeout=60.0).center for t in tickets] == \
+                [r.center for r in want]
+        elif verb == "stats":
+            snap = sess.stats()
+            assert snap["version"] == tobs.SNAPSHOT_VERSION
+            assert snap["counters"]["refresh.count{topology=oneshot}"] == 1
+        else:
+            path = sess.dump_trace(tmp_path / "t.json")
+            assert "traceEvents" in json.loads(Path(path).read_text())
+        with sess as s:         # the context manager closes the scheduler
+            assert s is sess
+        assert sess.serving is None
+        sess.close()
+        assert len(sess.score(x[:2])) == 2   # sync verbs outlive close()
 
 
 @pytest.mark.parametrize("kw,queue", [
@@ -549,9 +611,14 @@ def test_queue4_verbs_raise_naming_the_queue(verb):
     (dict(tracing=False, topology="stream"), "queue 4"),
 ])
 def test_unported_topologies_and_tracing_raise(kw, queue):
+    """A config's ``tracing`` section configures the flight recorder (it
+    raised naming ``queue`` before the recorder was ported)."""
     cfg = pipeline_config(dim=4, k=4, t=12, **kw)
-    with pytest.raises(NotImplementedError, match=queue):
+    with tobs.using_registry(tobs.MetricsRegistry()):
         Session(cfg, device="cpu")
+        rec = tobs.get_default_recorder()
+        assert (rec.enabled, rec.sample_rate) == (
+            cfg.tracing.enabled, cfg.tracing.sample_rate)
 
 
 @pytest.mark.parametrize("kw", [dict(topology="sharded", sites=2),

@@ -6,8 +6,11 @@ Each ``examples/`` artifact runs unchanged through ``main([...,
 with every number masked (the draws differ: the CLI runs the port's own
 sampler) — ending in ``ok``.  ``run --save`` round-trips through
 ``Session.load``; bad artifacts are rejected with the reference's
-``SystemExit`` messages; the subcommands and flags that need queue 4's
-telemetry and scheduler exit with a message naming the queue.
+``SystemExit`` messages.  ``stats``, ``trace`` and ``serve --clients /
+--metrics-interval / --metrics-out / --trace-out`` print the reference's
+lines too, and the snapshots and traces they write pass the reference's
+stdlib checkers (``benchmarks/check_obs_snapshot.py``,
+``benchmarks/check_trace.py``) unchanged.
 """
 import json
 import os
@@ -19,7 +22,9 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro import obs as jobs
 from repro.api.cli import main as jax_main
+from repro_torch import obs as tobs
 from repro_torch.api import Session, pipeline_config
 from repro_torch.api.cli import main
 
@@ -111,18 +116,109 @@ def test_cli_rejects_bad_artifacts(tmp_path):
               "--device", "cpu"])
 
 
+OUTPUTS = ("m.jsonl", "s.json", "t.json")
+
+
+def check(script, *args):
+    """Run one of the reference's stdlib checkers on a file; its exit code
+    and output."""
+    out = subprocess.run([sys.executable, str(ROOT / "benchmarks" / script),
+                          *map(str, args)], capture_output=True, text=True,
+                         timeout=120, cwd=ROOT)
+    return out.returncode, out.stdout + out.stderr
+
+
+def _run_both(argv, tmp_path, capsys):
+    """``argv`` through the port's CLI (on the CPU) and the reference's,
+    each under fresh metrics registries and writing its files into its own
+    directory; returns {"port"|"ref": (stdout with the directory masked,
+    directory)}."""
+    outs = {}
+    for name, fn, extra in (("port", main, ["--device", "cpu"]),
+                            ("ref", jax_main, [])):
+        d = tmp_path / name
+        d.mkdir()
+        args = [str(d / a) if a in OUTPUTS
+                else str(EXAMPLES / a) if a.endswith((".toml", ".json"))
+                else a for a in argv]
+        with tobs.using_registry(tobs.MetricsRegistry()), \
+                jobs.using_registry(jobs.MetricsRegistry()):
+            fn(args + extra)
+        outs[name] = (capsys.readouterr().out.replace(str(d), "DIR"), d)
+    return outs
+
+
+def _names(snap):
+    return {kind: {tobs.split_key(k)[0] for k in snap[kind]}
+            for kind in ("counters", "gauges", "histograms")}
+
+
 @pytest.mark.parametrize("argv", [
-    ["serve", "--config", "stream.toml", "--clients", "2"],
-    ["serve", "--config", "stream.toml", "--metrics-interval", "0"],
+    ["serve", "--config", "stream.toml", "--clients", "2",
+     "--load-seconds", "0.5"],
+    ["serve", "--config", "stream.toml", "--metrics-interval", "0",
+     "--metrics-out", "m.jsonl"],
     ["serve", "--config", "stream.toml", "--trace-out", "t.json"],
-    ["stats", "--config", "oneshot.json"],
-    ["trace", "--config", "oneshot.json"],
+    ["stats", "--config", "oneshot.json", "--out", "s.json"],
+    ["trace", "--config", "oneshot.json", "--out", "t.json"],
 ])
-def test_queue4_commands_and_flags_exit_naming_the_queue(argv):
-    argv = [str(EXAMPLES / a) if a.endswith((".toml", ".json"))
-            and a != "t.json" else a for a in argv]
-    with pytest.raises(SystemExit, match="queue 4"):
-        main(argv)
+def test_queue4_commands_and_flags_exit_naming_the_queue(argv, tmp_path,
+                                                         capsys):
+    """The commands and flags that exited naming queue 4 before the
+    telemetry plane and the scheduler were ported: each now prints the
+    reference CLI's lines (numbers masked), and the files it writes pass
+    the reference's checkers."""
+    outs = _run_both(argv, tmp_path, capsys)
+    got, d = outs["port"]
+    assert _lines(got) == _lines(outs["ref"][0])
+    if argv[0] == "serve":
+        assert got.strip().splitlines()[-1] == "ok"
+    if "m.jsonl" in argv:
+        lines = (d / "m.jsonl").read_text().splitlines()
+        ref = (outs["ref"][1] / "m.jsonl").read_text().splitlines()
+        assert len(lines) == len(ref) > 1
+        (d / "last.json").write_text(lines[-1])
+        rc, msg = check("check_obs_snapshot.py", "--snapshot",
+                        d / "last.json", "--require", "serve.latency",
+                        "--require", "phase.ingest")
+        assert rc == 0, msg
+    if "s.json" in argv:
+        snap = json.loads((d / "s.json").read_text())
+        assert _names(snap) == _names(
+            json.loads((outs["ref"][1] / "s.json").read_text()))
+        rc, msg = check("check_obs_snapshot.py", "--snapshot", d / "s.json",
+                        "--require", "serve.latency", "--require",
+                        "comm.records", "--require", "kernels.dispatch",
+                        "--require", "phase.oneshot.second_level")
+        assert rc == 0, msg
+    if "t.json" in argv:
+        need = (["serve.request", "serve.tick", "score.fused"]
+                if argv[0] == "trace" else ["ingest.request", "refresh.fit"])
+        rc, msg = check("check_trace.py", d / "t.json",
+                        *[a for n in need for a in ("--require", n)])
+        assert rc == 0, msg
+
+
+def test_stats_prom_and_trace_jsonl(tmp_path, capsys):
+    """``stats --format prom`` renders the snapshot as Prometheus text and
+    ``trace --format jsonl`` writes one JSON record per span, as the
+    reference's do."""
+    with tobs.using_registry(tobs.MetricsRegistry()):
+        main(["stats", "--config", str(EXAMPLES / "oneshot.json"),
+              "--format", "prom", "--out", str(tmp_path / "p.txt"),
+              "--device", "cpu"])
+        main(["trace", "--config", str(EXAMPLES / "oneshot.json"),
+              "--format", "jsonl", "--sample-rate", "0.5",
+              "--out", str(tmp_path / "t.jsonl"), "--device", "cpu"])
+        assert tobs.get_default_recorder().sample_rate == 0.5
+    out = capsys.readouterr().out
+    assert "wrote prom snapshot" in out and out.strip().endswith("ok")
+    prom = (tmp_path / "p.txt").read_text()
+    assert "# TYPE serve_latency histogram" in prom
+    recs = [json.loads(ln)
+            for ln in (tmp_path / "t.jsonl").read_text().splitlines()]
+    assert recs and {"trace_id", "span_id", "parent_id", "ts",
+                     "dur_s"} <= set(recs[0])
 
 
 def test_python_dash_m_runs_on_the_cpu():

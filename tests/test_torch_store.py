@@ -17,6 +17,7 @@ import torch
 
 import repro.store as JS
 import repro.stream as J
+from repro_torch import obs as tobs
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.data.synthetic import drifting_gauss
 from repro_torch.store import StoreSpec, summary_nbytes
@@ -202,26 +203,35 @@ def test_incremental_refresh_skips_and_scores_like_always_refit():
     for i in range(0, len(x), 2048):
         skip.ingest(x[i:i + 2048])
         refit.ingest(x[i:i + 2048])
-    for _ in range(2):
-        skip.refresh(blocking=True)
-        refit.refresh(blocking=True)
+    regs = {}
+    for svc in (skip, refit):   # each service's refresh counters apart
+        with tobs.using_registry(tobs.MetricsRegistry()) as regs[svc]:
+            for _ in range(2):
+                svc.refresh(blocking=True)
     assert int(refit.model.version) > int(skip.model.version)
-    assert skip.skipped_refreshes >= 1 and refit.skipped_refreshes == 0
+
+    def skipped(svc):
+        return regs[svc].snapshot()["counters"].get(
+            "refresh.skipped{topology=stream}", 0)
+
+    assert skipped(skip) >= 1 and skipped(refit) == 0
     assert_results_equal(skip.score(q), refit.score(q), same_ids=False)
 
 
 def test_warm_start_counter_and_validity():
-    svc = StreamService(_svc_cfg(refresh_every=100_000,
-                                 store=StoreSpec(warm_start_frac=1.0)),
-                        device="cpu")
-    x = _drift(16_000, seed=8)
-    svc.ingest(x[:12_000])
-    svc.refresh(blocking=True)
-    v = int(svc.model.version)
-    svc.ingest(x[12_000:])   # small new mass -> warm-startable
-    svc.refresh(blocking=True)
+    with tobs.using_registry(tobs.MetricsRegistry()) as reg:
+        svc = StreamService(_svc_cfg(refresh_every=100_000,
+                                     store=StoreSpec(warm_start_frac=1.0)),
+                            device="cpu")
+        x = _drift(16_000, seed=8)
+        svc.ingest(x[:12_000])
+        svc.refresh(blocking=True)
+        v = int(svc.model.version)
+        svc.ingest(x[12_000:])   # small new mass -> warm-startable
+        svc.refresh(blocking=True)
     assert int(svc.model.version) == v + 1
-    assert svc.warm_starts >= 1
+    assert reg.snapshot()["counters"][
+        "refresh.warm_starts{topology=stream}"] >= 1
     assert torch.isfinite(svc.model.centers).all()
 
 

@@ -26,6 +26,7 @@ import torch
 
 import repro.stream as J
 from repro import obs
+from repro_torch import obs as tobs
 from repro.store import StoreSpec as JStoreSpec
 from repro_torch.core.sampler import TorchSampler
 from repro_torch.store import StoreSpec
@@ -266,7 +267,8 @@ def test_incremental_refresh_decisions_match_reference():
     refit above it: the same decisions, versions and models."""
     key = jax.random.key(9)
     kw = dict(refresh_every=10**6, metric="l1")
-    with obs.using_registry(obs.MetricsRegistry()) as reg:
+    with obs.using_registry(obs.MetricsRegistry()) as reg, \
+            tobs.using_registry(tobs.MetricsRegistry()) as treg:
         want = J.StreamService(J.ServiceConfig(
             **{**SVC, **kw}, store=JStoreSpec(incremental_refresh=True,
                                           warm_start_frac=0.5)), key)
@@ -288,9 +290,9 @@ def test_incremental_refresh_decisions_match_reference():
             seen.append((_version(got), _version(want)))
             assert_models_equal(got.model, want.model) if got.model else None
         skipped, warm = _counters(reg)
+        assert _counters(treg) == (skipped, warm)
     assert all(g == w for g, w in seen)
     assert [v for v, _ in seen] == [0, 1, 1, 1, 2, 2, 2, 3]
-    assert (got.skipped_refreshes, got.warm_starts) == (skipped, warm)
     assert skipped == 2 and warm == 1
 
 
@@ -320,13 +322,17 @@ def test_discard_pending_and_block_split_match_reference():
 
 
 def test_latency_ring_is_bounded_with_exact_percentiles():
-    svc = StreamService(ServiceConfig(**SVC), device="cpu")
+    """``latency_stats`` reads the ``serve.latency`` histogram: its count
+    covers every request, its percentiles the ring's last
+    ``LATENCY_RING``."""
+    with tobs.using_registry(tobs.MetricsRegistry()):
+        svc = StreamService(ServiceConfig(**SVC), device="cpu")
     svc.ingest(grid(1600, seed=16))
     q = grid(SVC["micro_batch"], seed=17)
     for _ in range(LATENCY_RING // SVC["micro_batch"] + 3):
         svc.score(q)
     st = svc.latency_stats()
-    ring = np.asarray(svc._lat, np.float64)
+    ring = np.asarray(svc._lat._ring, np.float64)
     assert ring.shape == (LATENCY_RING,)
     assert st["count"] == (LATENCY_RING // SVC["micro_batch"] + 3) * 64
     assert st["p50_ms"] == float(np.percentile(ring, 50)) * 1e3
