@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py [--report PATH]
     python3 chip_smoke.py --measure serve,lloyd_split,lloyd_ladder,stream
+    python3 chip_smoke.py --measure train
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX, and:
@@ -124,6 +125,31 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    ``benchmarks/check_trace.py``; ``python -m repro_torch stats`` and
    ``serve --clients 4 --metrics-interval 0 --metrics-out F --trace-out
    F``, their files through the same validators;
+   and rwkv6 training (the "train" phase, once the serving model is
+   released): (a) rwkv6-7b at full width (bf16, WKV on the kernel, remat
+   "nothing", the default AdamW) cut to 8 layers, 1 warm-up and 6 timed
+   steps of 4 x 1024 tokens from ``TokenPipeline`` through
+   ``make_train_step``, each bracketed by a sync and split by CUDA events
+   (forward, backward and the WKV's step-oracle backward in it,
+   ``adamw.apply``), with tokens/s and peak memory; finite metrics, the
+   optimizer's step, changed parameters and 2 x 8 WKV launches a step are
+   checked; (b) at full width, 2 layers, f32, 2 x 256 tokens from one model
+   and batch: the kernel WKV route against the plain chunked route (loss
+   within 1e-4, every gradient leaf within 5e-3 of its largest
+   magnitude), remat none / nothing / dots against each other and inner
+   remat on the plain route, with their WKV launches; (c) in bf16 with f32
+   moments at a narrow width (d = 512, 8 heads of 64): (params, opt_state)
+   saved after step 3 and restored into a fresh model and state, step 4
+   bit for bit the uninterrupted one; (d) ``python -m
+   repro_torch.launch.train --smoke --steps 6 --ckpt-every 3`` and again
+   with ``--steps 8``, which must resume from step 5; (e) the 8-layer
+   model's mean-pooled last hidden states of 40 batches of 16 x 256 tokens,
+   10% of the rows uniform noise, through ``DataCurator`` over 4 sites
+   (min_argmin and lloyd_step, held against their plain versions at these
+   d = 4096 shapes first, must launch in ``detect``): the noise rows'
+   precision and recall reported beside chance, and the same reservoirs
+   through Algorithm 3 on the kernels and on the plain backend, which must
+   flag the same ids up to near-tie flips;
 4. re-runs gauss with ``backend="blocked"`` (the plain torch path) from the
    same seed, and on the kernels from another seed as the yardstick of two
    independent draws, and compares the results; re-runs the rwkv6 prefill
@@ -138,13 +164,16 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    256 x 100 x 5 split into device time per launch (a CUDA graph), host
    time per call and a host breakdown, the Lloyd step at both second
    levels split the same way and beside its assignment alone, and the
-   rwkv6 prefill's tokens/s and decode step latency.
+   rwkv6 prefill's tokens/s and decode step latency; the WKV kernel at the
+   train cell's call shape and the backward pass through the step oracle
+   there.
 
 ``--measure`` runs only the named readings, each after the fits that feed
 it, and prints them as one JSON line: ``serve`` (the serving p50 and p99),
 ``lloyd_split`` and ``lloyd_ladder`` (the Lloyd routes over k and over caps
 of CTAs), ``stream`` (the 1M stream's ingest rows/s resident and tiered,
-and its submit + drain p50 and p99).  One process per reading, in turns
+and its submit + drain p50 and p99), ``train`` (the train phase and the
+WKV's timings at its call shape, alone, after the build).  One process per reading, in turns
 with another tree's, compares two trees; ``serve`` and ``stream`` run on
 any tree of the port from the stream slice on.
 
@@ -252,8 +281,15 @@ def lloyd_work(n, k, d):
 # by the magnitude the expansion works at: x2 + c2 for l2sq (the squared
 # distances for l2), |x|_1 + |c|_1 for l1.  TOL = 1e-5 of that is ~80 f32
 # ulps; a sum of d <= 300 products in another order stays far inside it.
-# The reports call this scaled error max_rel_err.
+# The reports call this scaled error max_rel_err.  Above d = 300 (the
+# curator's d = 4,096) a sum of d products in another order is exact to
+# within d * 2^-24 of the expansion's magnitude, and that bound replaces TOL.
 TOL = 1e-5
+
+
+def tol_for(d):
+    """The scaled tolerance of a distance over d coordinates."""
+    return TOL if d <= 300 else d * 2.0 ** -24
 
 
 def _scale(x, c, metric):
@@ -292,15 +328,16 @@ def dist_err(x, c, dk, dp, ap, metric):
 def argmin_verdict(x, c, a_k, a_p, metric):
     """(mismatches, bad): rows whose argmins differ, and those of them that
     are not near-ties.  A mismatch is allowed only where the two chosen
-    centers are within TOL (scaled as above) of each other in float64, and
-    never on an exact tie (both must then pick the smaller index)."""
+    centers are within ``tol_for(d)`` (scaled as above) of each other in
+    float64,
+    and never on an exact tie (both must then pick the smaller index)."""
     diff = (a_k != a_p).nonzero().flatten()
     if diff.numel() == 0:
         return 0, 0
     xs = x[diff]
     ck, cp = c[a_k[diff].long()], c[a_p[diff].long()]
     gap = (_d64(xs, ck, metric) - _d64(xs, cp, metric)).abs()
-    bad = (gap > TOL * _scale(xs, cp, metric)) | \
+    bad = (gap > tol_for(x.shape[1]) * _scale(xs, cp, metric)) | \
         ((gap == 0) & (a_k[diff] > a_p[diff]))
     return int(diff.numel()), int(bad.sum())
 
@@ -308,7 +345,8 @@ def argmin_verdict(x, c, a_k, a_p, metric):
 def _rec(kernel, name, metric, x, c, **kw):
     return dict(kernel=kernel, case=name, metric=metric,
                 dtype=str(x.dtype).replace("torch.", ""),
-                shape=[x.shape[0], c.shape[0], x.shape[1]], tol=TOL, **kw)
+                shape=[x.shape[0], c.shape[0], x.shape[1]],
+                tol=tol_for(x.shape[1]), **kw)
 
 
 def check_pdist(dev, name, x, c, metric, fail):
@@ -324,7 +362,7 @@ def check_pdist(dev, name, x, c, metric, fail):
     rec = _rec("min_argmin", name, metric, x, c,
                max_abs_err=float(err.max()), max_rel_err=scaled,
                argmin_mismatch=mis, argmin_bad=bad)
-    if bad or not scaled <= TOL:
+    if bad or not scaled <= rec["tol"]:
         fail.append(rec)
     return rec
 
@@ -346,7 +384,7 @@ def check_score(dev, name, x, c, thr, metric, fail):
                max_abs_err=float((sk - sp).abs().max()),
                max_rel_err=scaled, argmin_mismatch=mis, argmin_bad=bad,
                fused_equals_composed_bitwise=bitwise)
-    if bad or not bitwise or not scaled <= TOL:
+    if bad or not bitwise or not scaled <= rec["tol"]:
         fail.append(rec)
     return rec
 
@@ -393,7 +431,8 @@ def check_lloyd(dev, name, x, w, c, metric, fail, route=None):
                counts_rel_err=cerr, argmin_mismatch=mis, argmin_bad=bad,
                deterministic=deterministic,
                bitwise_min_argmin=as_min_argmin)
-    if (bad or not deterministic or not as_min_argmin or not scaled <= TOL
+    if (bad or not deterministic or not as_min_argmin
+            or not scaled <= rec["tol"]
             or not serr <= 1e-4 or not cerr <= 1e-4):
         fail.append(rec)
     return rec
@@ -853,6 +892,12 @@ def wkv_checks(dev):
         ("BH1_bf16_strong", 1, T, K, c, bf16, True, "strong", True),
         ("BH3_f32", 3, 512, K, c, f32, False, "init", True),
         ("BH3_K32_c16_strong", 3, 256, 32, c, bf16, True, "strong", True),
+        # the train phase's calls: the cell's (B 4 x H 64, T 1024) and the
+        # routes check's f32 (B 2, T 256)
+        ("train_bf16_init", 4 * K, TRAIN["seq"], K, c, bf16, True, "init",
+         True),
+        ("train_routes_f32", 2 * K, TRAIN_SMALL["seq"], K, c, f32, True,
+         "init", True),
     ]
     recs, fail = [], []
     for name, bh, t, k, ch, dt, per_row, decay, ref64 in cases:
@@ -1807,14 +1852,15 @@ def session_autotune(dev, fail):
     return out
 
 
-def repro_torch_cli(*args):
-    """``python -m repro_torch ARGS`` in its own process from the root of
-    the checkout: (the finished process, its stdout's lines)."""
+def repro_torch_cli(*args, module="repro_torch"):
+    """``python -m MODULE ARGS`` (default: ``repro_torch``) in its own
+    process from the root of the checkout: (the finished process, its
+    stdout's lines)."""
     import os
     root = Path(__file__).resolve().parent
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
         p for p in (str(root / "src"), os.environ.get("PYTHONPATH")) if p)}
-    proc = subprocess.run([sys.executable, "-m", "repro_torch", *args],
+    proc = subprocess.run([sys.executable, "-m", module, *args],
                           cwd=root, env=env, capture_output=True, text=True,
                           timeout=300)
     return proc, proc.stdout.strip().splitlines()
@@ -3031,6 +3077,573 @@ def rwkv_serving(dev, counted):
     return out
 
 
+# ------------------------------------------------------ rwkv6 training path
+# The train cell: rwkv6-7b FULL at full width (bf16, WKV on the kernel,
+# remat "nothing", the default AdamWConfig), cut from 32 layers to 8 and
+# to batch 4 x seq 1024 of the reference's token pipeline.
+TRAIN = dict(arch="rwkv6-7b", layers=8, batch=4, seq=1024, warmup=1,
+             steps=6, seed=0)
+# (b): full width, 2 layers, batch 2 x seq 256, f32
+TRAIN_SMALL = dict(layers=2, batch=2, seq=256, seed=1)
+# (c): the cell's bf16 and f32 moments at a narrow width (the WKV kernel's
+# head size 64 kept; the full vocabulary), 2 layers, batch 2 x seq 256: a
+# resume is bit for bit at any width, and the checkpoint is 0.8 GB, not 9.7
+TRAIN_RESUME = dict(layers=2, d_model=512, n_heads=8, d_ff=1792, batch=2,
+                    seq=256, seed=1, resume_at=3)
+# (d): the launcher at SMOKE size, then resumed
+TRAIN_CLI = dict(steps=(6, 8), ckpt_every=3)
+# (e): DataCurator on the 8-layer model's mean-pooled last hidden states,
+# examples/train_curated_lm.py's recipe (make_batch: 10% of each batch's
+# rows uniform noise, t = half that fraction).  The noise rows' precision is
+# reported, not gated: with random weights their mean-pooled states sit
+# among the clean rows'.  The gate is the kernels against the plain backend
+# on these embeddings.
+CURATION = dict(batches=40, batch=16, seq=256, noise_frac=0.1, sites=4,
+                k=8, outlier_frac=0.05, min_points=256, reservoir=2048,
+                seed=0)
+# Tolerances of (b): tests/test_models.py::
+# test_rwkv_pallas_wkv_path_matches_jnp's atols (2e-3 on a block's output,
+# 5e-3 on its gradient), scaled: the loss within 1e-4 of itself, each
+# gradient leaf within 5e-3 of its largest magnitude.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_TOL = 5e-3
+
+
+def _train_cfg(layers, **over):
+    from repro_torch.configs import get_config
+    return get_config(TRAIN["arch"]).replace(n_layers=layers,
+                                             wkv_use_pallas=True,
+                                             remat_policy="nothing", **over)
+
+
+def _token_batches(vocab, seq, batch, n, seed, dev):
+    from repro_torch.data.tokens import PipelineConfig, TokenPipeline
+    pipe = TokenPipeline(PipelineConfig(vocab=vocab, seq_len=seq,
+                                        global_batch=batch, seed=seed))
+    return [torch.as_tensor(pipe.global_batch(i)["tokens"], device=dev)
+            for i in range(n)]
+
+
+def _param_sums(model):
+    return torch.stack([p.detach().double().sum()
+                        for p in model.parameters()])
+
+
+class _StepClock:
+    """CUDA events inside ``make_train_step``'s step, through the names it
+    calls: after ``forward_train`` returns, around ``adamw.apply``, and
+    around each ``WKVForward.backward`` (the step oracle's recompute).
+    ``split(i)`` is step i's ms: forward, backward (the recompute of remat
+    included), of it the WKV backward, and ``adamw.apply``.  Off the card
+    it records nothing."""
+
+    def __init__(self, dev):
+        self.on = dev.type == "cuda"
+        self.steps = []
+
+    def _mark(self, key):
+        if self.on:
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            self.steps[-1].setdefault(key, []).append(e)
+
+    def start(self):
+        self.steps.append({})
+        self._mark("start")
+
+    def __enter__(self):
+        from repro_torch.kernels.wkv import ops as wkv_ops
+        from repro_torch.launch import steps as steps_mod
+        from repro_torch.optim import adamw
+        self._orig = (steps_mod.forward_train, adamw.apply,
+                      wkv_ops.WKVForward.backward)
+        fwd, apply, bwd = self._orig
+
+        def fwd_timed(*a, **kw):
+            out = fwd(*a, **kw)
+            self._mark("fwd_end")
+            return out
+
+        def apply_timed(*a, **kw):
+            self._mark("apply_start")
+            out = apply(*a, **kw)
+            self._mark("apply_end")
+            return out
+
+        def bwd_timed(ctx, *a):
+            self._mark("wkv_bwd_start")
+            out = bwd(ctx, *a)
+            self._mark("wkv_bwd_end")
+            return out
+
+        steps_mod.forward_train, adamw.apply = fwd_timed, apply_timed
+        wkv_ops.WKVForward.backward = staticmethod(bwd_timed)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels.wkv import ops as wkv_ops
+        from repro_torch.launch import steps as steps_mod
+        from repro_torch.optim import adamw
+        fwd, apply, bwd = self._orig
+        steps_mod.forward_train, adamw.apply = fwd, apply
+        wkv_ops.WKVForward.backward = staticmethod(bwd)
+
+    def split(self, i):
+        m = self.steps[i]
+        ms = lambda a, b: a.elapsed_time(b)            # noqa: E731
+        return {"forward_ms": ms(m["start"][0], m["fwd_end"][0]),
+                "backward_ms": ms(m["fwd_end"][0], m["apply_start"][0]),
+                "wkv_backward_ms": sum(
+                    ms(a, b) for a, b in zip(m["wkv_bwd_start"],
+                                             m["wkv_bwd_end"])),
+                "wkv_backward_calls": len(m["wkv_bwd_start"]),
+                "adamw_ms": ms(m["apply_start"][0], m["apply_end"][0])}
+
+
+def train_steps(dev, counted, fail):
+    """(a) 1 warm-up and 6 timed steps of the train cell through
+    ``make_train_step``, each bracketed by a sync; each step split by CUDA
+    events (``_StepClock``).  Returns (report, model, cfg)."""
+    from repro_torch.kernels.wkv.kernel import wkv_forward_cuda
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    cfg = _train_cfg(TRAIN["layers"])
+    B, S = TRAIN["batch"], TRAIN["seq"]
+    n = TRAIN["warmup"] + TRAIN["steps"]
+    batches = _token_batches(cfg.vocab, S, B, n, TRAIN["seed"], dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = init_params(cfg, TRAIN["seed"], device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    step, optc = make_train_step(cfg, device=dev)
+    opt = adamw.init(model, optc)
+    before = _param_sums(model)
+
+    def run(batches):
+        nonlocal model, opt
+        rows = []
+        for b in batches:
+            sync(dev)
+            clock.start()
+            t0 = time.perf_counter()
+            model, opt, m = step(model, opt, {"tokens": b})
+            sync(dev)
+            rows.append(dict(s=time.perf_counter() - t0,
+                             loss=float(m["loss"]), ce=float(m["ce"]),
+                             grad_norm=float(m["grad_norm"]),
+                             lr=float(m["lr"])))
+            if clock.on:
+                rows[-1].update(clock.split(len(clock.steps) - 1))
+        return rows
+
+    with _StepClock(dev) as clock:
+        warm = run(batches[:TRAIN["warmup"]])
+        rows = counted("rwkv6_7b_train", ("wkv_forward",),
+                       lambda: run(batches[TRAIN["warmup"]:]))
+    wkv = wkv_forward_cuda.launches
+    peak = (torch.cuda.max_memory_allocated(dev) / 1e9 if clock.on
+            else None)
+    step_s = [r["s"] for r in rows]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "remat": cfg.remat_policy, "wkv_chunk": cfg.wkv_chunk,
+           "state_dtype": optc.state_dtype, "params": n_params,
+           "batch": B, "seq": S, "warmup": warm, "steps": rows,
+           "s_per_step_median": float(np.median(step_s)),
+           "tokens_per_s": B * S * len(rows) / float(np.sum(step_s)),
+           "peak_mem_gb": peak, "wkv_launches": wkv,
+           "wkv_launches_per_step": wkv / len(rows),
+           "opt_step": int(opt.step)}
+    if clock.on:
+        for key in ("forward_ms", "backward_ms", "wkv_backward_ms",
+                    "adamw_ms"):
+            out[f"{key}_median"] = float(np.median([r[key] for r in rows]))
+        out["wkv_backward_share"] = float(np.median(
+            [r["wkv_backward_ms"] / (r["s"] * 1e3) for r in rows]))
+    log("train steps", json.dumps(out))
+    if not all(np.isfinite([r["loss"], r["grad_norm"]]).all()
+               for r in warm + rows):
+        fail.append("train: a loss or grad norm is not finite")
+    if out["opt_step"] != n:
+        fail.append(f"train: opt_state.step {out['opt_step']} != {n}")
+    if bool(torch.equal(before, _param_sums(model))):
+        fail.append("train: the parameters did not change")
+    if wkv != 2 * cfg.n_layers * len(rows):
+        fail.append(f"train: {wkv} WKV launches in {len(rows)} steps, "
+                    f"expected 2 x {cfg.n_layers} a step (remat 'nothing' "
+                    f"runs each layer's forward twice)")
+    del opt
+    return out, model, cfg
+
+
+def _grad_rel(ga, gb):
+    """The largest leaf's max |a - b| / max |b| over two gradient lists."""
+    return max(float((a.double() - b.double()).abs().max())
+               / max(float(b.abs().max()), 1e-30) for a, b in zip(ga, gb))
+
+
+def _loss_and_grads(model, cfg, tokens):
+    from repro_torch.models.transformer import forward_train
+    loss, _ = forward_train(model, {"tokens": tokens}, cfg)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    return float(loss.detach()), grads
+
+
+def train_routes(dev, fail):
+    """(b) Full width, 2 layers, f32, B = 2 x T = 256, from one model and
+    batch: the kernel route against the plain chunked route; the three
+    remat policies on the kernel route; inner remat on the plain route."""
+    from repro_torch.kernels.wkv.kernel import wkv_forward_cuda
+    from repro_torch.models.transformer import init_params
+    sm = TRAIN_SMALL
+    cfg = _train_cfg(sm["layers"], dtype="float32")
+    model = init_params(cfg, sm["seed"], device=dev)
+    tokens = _token_batches(cfg.vocab, sm["seq"], sm["batch"], 1,
+                            sm["seed"], dev)[0]
+    runs = {}
+    launches = {}
+    for name, over in (("kernel_nothing", {}),
+                       ("kernel_none", dict(remat_policy="none")),
+                       ("kernel_dots", dict(remat_policy="dots")),
+                       ("plain_nothing", dict(wkv_use_pallas=False)),
+                       ("plain_inner_remat", dict(wkv_use_pallas=False,
+                                                  wkv_inner_remat=True))):
+        wkv_forward_cuda.launches = 0
+        runs[name] = _loss_and_grads(model, cfg.replace(**over), tokens)
+        sync(dev)
+        launches[name] = wkv_forward_cuda.launches
+    base_l, base_g = runs["kernel_nothing"]
+    pl_l, pl_g = runs["plain_nothing"]
+    grad_err = _grad_rel(base_g, pl_g)
+    out = {"layers": cfg.n_layers, "dtype": cfg.dtype, "batch": sm["batch"],
+           "seq": sm["seq"], "loss": {k: v[0] for k, v in runs.items()},
+           "kernel_vs_plain_loss_rel": abs(base_l - pl_l) / abs(pl_l),
+           "kernel_vs_plain_grad_rel_max": grad_err,
+           "wkv_launches": launches}
+    for name in ("kernel_none", "kernel_dots"):
+        l_, g_ = runs[name]
+        out[f"{name}_vs_nothing_bitwise"] = bool(
+            l_ == base_l and all(torch.equal(a, b)
+                                 for a, b in zip(g_, base_g)))
+        out[f"{name}_vs_nothing_grad_rel_max"] = _grad_rel(g_, base_g)
+    l_, g_ = runs["plain_inner_remat"]
+    out["inner_remat_vs_plain_bitwise"] = bool(
+        l_ == pl_l and all(torch.equal(a, b) for a, b in zip(g_, pl_g)))
+    out["inner_remat_vs_plain_grad_rel_max"] = _grad_rel(g_, pl_g)
+    log("train routes", json.dumps(out))
+    if not (out["kernel_vs_plain_loss_rel"] <= TRAIN_LOSS_RTOL
+            and grad_err <= TRAIN_GRAD_TOL):
+        fail.append("train routes: kernel route vs plain route")
+    for name in ("kernel_none_vs_nothing", "kernel_dots_vs_nothing",
+                 "inner_remat_vs_plain"):
+        if not out[f"{name}_grad_rel_max"] <= TRAIN_GRAD_TOL:
+            fail.append(f"train routes: {name}")
+    L = cfg.n_layers
+    want = {"kernel_nothing": 2 * L, "kernel_none": L, "kernel_dots": 2 * L,
+            "plain_nothing": 0, "plain_inner_remat": 0}
+    if launches != want:
+        fail.append(f"train routes: WKV launches {launches}, expected "
+                    f"{want}")
+    return out
+
+
+def train_resume(dev, tmp, fail):
+    """(c) The cell's bf16 and f32 moments at TRAIN_RESUME's width: save
+    (params, opt_state) after step 3, restore into a fresh model and state,
+    and step 4 must be bit for bit the uninterrupted run's."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import restore_train_state, train_state_tree
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    sm = TRAIN_RESUME
+    cfg = _train_cfg(sm["layers"], d_model=sm["d_model"],
+                     n_heads=sm["n_heads"], n_kv_heads=sm["n_heads"],
+                     d_ff=sm["d_ff"])
+    at = sm["resume_at"]
+    batches = _token_batches(cfg.vocab, sm["seq"], sm["batch"], at + 1,
+                             sm["seed"], dev)
+    step, optc = make_train_step(cfg, device=dev)
+    model = init_params(cfg, sm["seed"], device=dev)
+    opt = adamw.init(model, optc)
+    for b in batches[:at]:
+        model, opt, _ = step(model, opt, {"tokens": b})
+    ckpt = CheckpointManager(tmp / "train_resume", keep_last=1)
+    sync(dev)
+    t0 = time.perf_counter()
+    ckpt.save(at - 1, train_state_tree(model, opt), blocking=True)
+    save_s = time.perf_counter() - t0
+    nbytes = sum(f.stat().st_size for f in (tmp / "train_resume").rglob("*"))
+    model, opt, m = step(model, opt, {"tokens": batches[at]})
+    want = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    want_loss = float(m["loss"])
+    del model, opt
+    fresh = init_params(cfg, sm["seed"] + 1, device=dev)
+    sync(dev)
+    t0 = time.perf_counter()
+    fresh, opt, saved = restore_train_state(ckpt, fresh, cfg, optc, dev)
+    sync(dev)
+    restore_s = time.perf_counter() - t0
+    fresh, opt, m = step(fresh, opt, {"tokens": batches[at]})
+    same = all(torch.equal(p.detach().cpu(), want[n])
+               for n, p in fresh.named_parameters())
+    out = {"layers": cfg.n_layers, "d_model": cfg.d_model,
+           "dtype": cfg.dtype, "state_dtype": optc.state_dtype,
+           "saved_step": saved,
+           "checkpoint_gb": nbytes / 1e9, "save_s": save_s,
+           "restore_s": restore_s, "loss": float(m["loss"]),
+           "uninterrupted_loss": want_loss,
+           "params_bitwise": same, "opt_step": int(opt.step)}
+    log("train resume", json.dumps(out))
+    if not (same and out["loss"] == want_loss and saved == at - 1
+            and out["opt_step"] == at + 1):
+        fail.append("train resume: the resumed step is not bit for bit the "
+                    "uninterrupted one")
+    return out
+
+
+def train_cli(tmp, fail):
+    """(d) ``python -m repro_torch.launch.train`` at SMOKE size on the card,
+    then again with more steps: it must resume from the last checkpoint."""
+    ckpt_dir = str(tmp / "train_cli")
+    out = []
+    first, last = TRAIN_CLI["steps"]
+    for steps in (first, last):
+        t0 = time.perf_counter()
+        proc, lines = repro_torch_cli(
+            "--arch", TRAIN["arch"], "--smoke", "--steps", str(steps),
+            "--ckpt-every", str(TRAIN_CLI["ckpt_every"]), "--ckpt-dir",
+            ckpt_dir, module="repro_torch.launch.train")
+        for line in lines:
+            log(f"train cli --steps {steps} |", line)
+        rec = {"steps": steps, "rc": proc.returncode,
+               "s": time.perf_counter() - t0,
+               "resumed": f"resumed from step {first - 1}" in lines}
+        out.append(rec)
+        if proc.returncode != 0:
+            log("train cli stderr |", proc.stderr[-4000:])
+            fail.append(f"train cli --steps {steps}: rc {proc.returncode}")
+    if not out[1]["resumed"] or out[0]["resumed"]:
+        fail.append(f"train cli: the second run did not print 'resumed from "
+                    f"step {first - 1}'")
+    return out
+
+
+def _hidden_means(model, cfg, tokens):
+    """Mean-pooled last hidden state (before the final norm), no grad, as
+    ``examples/train_curated_lm.py`` computes its embeddings."""
+    from repro_torch.models.layers import embed
+    from repro_torch.models.rwkv6 import rwkv_block
+    with torch.no_grad():
+        x = embed(model.embed.table, tokens)
+        for blk in model.layers:
+            x, _ = rwkv_block(blk, x, cfg)
+        return x.float().mean(1)
+
+
+def curation_kernel_checks(dev, emb, fail):
+    """min_argmin and lloyd_step at the curator's call shapes (d = 4096),
+    on random rows and on the model's embeddings, against their plain
+    versions (to ``tol_for(d)``)."""
+    c = CURATION
+    n = c["batches"] * c["batch"]
+    ps = path_shapes(n, c["k"], int(c["outlier_frac"] * n), c["sites"])
+    d = emb.shape[1]
+    g = torch.Generator(device="cpu").manual_seed(4)
+    rnd = lambda *s: torch.randn(*s, generator=g).to(dev)   # noqa: E731
+    recs, bad = [], []
+    site = emb[:ps["n_site"]].contiguous()
+    pick = torch.randperm(n, generator=g).to(dev)
+    cases = [("curation_alg1_round", rnd(ps["n_site"], d), rnd(ps["m"], d)),
+             ("curation_alg2_reassign", rnd(ps["n_site"], d),
+              rnd(ps["center_cap"], d)),
+             ("curation_emb_round", site,
+              emb[pick[:ps["m"]]].contiguous()),
+             ("curation_emb_final", emb, emb[pick[:c["k"]]].contiguous())]
+    for name, x, cc in cases:
+        recs.append(check_pdist(dev, name, x, cc, "l2sq", bad))
+    for name, x in (("curation_second_level", rnd(ps["n_rec"], d)),
+                    ("curation_emb_second_level", emb)):
+        w = torch.rand(x.shape[0], generator=g).to(dev) * 3
+        cc = x[pick[:c["k"]] % x.shape[0]].contiguous()
+        recs.append(check_lloyd(dev, name, x, w, cc, "l2sq", bad))
+    for r in recs:
+        log("check", json.dumps(r))
+    fail += [f"curation kernel check {r['case']}" for r in bad]
+    return recs
+
+
+def _flip_verdict(x, ra, rb, metric="l2sq"):
+    """(flips, bad) between two detects of the same reservoirs: the ids
+    one run flagged and the other did not, and those of them that are not
+    near-ties.  An id a flagged and b did not is a near-tie when its
+    float64 distance to b's nearest center is within ``tol_for(d)`` (scaled
+    as ``argmin_verdict``) of b's cut, the least such distance among b's
+    flagged rows; and the same the other way."""
+    xs = torch.as_tensor(x, dtype=torch.float64)
+    ids = {n: set(r["outlier_ids"].tolist()) for n, r in (("a", ra),
+                                                          ("b", rb))}
+    flips = sorted(ids["a"] ^ ids["b"])
+    if not flips:
+        return 0, 0
+    tol = tol_for(xs.shape[1])
+    bad = 0
+    for other, r in (("b", rb), ("a", ra)):
+        c = torch.as_tensor(r["centers"], dtype=torch.float64)
+        mine = sorted(ids[other])
+        near = torch.cdist(xs, c).pow(2).min(1)
+        cut = float(near.values[mine].min()) if mine else 0.0
+        for i in flips:
+            if i in ids[other]:
+                continue
+            scale = float(_scale(xs[i:i + 1], c[near.indices[i:i + 1]],
+                                 metric)[0])
+            bad += abs(float(near.values[i]) - cut) > tol * scale
+    return len(flips), bad
+
+
+def _curate(dev, counted, label, emb, planted):
+    """``DataCurator`` fed ``emb`` (rows, d) batch by batch, each batch's
+    rows split over the sites (``examples/train_curated_lm.py``'s loop),
+    then ``detect``, counted as ``label``: the precision and recall of the
+    flagged ``planted`` rows beside chance (the planted share).  Then the
+    same reservoirs through Algorithm 3 twice more, from the curator's
+    seed, on the kernels and on the plain (blocked) backend: the first
+    must flag what ``detect`` flagged, the second the same ids up to
+    near-tie flips (``_flip_verdict``)."""
+    from repro_torch.core.curation import CuratorConfig, DataCurator
+    from repro_torch.core.distributed import simulate_coordinator
+    from repro_torch.core.sampler import TorchSampler
+    from repro_torch.kernels.dispatch import KernelPolicy
+    c = CURATION
+    curator = DataCurator(n_sites=c["sites"], cfg=CuratorConfig(
+        k=c["k"], outlier_frac=c["outlier_frac"], min_points=c["min_points"],
+        reservoir=c["reservoir"], seed=c["seed"]), device=dev)
+    for lo in range(0, emb.shape[0], c["batch"]):
+        seq_ids = np.arange(lo, min(lo + c["batch"], emb.shape[0]))
+        for s_i, idx in enumerate(np.array_split(seq_ids, c["sites"])):
+            curator.observe(s_i, emb[idx], idx)
+    t0 = time.perf_counter()
+    flagged, comm = counted(label, ("min_argmin", "lloyd_step"),
+                            curator.detect)
+    detect_s = time.perf_counter() - t0
+    flagged = np.asarray([] if flagged is None else flagged, np.int64)
+    hits = len(set(flagged.tolist()) & set(planted))
+    # detect's own call (core/curation.py), once per backend
+    parts = [np.stack(b) for b in curator._buf if b]
+    ids = np.concatenate([np.asarray(i) for i in curator._ids if len(i)])
+    t = max(1, int(c["outlier_frac"] * curator.n_points))
+    res = {b: simulate_coordinator(
+        parts, TorchSampler(c["seed"]), k=c["k"], t=t,
+        summary_alg="augmented", policy=KernelPolicy(backend=b), device=dev)
+        for b in ("cuda", "blocked")}
+    flips, bad = _flip_verdict(np.concatenate(parts), res["cuda"],
+                               res["blocked"])
+    return {"rows": curator.n_points, "planted": len(planted),
+            "flagged": len(flagged), "t": t,
+            "precision": hits / max(1, len(flagged)),
+            "recall": hits / max(1, len(planted)),
+            "chance_precision": len(planted) / max(1, curator.n_points),
+            "comm_records": comm, "detect_s": detect_s,
+            "flagged_unique_and_observed": bool(
+                len(set(flagged.tolist())) == len(flagged)
+                and set(flagged.tolist()) <= set(range(emb.shape[0]))),
+            "detect_equals_cuda_run": bool(np.array_equal(
+                np.sort(ids[res["cuda"]["outlier_ids"]]), np.sort(flagged))),
+            "cuda_vs_blocked_flips": flips, "cuda_vs_blocked_bad": bad,
+            "comm_records_cuda_blocked": [res[b]["comm_records"]
+                                          for b in ("cuda", "blocked")]}
+
+
+def train_curation(dev, counted, model, cfg, fail):
+    """(e) 40 batches of 16 x 256 through the 8-layer model (no grad), 10%
+    of each batch's rows replaced by uniform noise tokens; their
+    embeddings into ``DataCurator`` over 4 sites, then ``detect`` (it must
+    launch min_argmin and lloyd_step): the precision and recall of the
+    flagged noise rows, reported beside chance.  The gate on the model's
+    own embeddings is the kernels against their plain versions, at the
+    call shapes and through Algorithm 3 end to end (``_curate``)."""
+    from repro_torch.data.tokens import PipelineConfig, TokenPipeline
+    c = CURATION
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=c["seq"],
+                                        global_batch=c["batch"],
+                                        seed=c["seed"]))
+    rng = np.random.default_rng(c["seed"])
+    planted = []
+
+    def embed_rows():
+        embs = []
+        for step in range(c["batches"]):
+            b = pipe.global_batch(step)["tokens"].copy()
+            n_noise = int(c["noise_frac"] * b.shape[0])
+            noisy = rng.choice(b.shape[0], n_noise, replace=False)
+            b[noisy] = rng.integers(0, cfg.vocab, size=(n_noise, b.shape[1]))
+            planted.extend((step * b.shape[0] + noisy).tolist())
+            embs.append(_hidden_means(model, cfg,
+                                      torch.as_tensor(b, device=dev)))
+        out = torch.cat(embs)
+        sync(dev)
+        return out
+
+    t0 = time.perf_counter()
+    emb = counted("curation_embed", ("wkv_forward",), embed_rows)
+    embed_s = time.perf_counter() - t0
+    checks = curation_kernel_checks(dev, emb, fail)
+    noise = _curate(dev, counted, "curation_detect", emb.cpu().numpy(),
+                    planted)
+    out = {"d": int(emb.shape[1]), "embed_s": embed_s, "checks": len(checks),
+           "noise_rows": noise}
+    log("train curation", json.dumps(out))
+    if not (noise["flagged"] > 0 and noise["flagged_unique_and_observed"]):
+        fail.append("curation: flagged ids malformed")
+    if not noise["detect_equals_cuda_run"]:
+        fail.append("curation: detect's ids are not its own call's")
+    if noise["cuda_vs_blocked_bad"]:
+        fail.append(f"curation: the kernels and the plain backend flag "
+                    f"other ids ({noise['cuda_vs_blocked_bad']} of "
+                    f"{noise['cuda_vs_blocked_flips']} flips not near-ties)")
+    return out
+
+
+def train_phase(dev, counted):
+    """The "train" phase (a)-(e).  Returns the report; raises on any
+    failure."""
+    import gc
+    import tempfile
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    fail, part_s = [], {}
+    t0 = time.perf_counter()
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        sync(dev)
+        part_s[name] = time.perf_counter() - t
+        return out
+
+    steps_out, model, cfg = part("steps", train_steps, dev, counted, fail)
+    curation_out = part("curation", train_curation, dev, counted, model,
+                        cfg, fail)
+    del model
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    routes_out = part("routes", train_routes, dev, fail)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-train-") as tmp:
+        resume_out = part("resume", train_resume, dev, Path(tmp), fail)
+        cli_out = part("cli", train_cli, Path(tmp), fail)
+    out = {"steps": steps_out, "routes": routes_out, "resume": resume_out,
+           "cli": cli_out, "curation": curation_out, "part_s": part_s,
+           "train_s": time.perf_counter() - t0}
+    log(f"train_s {out['train_s']:.2f}", json.dumps(part_s))
+    if fail:
+        raise AssertionError(f"train phase failed: {fail}")
+    return out
+
+
 # --------------------------------------------------------------- timings
 def cdist_min(x, c, chunk=16_384):
     """Yardstick only: row-chunked ``torch.cdist`` + min (never in the
@@ -3475,6 +4088,36 @@ def wkv_timings(dev):
                  b1_ms=b1_ms, b1_bound_ms=b1_bound, blocks_per_sm=occ)]
 
 
+def wkv_train_timings(dev):
+    """The WKV kernel at the train cell's call shape (BH = 4 x 64, T =
+    1024, bf16 r/k/v, per-row u) beside its plain version and bound, and
+    the backward pass of ``wkv_forward`` there: the step oracle recomputed
+    under autograd (``kernels/wkv/ops.py``), as the reference does."""
+    from repro_torch.kernels.wkv.kernel import (wkv_forward_cuda,
+                                                wkv_forward_plain)
+    from repro_torch.kernels.wkv.ops import wkv_forward
+    g = torch.Generator(device="cpu").manual_seed(6)
+    BH, T, K, c = 4 * 64, TRAIN["seq"], 64, WKV_MAIN["chunk"]
+    args = wkv_inputs(dev, g, BH, T, K, torch.bfloat16, per_row_u=True,
+                      decay="init")
+    ms = time_ms(lambda: wkv_forward_cuda(*args, chunk=c), 20)
+    plain = time_ms(lambda: wkv_forward_plain(*args, chunk=c), 2)
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    o, sT = wkv_forward(*leaves, c)
+    do, dsT = torch.randn_like(o), torch.randn_like(sT)
+    bwd = time_ms(lambda: torch.autograd.grad((o, sT), leaves, (do, dsT),
+                                              retain_graph=True), 2)
+    work = wkv_work(BH, T, K, 2, c)
+    b, by = bound_ms(*work)
+    log(f"timing wkv_forward rwkv6_train [{BH}, {T}, {K}] c={c}: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, bound {b:.4f} ms ({by}); "
+        f"backward (step oracle under autograd) {bwd:.1f} ms")
+    return [dict(kernel="wkv_forward", shape_name="rwkv6_train_bf16",
+                 shape=[BH, T, K, c], ms=ms, plain_ms=plain, library_ms=None,
+                 bound_ms=b, bound_by=by, bytes=work[0], flops=work[1],
+                 backward_oracle_ms=bwd)]
+
+
 # ------------------------------------------------------------------- main
 def nvidia_smi() -> str:
     out = subprocess.run(
@@ -3525,7 +4168,25 @@ def make_data(dev):
     return kdd_np, kdd_truth, kdd_x, gauss_np, gauss_truth, gauss_x, ks, gs
 
 
-MEASURES = ("serve", "lloyd_split", "lloyd_ladder", "stream")
+MEASURES = ("serve", "lloyd_split", "lloyd_ladder", "stream", "train")
+
+
+def counted_runs(kernels, per_run):
+    """``counted(label, needs, fn)``: every kernel's launch count set to 0
+    just before ``fn`` and read just after into ``per_run[label]``; raises
+    unless each kernel named in ``needs`` launched."""
+    def counted(label, needs, fn):
+        for kern in kernels:
+            kern.launches = 0
+        out = fn()
+        per_run[label] = {k.name: k.launches for k in kernels}
+        log("launches", label, json.dumps(per_run[label]))
+        for name in needs:
+            if per_run[label][name] <= 0:
+                raise AssertionError(f"kernel {name} was not launched by "
+                                     f"the {label} run")
+        return out
+    return counted
 
 
 def run_measure(dev: torch.device, card: str, phases) -> dict:
@@ -3533,12 +4194,27 @@ def run_measure(dev: torch.device, card: str, phases) -> dict:
     them, in the full run's order: the kdd fit, serving, the gauss fit, then
     the Lloyd step's split and ladder at its two timed shapes.  One fresh
     process per reading; ``serve`` calls only the port's entry points, so
-    this script can read it on another tree of the port as well."""
+    this script can read it on another tree of the port as well.  ``train``
+    (the train phase and the WKV's timings at its shape) needs no fit and
+    runs alone."""
     from repro_torch.api.session import _model_from_result
     from repro_torch.kernels import _build
     from repro_torch.kernels.dispatch import KernelPolicy
     log(f"card: {card}")
     _build.build_all()
+    if "train" in phases:
+        if len(phases) > 1:
+            raise ValueError("--measure train runs alone")
+        from repro_torch.kernels.lloyd.kernel import lloyd_step_cuda
+        from repro_torch.kernels.pdist.kernel import min_argmin_cuda
+        from repro_torch.kernels.score.kernel import score_cuda
+        from repro_torch.kernels.wkv.kernel import wkv_forward_cuda
+        per_run = {}
+        counted = counted_runs((min_argmin_cuda, lloyd_step_cuda, score_cuda,
+                                wkv_forward_cuda), per_run)
+        return {"card": card, "train": train_phase(dev, counted),
+                "wkv_train_timings": wkv_train_timings(dev),
+                "launches_per_run": per_run}
     kdd_np, kdd_truth, kdd_x, _, gauss_truth, gauss_x, _, gs = make_data(dev)
     auto = KernelPolicy()
     out = {"card": card}
@@ -3655,18 +4331,7 @@ def run(dev: torch.device, card: str) -> dict:
     kernels = (min_argmin_cuda, lloyd_step_cuda, score_cuda,
                wkv_forward_cuda)
     per_run = {}
-
-    def counted(label, needs, fn):
-        for kern in kernels:
-            kern.launches = 0
-        out = fn()
-        per_run[label] = {k.name: k.launches for k in kernels}
-        log("launches", label, json.dumps(per_run[label]))
-        for name in needs:
-            if per_run[label][name] <= 0:
-                raise AssertionError(f"kernel {name} was not launched by "
-                                     f"the {label} run")
-        return out
+    counted = counted_runs(kernels, per_run)
 
     auto = KernelPolicy()
     kdd_res, kdd_out = counted("kddFull_like_fit", ("min_argmin",
@@ -3790,13 +4455,17 @@ def run(dev: torch.device, card: str) -> dict:
     # ---- 3b and 4b. rwkv6-7b serving (prefill + decode), then its
     # plain-WKV twin and the teacher-forcing check
     rwkv_out = rwkv_serving(dev, counted)
+
+    # ---- 3h. rwkv6-7b training (the "train" phase), with the serving
+    # model released
+    train_out = train_phase(dev, counted)
     launches = {k.name: sum(r[k.name] for r in per_run.values())
                 for k in kernels}
     log("main_path_launches", json.dumps(launches))
 
     # ---- 5. timings at the main path's shapes
     timings = kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs)
-    timings += stream_rows + wkv_timings(dev)
+    timings += stream_rows + wkv_timings(dev) + wkv_train_timings(dev)
     ladder = route_ladder(dev, kdd_x, gauss_x, ks, gs)
 
     entries = []
@@ -3820,7 +4489,7 @@ def run(dev: torch.device, card: str) -> dict:
         })
     report = {"card": card, "build_s": build_s, "checks": checks,
               "main_path": [kdd_out, g_out], "serve": serve_out,
-              "rwkv6_serving": rwkv_out,
+              "rwkv6_serving": rwkv_out, "train": train_out,
               "kernel_vs_blocked": cmp, "head_to_head": h2h,
               "stream": stream_out, "session": session_out,
               "serving": serving_out,

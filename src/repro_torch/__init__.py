@@ -4,8 +4,8 @@ system in ``repro`` (the JAX reference, which stays the parity target).
 Layout copies ``repro`` module for module, so each reference file has one
 counterpart: ``repro.core.summary`` -> ``repro_torch.core.summary`` and so
 on.  The compute hot-spots (``min_argmin``, ``lloyd_step``, ``score`` on the
-clustering path, the chunked WKV6 forward on the rwkv6 serving path) have
-hand-written CUDA kernels for Hopper (``kernels/csrc``), built with nvcc at
+clustering path, the chunked WKV6 forward on the rwkv6 serving and training
+paths) have hand-written CUDA kernels for Hopper (``kernels/csrc``), built with nvcc at
 first use; every other piece is plain torch code.
 
 Entry points take ``device=`` and default to ``"cuda"``; they raise when no

@@ -79,14 +79,35 @@ def unflatten(like, leaves) -> object:
     return build(like)
 
 
+# bf16 leaves go to disk as the reference writes them (ml_dtypes' bfloat16
+# saves as raw two-byte words, '<V2', with "bfloat16" in the manifest), and
+# come back as bf16 tensors: numpy has no bf16 of its own.
+_BF16_WORDS = np.dtype("V2")
+
+
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        # a copy even when the tensor already lies on the CPU (``.cpu()``
+        # would return it, and ``.numpy()`` share its memory): save()'s
+        # caller may update its tensors in place once it returns
+        leaf = leaf.detach().to("cpu", copy=True)
+        if leaf.dtype == torch.bfloat16:
+            return leaf.view(torch.int16).numpy().view(_BF16_WORDS)
+        return leaf.numpy()
     return np.asarray(leaf)
+
+
+def _dtype_name(arr: np.ndarray) -> str:
+    return "bfloat16" if arr.dtype == _BF16_WORDS else str(arr.dtype)
 
 
 def _shape(leaf) -> tuple:
     return tuple(leaf.shape) if hasattr(leaf, "shape") else ()
+
+
+def _is_bf16(leaf) -> bool:
+    return (leaf.dtype == torch.bfloat16 if isinstance(leaf, torch.Tensor)
+            else np.asarray(leaf).dtype.name == "bfloat16")
 
 
 def _numpy_dtype(leaf) -> np.dtype:
@@ -164,7 +185,7 @@ class CheckpointManager:
             manifest["leaves"].append({
                 "file": name,
                 "shape": list(arr.shape),
-                "dtype": str(arr.dtype),
+                "dtype": _dtype_name(arr),
                 "crc32": zlib.crc32(
                     np.ascontiguousarray(arr).tobytes()),
             })
@@ -220,7 +241,9 @@ class CheckpointManager:
                 verify: bool = True, device=None):
         """Restore into the structure of `tree_like` (shapes must match;
         each leaf is cast to its `tree_like` leaf's dtype).  Leaves come back
-        as numpy arrays, or as tensors on `device` when one is named.
+        as numpy arrays, or as tensors on `device` when one is named; a bf16
+        leaf (a bf16 tensor or an ml_dtypes array in `tree_like`) comes
+        back as a bf16 tensor, on the CPU when no device is named.
         Returns (tree, step)."""
         self.wait()
         step = step if step is not None else self.latest_step()
@@ -246,6 +269,12 @@ class CheckpointManager:
                 if tuple(arr.shape) != _shape(like):
                     raise ValueError(
                         f"shape mismatch {arr.shape} vs {_shape(like)}")
+                if _is_bf16(like):
+                    t = torch.from_numpy(
+                        np.ascontiguousarray(arr).view(np.int16)).view(
+                            torch.bfloat16)
+                    out.append(t if device is None else t.to(device))
+                    continue
                 arr = arr.astype(_numpy_dtype(like))
                 out.append(arr if device is None
                            else torch.as_tensor(arr, device=device))

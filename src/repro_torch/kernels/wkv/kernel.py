@@ -26,6 +26,7 @@ whole).
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import _build
 
@@ -70,9 +71,41 @@ def _check_shapes(r, k, v, lw, u, s0, chunk: int) -> int:
     return c
 
 
-def wkv_forward_plain(r, k, v, lw, u, s0, *, chunk: int = 16):
+def _chunk(s, r, k, v, lw, u2, mask, compute_dtype):
+    """One chunk of the sweep: (S after it, o of its c tokens)."""
+    rr, kk, vv, ll = (a.float() for a in (r, k, v, lw))
+    lin = torch.cumsum(ll, dim=1)
+    lprev = lin - ll
+    a = torch.exp(lprev[:, :, None, :] - lin[:, None, :, :])      # (BH,c,c,K)
+    a = torch.where(mask[None, :, :, None], a, 0.0)
+
+    def rnd(x):
+        # the reference's compute dtype for the big intra-chunk operands;
+        # a product of two or three bf16 values is exact in f32, so only
+        # the order of the sums differs from its f32-accumulating einsums
+        return x.to(compute_dtype).float()
+
+    w_ts = torch.einsum("bti,btsi,bsi->bts", rnd(rr), rnd(a), rnd(kk))
+    o = rnd(w_ts) @ rnd(vv)
+    o = o + (rr * u2[:, None, :] * kk).sum(-1, keepdim=True) * vv
+    o = o + (rr * torch.exp(lprev)) @ s
+    last = lin[:, -1:, :]                                         # (BH, 1, K)
+    s = s * torch.exp(last).transpose(1, 2) + \
+        (kk * torch.exp(last - lin)).transpose(1, 2) @ vv
+    return s, o
+
+
+def wkv_forward_plain(r, k, v, lw, u, s0, *, chunk: int = 16,
+                      compute_dtype: torch.dtype = torch.float32,
+                      remat: bool = False):
     """The chunked evaluation in plain torch, in the same math as the
-    reference's Pallas body (f32 inside); returns (o in r's dtype, sT f32)."""
+    reference's Pallas body (f32 inside); returns (o in r's dtype, sT f32).
+
+    ``compute_dtype`` rounds the intra-chunk operands (r, the decays, k,
+    then w and v) to that type first, as the reference's ``wkv_chunked``
+    does; ``remat`` recomputes each chunk in a backward pass instead of
+    saving its (c, c, K) decays (``torch.utils.checkpoint``), as the
+    reference's ``wkv_inner_remat`` does, and changes no value."""
     c = _check_shapes(r, k, v, lw, u, s0, chunk)
     BH, T, K = r.shape
     u2 = (u.reshape(1, K) if u.dim() == 1 else u).float()      # (1|BH, K)
@@ -80,21 +113,14 @@ def wkv_forward_plain(r, k, v, lw, u, s0, *, chunk: int = 16):
     # tau < t; exp of the masked-out entries may be inf, and where() drops
     # it (never multiply by a mask: inf * 0 is NaN)
     mask = torch.ones((c, c), dtype=torch.bool, device=r.device).tril(-1)
+    remat = remat and torch.is_grad_enabled()
     outs = []
     for j in range(T // c):
         sl = slice(j * c, (j + 1) * c)
-        rr, kk, vv, ll = (a[:, sl].float() for a in (r, k, v, lw))
-        lin = torch.cumsum(ll, dim=1)
-        lprev = lin - ll
-        a = torch.exp(lprev[:, :, None, :] - lin[:, None, :, :])  # (BH,c,c,K)
-        a = torch.where(mask[None, :, :, None], a, 0.0)
-        w_ts = torch.einsum("bti,btsi,bsi->bts", rr, a, kk)
-        o = w_ts @ vv
-        o = o + (rr * u2[:, None, :] * kk).sum(-1, keepdim=True) * vv
-        o = o + (rr * torch.exp(lprev)) @ s
-        last = lin[:, -1:, :]                                     # (BH, 1, K)
-        s = s * torch.exp(last).transpose(1, 2) + \
-            (kk * torch.exp(last - lin)).transpose(1, 2) @ vv
+        args = (s, r[:, sl], k[:, sl], v[:, sl], lw[:, sl], u2, mask,
+                compute_dtype)
+        s, o = (checkpoint(_chunk, *args, use_reentrant=False) if remat
+                else _chunk(*args))
         outs.append(o)
     return torch.cat(outs, dim=1).to(r.dtype), s
 

@@ -134,17 +134,9 @@ def wkv_chunked(r, k, v, lw, u, s0, chunk: int, inner_remat: bool = False,
     """r,k,v,lw: (B, T, H, K); u: (H, K); s0: (B, H, K, V). Returns (o, sT).
 
     Plain torch on any device.  ``inner_remat`` changes only what a
-    backward pass saves, and ``compute_dtype`` only the type of the big
-    intra-chunk operands; the port does neither yet (ROADMAP.md)."""
-    if compute_dtype != torch.float32:
-        raise NotImplementedError(
-            f"wkv_compute_dtype={compute_dtype} is not ported yet; the port "
-            f"computes WKV in float32 (ROADMAP.md, queue 1)")
-    if inner_remat and torch.is_grad_enabled() and any(
-            a.requires_grad for a in (r, k, v, lw, u, s0)):
-        raise NotImplementedError(
-            "wkv_inner_remat recomputes the chunk internals in a backward "
-            "pass, which the port has not ported yet (ROADMAP.md, queue 1)")
+    backward pass saves (each chunk is recomputed), and ``compute_dtype``
+    only the type the big intra-chunk operands are rounded to, as in the
+    reference."""
     B, T, H, K = r.shape
     c = min(chunk, T)
     if T % c:  # neutral padding: k=v=r=0 contribute nothing, lw=0 => decay 1
@@ -155,7 +147,8 @@ def wkv_chunked(r, k, v, lw, u, s0, chunk: int, inner_remat: bool = False,
         return o[:, :T], sT
     o, sT = wkv_forward_plain(_flat(r), _flat(k), _flat(v), _flat(lw),
                               u.repeat(B, 1), s0.reshape(B * H, K, -1),
-                              chunk=c)
+                              chunk=c, compute_dtype=compute_dtype,
+                              remat=inner_remat)
     return _unflat(o, B, H), sT.reshape(B, H, K, -1)
 
 

@@ -1,5 +1,5 @@
-"""Model parameters, prefill and cached decode, port of
-``repro.models.transformer`` for the rwkv6 family.
+"""Model parameters, the training forward (with remat), prefill and cached
+decode, port of ``repro.models.transformer`` for the rwkv6 family.
 
 The reference stacks each layer's parameters along a leading (L, ...) axis
 and scans over them; the port holds an ``RWKV6Model`` with a ``ModuleList``
@@ -12,9 +12,13 @@ Every other family (dense, moe, rglru_hybrid, encdec) raises
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
@@ -22,6 +26,8 @@ from repro_torch.models.layers import RMSNorm, embed, embed_init, dense_init, \
     unembed
 from repro_torch.models.rwkv6 import (RWKV6Block, init_block_, rwkv_block,
                                       torch_dtype)
+
+AUX_LOSS_COEF = 0.01
 
 
 def check_family(cfg: ModelConfig) -> None:
@@ -70,7 +76,21 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     return model
 
 
-def _tensor(a) -> torch.Tensor:
+def reference_key(name: str) -> tuple:
+    """(the reference's key path, layer index or None) of a port parameter
+    name: ``layers.3.tmix.wr`` -> (("layers", "tmix", "wr"), 3); the
+    reference stacks the layers' leaves (L, ...) under ``layers``."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return ("layers",) + tuple(parts[2:]), int(parts[1])
+    return tuple(parts), None
+
+
+def tensor_from_numpy(a) -> torch.Tensor:
+    """A leaf of the reference's tree as a tensor: a tensor as it is, an
+    array with its dtype."""
+    if isinstance(a, torch.Tensor):
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":   # ml_dtypes' bf16, as JAX hands it out
         return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
@@ -85,25 +105,45 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") \
-        -> RWKV6Model:
-    """The reference's ``init_params`` pytree, as numpy arrays, as the
-    port's model on ``device``: the same numbers in the same dtypes.  Layer
-    leaves are stacked (L, ...) under ``tree["layers"]``."""
-    dev = resolve_device(device)
-    model = RWKV6Model(cfg, dev)
+def stack_layers(named) -> dict:
+    """A name -> tensor mapping in the reference's layout: nested dicts, the
+    layers' leaves stacked (L, ...) under ``layers``."""
+    leaves, layers = {}, {}
+    for name, t in named.items():
+        key, index = reference_key(name)
+        if index is None:
+            leaves[key] = t
+        else:
+            layers.setdefault(key, {})[index] = t
+    for key, by_index in layers.items():
+        leaves[key] = torch.stack([by_index[i] for i in sorted(by_index)])
+    tree = {}
+    for key, t in leaves.items():
+        node = tree
+        for part in key[:-1]:
+            node = node.setdefault(part, {})
+        node[key[-1]] = t
+    return tree
+
+
+def params_tree(model: RWKV6Model) -> dict:
+    """The model's weights in the reference's ``init_params`` layout (a
+    copy: the layers are stacked)."""
+    return stack_layers({n: p.detach()
+                         for n, p in model.named_parameters()})
+
+
+def load_params_(model: RWKV6Model, tree: dict) -> RWKV6Model:
+    """Copy a tree in the reference's layout (numpy arrays or tensors) into
+    ``model``'s parameters: the same numbers in the same dtypes."""
     leaves = dict(_leaves(tree))
     seen = set()
     for name, param in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            key, index = ("layers",) + tuple(parts[2:]), int(parts[1])
-        else:
-            key, index = tuple(parts), None
+        key, index = reference_key(name)
         if key not in leaves:
             raise KeyError(f"params_from_numpy: no leaf {'/'.join(key)}")
         seen.add(key)
-        t = _tensor(leaves[key])
+        t = tensor_from_numpy(leaves[key])
         if index is not None:
             t = t[index]
         if t.shape != param.shape or t.dtype != param.dtype:
@@ -119,7 +159,15 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") \
     return model
 
 
-# =============================================================== prefill
+def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") \
+        -> RWKV6Model:
+    """The reference's ``init_params`` pytree, as numpy arrays, as the
+    port's model on ``device``: the same numbers in the same dtypes.  Layer
+    leaves are stacked (L, ...) under ``tree["layers"]``."""
+    return load_params_(RWKV6Model(cfg, resolve_device(device)), tree)
+
+
+# =============================================================== inputs
 def _embed_inputs(model: RWKV6Model, batch: dict, cfg: ModelConfig):
     """Returns (x (B,S,D), loss_mask (B,S)); text only."""
     tokens = batch["tokens"]
@@ -127,6 +175,61 @@ def _embed_inputs(model: RWKV6Model, batch: dict, cfg: ModelConfig):
                                                              dtype=torch.bool)
 
 
+# =============================================================== train forward
+def ce_loss(logits, tokens, mask):
+    """Next-token CE. logits (B,S,V) f32; predict tokens[:, t+1] at t."""
+    tgt = tokens[:, 1:].long()
+    lg = logits[:, :-1]
+    m = (mask[:, 1:] & mask[:, :-1]).float()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+    nll = (logz - gold) * m
+    return nll.sum() / torch.clamp(m.sum(), min=1.0)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The reference's ``dots_with_no_batch_dims_saveable``: keep the
+    outputs of matmuls without batch dimensions (``x @ W`` lowers to
+    ``aten.mm``), recompute everything else."""
+    return (CheckpointPolicy.MUST_SAVE
+            if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat_policy``: "none" a plain call, "nothing"
+    recomputes the whole block in the backward pass, "dots" keeps the
+    matmul outputs and recomputes the rest."""
+    if cfg.remat_policy == "none":
+        return fn
+    if cfg.remat_policy == "nothing":
+        return lambda *a: checkpoint(fn, *a, use_reentrant=False)
+    if cfg.remat_policy == "dots":
+        return lambda *a: checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_dots))
+    raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+
+
+def forward_train(model: RWKV6Model, batch: dict, cfg: ModelConfig):
+    """Returns (loss, metrics {"ce", "aux"}), a graph for autograd.  The
+    rwkv6 family has no auxiliary loss, so aux is 0, as in the
+    reference."""
+    check_family(cfg)
+    x, mask = _embed_inputs(model, batch, cfg)
+    body = _remat(lambda blk, h: rwkv_block(blk, h, cfg)[0], cfg)
+    for blk in model.layers:
+        x = body(blk, x)
+    x = model.final_norm(x, cfg.norm_eps)
+    logits = unembed(model.lm_head, x)
+    S_txt = batch["tokens"].shape[1]
+    loss = ce_loss(logits[:, -S_txt:], batch["tokens"], mask[:, -S_txt:])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return loss + AUX_LOSS_COEF * aux, {"ce": loss, "aux": aux}
+
+
+# =============================================================== prefill
 def forward_prefill(model: RWKV6Model, batch: dict, cfg: ModelConfig,
                     max_len: int | None = None):
     """Process a full prompt, returning (last-token logits (B,V) f32,

@@ -1,0 +1,160 @@
+"""AdamW with dtype-configurable moments, global-norm clipping and a cosine
+schedule, port of ``repro.optim.adamw``.
+
+Parameters, gradients and moments are keyed by parameter name (the names
+of ``model.named_parameters()``, such as ``layers.3.tmix.wr``).  ``m`` and
+``v`` are stored in ``state_dtype``; the update runs in f32 and is cast
+back to the parameter's dtype, as in the reference.  :func:`apply` updates
+the parameters and the moments in place under ``torch.no_grad()`` and
+returns its metrics as 0-dim tensors, so a step needs no host sync.
+"""
+from __future__ import annotations
+
+import math
+from typing import Mapping, NamedTuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.rwkv6 import torch_dtype
+from repro_torch.models.transformer import (RWKV6Model, reference_key,
+                                            stack_layers, tensor_from_numpy)
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor          # () int32, on the parameters' device
+    m: dict                     # parameter name -> first moment
+    v: dict                     # parameter name -> second moment
+
+
+class AdamWConfig(NamedTuple):
+    lr_peak: float = 3e-4
+    warmup_steps: int = 200
+    total_steps: int = 10_000
+    lr_min_ratio: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    state_dtype: str = "float32"
+
+
+def _named(params) -> dict:
+    """A name -> tensor mapping from a mapping or an ``nn.Module``."""
+    if isinstance(params, torch.nn.Module):
+        return dict(params.named_parameters())
+    return dict(params)
+
+
+def lr_schedule(c: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    step = step.float()
+    warm = step / max(c.warmup_steps, 1)
+    t = (step - c.warmup_steps) / max(c.total_steps - c.warmup_steps, 1)
+    t = torch.clamp(t, 0.0, 1.0)
+    cos = c.lr_min_ratio + (1 - c.lr_min_ratio) * 0.5 * (
+        1 + torch.cos(math.pi * t))
+    return c.lr_peak * torch.where(step < c.warmup_steps, warm, cos)
+
+
+def init(params, c: AdamWConfig) -> AdamWState:
+    """Zero moments in ``c.state_dtype`` for every parameter of ``params``
+    (a name -> tensor mapping or a module)."""
+    params = _named(params)
+    dt = torch_dtype(c.state_dtype)
+    dev = next(iter(params.values())).device
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=dev),
+        m={n: torch.zeros_like(p, dtype=dt) for n, p in params.items()},
+        v={n: torch.zeros_like(p, dtype=dt) for n, p in params.items()})
+
+
+def global_norm(tree: Mapping) -> torch.Tensor:
+    leaves = [torch.sum(torch.square(x.float())) for x in tree.values()]
+    return torch.sqrt(torch.sum(torch.stack(leaves)))
+
+
+def clip_by_global_norm(grads: Mapping, max_norm: float):
+    """(grads scaled to a global norm of at most ``max_norm``, each cast
+    back to its dtype, as the reference does; the norm before)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, \
+        norm
+
+
+def reference_path(name: str) -> str:
+    """The reference's pytree path of a port parameter name:
+    ``layers.3.tmix.wr`` -> ``layers/tmix/wr`` (layers are stacked there)."""
+    return "/".join(reference_key(name)[0])
+
+
+def _decay_mask(name: str) -> bool:
+    """No weight decay on norms / biases / scalar gates.  Matched on the
+    reference's path, since the substrings ("u", "mu", "ln", ...) are the
+    reference's."""
+    flat = reference_path(name)
+    return not any(s in flat for s in ("scale", "ln", "bias", "b_", "mu", "u",
+                                       "lam", "gate_", "w0", "kpos"))
+
+
+def apply(params, grads: Mapping, state: AdamWState, c: AdamWConfig):
+    """One AdamW step.  Returns (params, new_state, metrics); the
+    parameters and the moments are updated in place."""
+    named = _named(params)
+    with torch.no_grad():
+        grads, gnorm = clip_by_global_norm(grads, c.clip_norm)
+        step = state.step + 1
+        lr = lr_schedule(c, step)
+        b1, b2 = c.b1, c.b2
+        stepf = step.float()
+        bc1 = 1 - torch.pow(b1, stepf)
+        bc2 = 1 - torch.pow(b2, stepf)
+        sdt = torch_dtype(c.state_dtype)
+        for name, p in named.items():
+            m, v = state.m[name], state.v[name]
+            gf = grads[name].float()
+            mf = m.float() * b1 + gf * (1 - b1)
+            vf = v.float() * b2 + gf * gf * (1 - b2)
+            mhat = mf / bc1
+            vhat = vf / bc2
+            delta = mhat / (torch.sqrt(vhat) + c.eps)
+            if _decay_mask(name):
+                delta = delta + c.weight_decay * p.float()
+            p.copy_((p.float() - lr * delta).to(p.dtype))
+            m.copy_(mf.to(sdt))
+            v.copy_(vf.to(sdt))
+    return params, AdamWState(step=step, m=state.m, v=state.v), {
+        "grad_norm": gnorm, "lr": lr}
+
+
+# ------------------------------------------------ the reference's layout
+def opt_state_tree(state: AdamWState) -> AdamWState:
+    """The state in the reference's layout: m and v as nested dicts with the
+    layer leaves stacked (L, ...) under ``layers``, for a checkpoint either
+    package restores."""
+    return AdamWState(step=state.step, m=stack_layers(state.m),
+                      v=stack_layers(state.v))
+
+
+def opt_state_from_numpy(state, cfg: ModelConfig, device="cuda") \
+        -> AdamWState:
+    """The reference's ``AdamWState`` (numpy or tensor leaves, m and v
+    stacked (L, ...) under ``layers``) as the port's, on ``device``."""
+    dev = resolve_device(device)
+    names = [n for n, _ in RWKV6Model(cfg, "meta").named_parameters()]
+
+    def carry(tree):
+        out = {}
+        for name in names:
+            key, index = reference_key(name)
+            node = tree
+            for part in key:
+                node = node[part]
+            t = tensor_from_numpy(node)
+            out[name] = (t if index is None else t[index]).to(dev).clone()
+        return out
+
+    step = tensor_from_numpy(state.step).to(dev, torch.int32)
+    return AdamWState(step=step, m=carry(state.m), v=carry(state.v))

@@ -16,6 +16,7 @@ They mirror ``tests/test_stream.py``'s restore tests, and a service keyed
 by ``TorchSampler`` continues after a restore bit for bit as the
 uninterrupted one does.
 """
+import threading
 from typing import NamedTuple
 
 import jax
@@ -160,6 +161,37 @@ def test_checkpoint_async_write_error_reraised(tmp_path, monkeypatch):
     monkeypatch.setattr(np, "save", orig)
     cm.save(4, _tree(0), blocking=True)
     assert cm.latest_step() == 4
+
+
+def _hold_writer(cm, monkeypatch):
+    """Keep ``cm``'s writer thread from writing until the returned event
+    is set."""
+    gate, write = threading.Event(), cm._do_write
+
+    def held(*a, **k):
+        assert gate.wait(30)
+        return write(*a, **k)
+
+    monkeypatch.setattr(cm, "_do_write", held)
+    return gate
+
+
+def test_async_save_holds_cpu_tensors_at_save_time(tmp_path, monkeypatch):
+    """save() copies CPU tensors before it returns: tensors updated in
+    place while the writer thread has not yet written them come back with
+    their values at save time (and pass the checksum)."""
+    cm = CheckpointManager(tmp_path)
+    t = _tree(5)
+    want = _tree(5)
+    gate = _hold_writer(cm, monkeypatch)
+    cm.save(1, t)
+    t["w"].mul_(-3.0).add_(1.0)
+    t["nested"]["b"].add_(9)
+    t["pair"][1][0].zero_()
+    gate.set()
+    cm.wait()
+    restored, _ = cm.restore(_zeros_like(want))
+    _assert_trees_equal(restored, want)
 
 
 def test_meta_roundtrip_and_rejects_non_json(tmp_path):
@@ -310,3 +342,38 @@ def test_restored_torch_sampler_service_continues_bit_for_bit(tmp_path):
                            getattr(whole.model, name)), name
     q = grid(100, seed=24)
     assert_results_equal(restored.score(q), whole.score(q))
+
+
+def test_bf16_leaves_round_trip_and_read_the_reference(tmp_path):
+    """bf16 leaves (a training checkpoint's parameters) are written as the
+    reference writes ml_dtypes' bfloat16 (raw two-byte words, "bfloat16"
+    in the manifest) and come back as bf16 tensors bit for bit, from the
+    port's checkpoint and from the reference's.  The reference's own
+    restore cannot read such a leaf back (numpy has no cast from the raw
+    words to ml_dtypes' bfloat16; ROADMAP.md queue 3)."""
+    g = torch.Generator().manual_seed(3)
+    w = torch.randn((5, 7), generator=g).to(torch.bfloat16)
+    tree = {"w": w, "m": torch.randn((5, 7), generator=g)}
+    like = {"w": torch.zeros((5, 7), dtype=torch.bfloat16),
+            "m": torch.zeros((5, 7))}
+    cm = CheckpointManager(tmp_path / "port")
+    cm.save(1, tree, blocking=True)
+    meta = tmp_path / "port" / "step_000000001" / "manifest.json"
+    assert '"dtype": "bfloat16"' in meta.read_text()
+    got, _ = cm.restore(like)
+    assert got["w"].dtype == torch.bfloat16 and torch.equal(got["w"], w)
+    # the reference writes the same words for the same bf16 values
+    jtree = {"w": jnp.asarray(w.float().numpy()).astype(jnp.bfloat16),
+             "m": jnp.asarray(tree["m"].numpy())}
+    JaxManager(tmp_path / "ref").save(2, jtree, blocking=True)
+    name = "arr_00001.npy"                   # leaf order: m, w
+    a = np.load(tmp_path / "ref" / "step_000000002" / name)
+    b = np.load(tmp_path / "port" / "step_000000001" / name)
+    assert a.dtype.itemsize == b.dtype.itemsize == 2
+    assert a.tobytes() == b.tobytes()
+    back, _ = CheckpointManager(tmp_path / "ref").restore(like,
+                                                          device="cpu")
+    assert torch.equal(back["w"], w) and torch.equal(back["m"], tree["m"])
+    with pytest.raises(ValueError):
+        JaxManager(tmp_path / "ref").restore(
+            {"w": jnp.zeros((5, 7), jnp.bfloat16), "m": jnp.zeros((5, 7))})

@@ -26,13 +26,19 @@ from repro.configs import OPTIMIZED as JAX_OPTIMIZED
 from repro.models import rwkv6 as jrw
 from repro.models import transformer as jtf
 from repro.models.layers import ShardCtx
+from repro.optim import adamw as jadamw
 from repro_torch.configs import OPTIMIZED, get_config
+from repro_torch.core.curation import DataCurator
 from repro_torch.kernels.wkv.kernel import wkv_forward_cuda
-from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                      make_train_step)
+from repro_torch.launch.train import main as train_main
 from repro_torch.models import rwkv6 as trw
 from repro_torch.models.transformer import (forward_decode, forward_prefill,
                                             init_cache, init_params,
                                             params_from_numpy)
+from repro_torch.optim.adamw import opt_state_from_numpy
+from repro_torch.runtime import StragglerMonitor
 
 torch.set_num_threads(1)
 
@@ -246,18 +252,30 @@ def test_wkv_paths_match_reference_at_extreme_decays():
     np.testing.assert_allclose(ort.numpy(), np.asarray(orj), **DECAY_TOL)
     np.testing.assert_allclose(srt.numpy(), np.asarray(srj), **DECAY_TOL)
     np.testing.assert_allclose(oct_.numpy(), ort.numpy(), **DECAY_TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trw.wkv_chunked(*tt, 16, compute_dtype=torch.bfloat16)
+    # the bf16 compute dtype: both round the same intra-chunk operands to
+    # bf16 and multiply them exactly in f32, so the sums' order is all that
+    # differs
+    obj, sbj = jrw.wkv_chunked(*tj, 16, compute_dtype=jnp.bfloat16)
+    obt, sbt = trw.wkv_chunked(*tt, 16, compute_dtype=torch.bfloat16)
+    np.testing.assert_allclose(obt.numpy(), np.asarray(obj), **DECAY_TOL)
+    np.testing.assert_allclose(sbt.numpy(), np.asarray(sbj), **DECAY_TOL)
+    assert not np.array_equal(obt.numpy(), oct_.numpy())
 
 
 def test_entry_points_refuse_cuda_without_a_card(monkeypatch, smoke):
     cfg, jparams, _, _ = smoke
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jopt = jax.tree.map(np.asarray, jadamw.init(jparams, jadamw.AdamWConfig()))
     for call in (lambda: init_params(cfg),
                  lambda: params_from_numpy(_np_tree(jparams), cfg),
                  lambda: init_cache(cfg, 1, 8),
                  lambda: make_prefill_step(cfg),
-                 lambda: make_serve_step(cfg)):
+                 lambda: make_serve_step(cfg),
+                 lambda: make_train_step(cfg),
+                 lambda: opt_state_from_numpy(jopt, cfg),
+                 lambda: DataCurator(n_sites=2),
+                 lambda: StragglerMonitor(n_sites=2),
+                 lambda: train_main(["--arch", ARCH, "--smoke"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
     dense = jax_get_config("h2o-danube-1.8b", smoke=True)
