@@ -3,6 +3,8 @@
     python3 chip_smoke.py [--report PATH]
     python3 chip_smoke.py --measure serve,lloyd_split,lloyd_ladder,stream
     python3 chip_smoke.py --measure train
+    python3 chip_smoke.py --measure lm
+    python3 chip_smoke.py --measure lm_mutations
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX, and:
@@ -150,6 +152,25 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    precision and recall reported beside chance, and the same reservoirs
    through Algorithm 3 on the kernels and on the plain backend, which must
    flag the same ids up to near-tie flips;
+   and the dense and moe families (the "lm" phase, plain torch: no kernel
+   of the port lies on their path, and each part's launches are read), each
+   part after the previous part's model is released: (a) llava-next-
+   mistral-7b FULL (32 layers, d = 4,096, bf16, random weights) serving 4
+   prompts of 2,880 patch embeddings + 1,216 tokens (a warm-up and 3 timed
+   prefills, their median in tokens/s) and 32 greedy decode steps; (b)
+   qwen3-moe-235b-a22b at its published widths cut from 94 layers to 4, 4
+   x 2,048-token prompts and 32 decode steps, with the MoE drop fraction at
+   prefill and decode; (c) h2o-danube-1.8b FULL on one 8,191-token prompt,
+   which wraps its 4,096-slot ring, and 32 decode steps; each checks its
+   caches against ``init_cache`` and decode against teacher forcing
+   (prefill(S) + decode(token S) against prefill(S + 1), one side on
+   chunked attention and the other unchunked) in bf16 and in f32 from the
+   same weights upcast, at full depth (the moe at capacity 16, its f32 run
+   on 2 layers), and (a) holds the attention's score product against a
+   float64 oracle at trained-model score scales;
+   (d) h2o-danube-1.8b FULL training, 1 warm-up and 3 steps of 2 x 4,096
+   tokens through ``make_train_step``, s per step, tokens/s and peak
+   memory;
 4. re-runs gauss with ``backend="blocked"`` (the plain torch path) from the
    same seed, and on the kernels from another seed as the yardstick of two
    independent draws, and compares the results; re-runs the rwkv6 prefill
@@ -173,9 +194,13 @@ it, and prints them as one JSON line: ``serve`` (the serving p50 and p99),
 ``lloyd_split`` and ``lloyd_ladder`` (the Lloyd routes over k and over caps
 of CTAs), ``stream`` (the 1M stream's ingest rows/s resident and tiered,
 and its submit + drain p50 and p99), ``train`` (the train phase and the
-WKV's timings at its call shape, alone, after the build).  One process per reading, in turns
-with another tree's, compares two trees; ``serve`` and ``stream`` run on
-any tree of the port from the stream slice on.
+WKV's timings at its call shape, alone, after the build), ``lm`` (the lm
+phase alone, no build), ``lm_mutations`` (a check of the lm checks: (a)'s
+and (c)'s checks at 4 layers clean and under three mutations
+monkeypatched for a run each, bf16 scores, a ring slot off by one and a
+dropped window mask, each of which must fail them).  One process per
+reading, in turns with another tree's, compares two trees; ``serve`` and
+``stream`` run on any tree of the port from the stream slice on.
 
 It prints the card (``nvidia-smi``), one ``{"kernels": [...]}`` line and, as
 its last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises:
@@ -186,6 +211,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -3644,6 +3670,598 @@ def train_phase(dev, counted):
     return out
 
 
+# ------------------------------------------------- dense and moe LM families
+# (a) llava-next-mistral-7b FULL (32 layers, d 4,096, bf16): 4 prompts of
+# 2,880 patch embeddings + 1,216 tokens = 4,096 positions, a ring for 32
+# more; teacher forcing at 2,880 + 191 tokens (S + 1 = 3 x 1,024)
+LM_DENSE = dict(arch="llava-next-mistral-7b", batch=4, text=1216, gen=32,
+                prefills=3, tf_text=191, seed=0)
+# (b) qwen3-moe-235b-a22b at its published widths, cut from 94 layers to 4;
+# teacher forcing at capacity 16 on 2 prompts of 2,047 + 1 tokens
+LM_MOE = dict(arch="qwen3-moe-235b-a22b", layers=4, batch=4, prompt=2048,
+              gen=32, prefills=3, tf_batch=2, tf_prompt=2047, tf_cf=16.0,
+              f32_layers=2, seed=1)
+# (c) h2o-danube-1.8b FULL: one 8,191-token prompt, so W = 4,096 and the
+# ring wraps; teacher forcing at 8,191 + 1 (S + 1 = 8 x 1,024)
+LM_RING = dict(arch="h2o-danube-1.8b", batch=1, prompt=8191, gen=32,
+               prefills=3, seed=2)
+# (d) h2o-danube-1.8b FULL training: 2 x 4,096 tokens, remat "nothing"
+LM_TRAIN = dict(arch="h2o-danube-1.8b", batch=2, seq=4096, warmup=1,
+                steps=3, seed=3)
+# the mutation runs (``lm_mutations``): (a) and (c) cut to 4 layers
+LM_MUTATION_LAYERS = 4
+# Tolerances (each a scaled distance, max |a - b| / max(1, max |b|)):
+# - f32 decode vs teacher forcing: both paths compute one function in f32
+#   (TF32 off) and differ only in summation order (another query-chunk
+#   split, a single-row product), ~1e-6 of the logits' scale; 1e-4 leaves
+#   two orders of margin while a key missing from the ring moves the
+#   logits by ~1e-2 (see PERF.md).
+LM_TOL_F32 = 1e-4
+# - bf16 at the f32 run's depth, in rms over the logits (``_rms``): the
+#   bf16 prefill lies e16 from the f32 one (its bf16 rounding error); the
+#   bf16 decode must lie within LM_BF16_FACTOR x e16 of both the bf16 and
+#   the f32 prefill.  Clean runs on the H100 gave 0.61-0.71 x e16 and
+#   0.99-1.03 x e16 (the decode's own rounding error is the prefill's size
+#   and shares most of it); a ring slot off by one gave 1.50 and 1.55
+#   (PERF.md, PR 23): 1.25 sits between, ~20% from each.
+LM_BF16_FACTOR = 1.25
+# - bf16 at a depth the f32 run does not reach (the moe's 4 layers; its
+#   f32 run takes 2, for memory): the reference's own tolerance for this
+#   check (tests/test_models.py, rtol = atol = 2e-2), as a scaled
+#   distance.
+LM_TOL_BF16_FULL = 2e-2
+# The score product's precision, which teacher forcing cannot see at random
+# weights (their scores are ~N(0, 1), where a bf16 score rounds less than
+# the bf16 weights after the softmax do): layers._sdpa on bf16 q, k, v at
+# (a)'s query-chunk shape, with q and k drawn N(0, 2.5^2) so that scores
+# reach a trained model's peaks (std ~6, max ~30, where a bf16 score is off
+# by up to 0.06), against a float64 oracle of the reference's semantics
+# (f64 scores and softmax, the weights cast to bf16, f64 value product).
+# The port's f32 scores leave the output's own bf16 rounding (half an ulp,
+# 2^-9 of the output's scale) and rare flips of a weight's rounding; four
+# half ulps, 2^-7, bound those.
+LM_SCORE = dict(batch=1, q=1024, k=4096, sigma=2.5, seed=5)
+LM_TOL_SCORE = 2.0 ** -7
+
+
+def _free(dev):
+    import gc
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)     # also makes the context, if none yet
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gb(dev):
+    return (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else None)
+
+
+def _lm_batch(cfg, B, n_text, seed, dev):
+    """Tokens (B, n_text + 1) on ``dev`` and, for a vlm arch, its patch
+    embeddings (B, frontend_tokens, frontend_dim) f32, from a seed."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    b = {"tokens": torch.randint(2, cfg.vocab, (B, n_text + 1), generator=g)
+         .to(dev)}
+    if cfg.frontend == "vlm_patches":
+        b["patches"] = torch.randn((B, cfg.frontend_tokens, cfg.frontend_dim),
+                                   generator=g).to(dev)
+    return b
+
+
+def _prefix(batch, n_text):
+    """The batch with its first ``n_text`` tokens (patches kept)."""
+    return dict(batch, tokens=batch["tokens"][:, :n_text])
+
+
+class _MoEProbe:
+    """Wraps ``transformer.moe_ffn`` while on: records each call's
+    ``drop_frac`` and, with ``routes`` set (off while serving is timed: it
+    adds a product and a top-k a call), the sorted top-k expert ids of each
+    row's last token; device tensors, read after the run."""
+
+    def __init__(self):
+        self.calls = []
+        self.routes = False
+
+    def __enter__(self):
+        from repro_torch.models import transformer
+        self._orig = fn = transformer.moe_ffn
+
+        def probed(p, x, cfg):
+            y, aux = fn(p, x, cfg)
+            ids = None
+            if self.routes:
+                last = torch.softmax(x[:, -1].float() @ p.router, dim=-1)
+                ids = torch.topk(last, cfg.top_k, dim=-1).indices.sort(
+                    -1).values
+            self.calls.append((aux["drop_frac"], ids))
+            return y, aux
+
+        transformer.moe_ffn = probed
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer
+        transformer.moe_ffn = self._orig
+
+    def take(self):
+        out, self.calls = self.calls, []
+        return out
+
+
+def _check_cache(cfg, cache, B, max_len, pos, dev, label, fail):
+    from repro_torch.models.transformer import init_cache
+    want = init_cache(cfg, B, max_len, device="meta")
+    for name, z in want.items():
+        c = cache[name]
+        if c.shape != z.shape or c.dtype != z.dtype:
+            fail.append(f"{label}: cache {name} {tuple(c.shape)} {c.dtype}, "
+                        f"init_cache gives {tuple(z.shape)} {z.dtype}")
+    if int(cache["pos"]) != pos:
+        fail.append(f"{label}: cache pos {int(cache['pos'])} != {pos}")
+
+
+def lm_serving(dev, counted, label, cfg, model, batch, max_len, gen,
+               prefills, fail, probe=None):
+    """A warm-up prefill, ``prefills`` timed prefills (their median gives
+    tokens/s), then ``gen`` greedy decode steps from the last one's cache,
+    through ``make_prefill_step`` / ``make_serve_step``.  Checks the caches
+    against ``init_cache`` and finite logits."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    prefill = make_prefill_step(cfg, device=dev)
+    serve = make_serve_step(cfg, device=dev)
+    B = batch["tokens"].shape[0]
+    S = batch["tokens"].shape[1] + cfg.frontend_tokens
+    prefill(model, batch, max_len)
+    if probe is not None:
+        probe.take()
+    sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def run():
+        times = []
+        for _ in range(prefills):
+            sync(dev)
+            t0 = time.perf_counter()
+            lg, cache = prefill(model, batch, max_len)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+        return lg, cache, times
+
+    lg, cache, times = counted(f"lm_{label}_prefill", (), run)
+    drop_pre = ([float(d) for d, _ in probe.take()[-cfg.n_layers //
+                                                   cfg.moe_every:]]
+                if probe is not None else None)
+    _check_cache(cfg, cache, B, max_len, S, dev, f"{label} prefill", fail)
+    tok0 = lg.argmax(-1, keepdim=True)
+    toks, lgs, lat, cache = counted(
+        f"lm_{label}_decode", (), lambda: _greedy(serve, model, cache, tok0,
+                                                  gen, dev))
+    _check_cache(cfg, cache, B, max_len, S + gen, dev, f"{label} decode",
+                 fail)
+    if not all(bool(torch.isfinite(x).all()) for x in [lg, *lgs]) \
+            or lg.shape != (B, cfg.vocab):
+        fail.append(f"{label}: logits not finite or malformed")
+    med = float(np.median(times))
+    lat_ms = np.asarray(lat) * 1e3
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+           "head_dim": cfg.hd,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
+           "window": cfg.sliding_window,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": B, "positions": S, "max_len": max_len, "gen": gen,
+           "cache_window": int(cache["kpos"].shape[0]),
+           "cache_gb": 2 * cache["k"].numel() * cache["k"].element_size()
+           / 1e9,
+           "prefill_s": times, "prefill_s_median": med,
+           "prefill_tokens_per_s": B * S / med,
+           "decode_p50_ms": float(np.percentile(lat_ms, 50)),
+           "decode_p99_ms": float(np.percentile(lat_ms, 99)),
+           "decode_tokens_per_s": B * gen / float(np.sum(lat)),
+           "peak_mem_gb": _peak_gb(dev), "first_tokens": toks[:, :4].tolist()}
+    if probe is not None:
+        drop_dec = [float(d) for d, _ in probe.take()]
+        out["drop_frac_prefill"] = drop_pre
+        out["drop_frac_decode_mean"] = float(np.mean(drop_dec))
+        out["capacity_decode"] = max(1, math.ceil(
+            B * cfg.top_k / cfg.n_experts * cfg.capacity_factor))
+    return out
+
+
+def _lm_teacher(dev, cfg, model, batch, max_len, probe=None):
+    """(decode of the last token after prefill of the rest, prefill of all:
+    its last logits[, the probe's routes of each])."""
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step
+    n = batch["tokens"].shape[1] - 1
+    prefill = make_prefill_step(cfg, device=dev)
+    _, cache = prefill(model, _prefix(batch, n), max_len)
+    if probe is not None:
+        probe.take()
+    step, _ = make_serve_step(cfg, device=dev)(
+        model, cache, batch["tokens"][:, n:])
+    r_step = probe.take() if probe is not None else None
+    full, _ = prefill(model, batch, max_len)
+    r_full = probe.take() if probe is not None else None
+    return step, full, r_step, r_full
+
+
+def _cut(model, cfg, n_entries):
+    """The model's first ``n_entries`` stacked entries as a model of their
+    own: the same parameters (``ModuleList`` slicing shares them)."""
+    import copy
+    cut = copy.copy(model)
+    cut._modules = dict(model._modules, layers=model.layers[:n_entries])
+    return cut, cfg.replace(n_layers=n_entries * cfg.moe_every)
+
+
+def _rms(a, b):
+    """rms(a - b) / rms(b), in float64: the bf16 gates' distance (a max
+    over B x V logits follows one outlier; the rms over them is steady
+    from run to run)."""
+    a, b = a.double(), b.double()
+    return float((a - b).square().mean().sqrt() / b.square().mean().sqrt())
+
+
+def _same_routes(n_rows, *runs):
+    """The rows whose last token every run (the probe's records of each
+    moe layer) routes to the same experts: all rows without a probe."""
+    return [r for r in range(n_rows)
+            if all(torch.equal(a[1][r], b[1][r])
+                   for run in runs[1:] for a, b in zip(runs[0], run))]
+
+
+def lm_teacher_checks(dev, label, cfg, model, batch, max_len, fail,
+                      f32_layers=None, probe=None):
+    """Decode against teacher forcing: prefill(S) + decode(token S) against
+    prefill(S + 1)'s last logits, in bf16 and in f32 from the same weights
+    upcast, on the first ``f32_layers`` layers (default: all), and in bf16
+    at full depth when the f32 run is cut.  Returns the distances; appends
+    a failure to ``fail``.  For a moe model (``probe`` on) a row whose last
+    token two of the compared runs route to other experts (a near tie of
+    the router, moved by bf16 rounding) is reported, not gated."""
+    import copy
+    B = batch["tokens"].shape[0]
+    f32_layers = f32_layers or cfg.n_layers
+    out = {}
+    d16, f16, r1, r2 = _lm_teacher(dev, cfg, model, batch, max_len, probe)
+    src, ccfg = model, cfg
+    if f32_layers < cfg.n_layers:
+        rows = (_same_routes(B, r1, r2) if probe is not None
+                else list(range(B)))
+        out.update(bf16_full_depth=_scaled(d16, f16),
+                   bf16_full_depth_rows=rows, tol_bf16_full=LM_TOL_BF16_FULL)
+        if rows and _scaled(d16[rows], f16[rows]) > LM_TOL_BF16_FULL:
+            fail.append(f"{label}: bf16 decode vs teacher forcing "
+                        f"{_scaled(d16[rows], f16[rows]):.3g} > "
+                        f"{LM_TOL_BF16_FULL}")
+        src, ccfg = _cut(model, cfg, f32_layers // cfg.moe_every)
+        d16, f16, r1, r2 = _lm_teacher(dev, ccfg, src, batch, max_len,
+                                       probe)
+    m32 = copy.deepcopy(src).float()
+    del src
+    d32, f32, r3, r4 = _lm_teacher(dev, ccfg.replace(dtype="float32"),
+                                   m32, batch, max_len, probe)
+    del m32
+    rows = (_same_routes(B, r1, r2, r3, r4) if probe is not None
+            else list(range(B)))
+    out.update(layers_f32=ccfg.n_layers, rows=rows, tol_f32=LM_TOL_F32,
+               bf16_factor=LM_BF16_FACTOR,
+               f32=_scaled(d32, f32), bf16=_scaled(d16, f16),
+               bf16_decode_vs_f32=_scaled(d16, f32),
+               bf16_prefill_vs_f32=_scaled(f16, f32))
+    if not rows:
+        return out
+    d16, f16, d32, f32 = (t[rows] for t in (d16, f16, d32, f32))
+    e16 = _rms(f16, f32)
+    out.update(bf16_rms=_rms(d16, f16), bf16_decode_vs_f32_rms=_rms(d16, f32),
+               bf16_prefill_vs_f32_rms=e16, bf16_tol=LM_BF16_FACTOR * e16)
+    if not _scaled(d32, f32) <= LM_TOL_F32:
+        fail.append(f"{label}: f32 decode vs teacher forcing "
+                    f"{_scaled(d32, f32):.3g} > {LM_TOL_F32}")
+    if not (out["bf16_rms"] <= out["bf16_tol"]
+            and out["bf16_decode_vs_f32_rms"] <= out["bf16_tol"]):
+        fail.append(f"{label}: bf16 decode vs teacher forcing beyond "
+                    f"{LM_BF16_FACTOR} x the bf16 prefill's rms distance "
+                    f"from f32: {out}")
+    return out
+
+
+def lm_score_check(dev, cfg, fail):
+    """``layers._sdpa`` at ``cfg``'s heads on LM_SCORE's shape against the
+    float64 oracle; returns the scaled distance."""
+    from repro_torch.models import layers
+    c = LM_SCORE
+    g = torch.Generator(device="cpu").manual_seed(c["seed"])
+    B, Sq, Sk, hd = c["batch"], c["q"], c["k"], cfg.hd
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    q, k, v = (torch.randn(shape, generator=g).mul_(s).to(dev, torch.bfloat16)
+               for shape, s in (((B, Sq, Hq, hd), c["sigma"]),
+                                ((B, Sk, Hkv, hd), c["sigma"]),
+                                ((B, Sk, Hkv, hd), 1.0)))
+    qpos = torch.arange(Sk - Sq, Sk, device=dev)
+    kpos = torch.arange(Sk, device=dev)
+    got = layers._sdpa(q, k, v, qpos, kpos, None, causal=True, window=0)
+    qg = q.double().reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k.double()) * hd ** -0.5
+    mask = layers._scores_mask(qpos, kpos, causal=True, window=0)
+    w = torch.softmax(torch.where(mask, s, -1e300), dim=-1)
+    del s
+    want = torch.einsum("bkgqt,btkd->bqkgd", w.to(torch.bfloat16).double(),
+                        v.double()).reshape(B, Sq, Hq, hd)
+    err = _scaled(got, want)
+    if not err <= LM_TOL_SCORE:
+        fail.append(f"{cfg.name}: attention at trained-model score scales "
+                    f"{err:.3g} from the f64 oracle > {LM_TOL_SCORE}")
+    return {"shape": [B, Sq, Sk, Hq, Hkv, hd], "sigma": c["sigma"],
+            "scaled_err": err, "tol": LM_TOL_SCORE}
+
+
+def lm_layer_split(dev, cfg, model, B, S):
+    """CUDA-event ms (time_ms, 3 calls after a warm-up) of the last
+    attention layer of the first stacked entry at (B, S): its attention
+    block (projections, RoPE, the query-chunked f32-score attention, wo)
+    beside torch's fused ``scaled_dot_product_attention`` on the same q, k
+    and v (a yardstick only: the port never calls it), and its FFN (the
+    MLP, or the MoE with its dispatch).  Off the card: host times, for
+    rehearsals."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    from repro_torch.models.transformer import _ffn, _sublayers
+    lyr = _sublayers(cfg, model.layers[0])[-1]
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(
+        lyr.attn.wq.dtype)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    out = {"batch": B, "seq": S}
+    with torch.inference_mode():
+        out["attention_ms"] = time_ms(lambda: layers.attention(
+            lyr.attn, x, cfg, positions=pos, window=cfg.sliding_window), 3)
+        out["ffn_ms"] = time_ms(lambda: _ffn(lyr, x, cfg), 3)
+        if cfg.sliding_window == 0:
+            q = layers.rope((x @ lyr.attn.wq).reshape(B, S, cfg.n_heads,
+                                                      cfg.hd), pos[None],
+                            cfg.rope_theta).transpose(1, 2)
+            k, v = (t.transpose(1, 2) for t in layers.kv_proj(
+                lyr.attn, x, cfg, pos))
+            out["library_sdpa_ms"] = time_ms(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True), 3)
+    return out
+
+
+def lm_dense_serving(dev, counted, fail):
+    """(a) llava-next-mistral-7b FULL serving and its teacher forcing."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    c = LM_DENSE
+    cfg = get_config(c["arch"])
+    sync(dev)
+    t0 = time.perf_counter()
+    model = init_params(cfg, c["seed"], device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    batch = _lm_batch(cfg, c["batch"], c["text"], c["seed"], dev)
+    S = cfg.frontend_tokens + c["text"]
+    out = lm_serving(dev, counted, "dense", cfg, model,
+                     _prefix(batch, c["text"]), S + c["gen"], c["gen"],
+                     c["prefills"], fail)
+    out["init_s"] = init_s
+    tf = dict(batch, tokens=batch["tokens"][:, :c["tf_text"] + 1])
+    out["teacher"] = lm_teacher_checks(
+        dev, "dense", cfg, model, tf, cfg.frontend_tokens + c["tf_text"] + 8,
+        fail)
+    out["score_check"] = lm_score_check(dev, cfg, fail)
+    out["layer_split"] = lm_layer_split(dev, cfg, model, c["batch"], S)
+    return out
+
+
+def lm_moe_serving(dev, counted, fail):
+    """(b) qwen3-moe at full width, 4 layers: serving with its drop
+    fractions, then teacher forcing at capacity 16."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    c = LM_MOE
+    cfg = get_config(c["arch"]).replace(n_layers=c["layers"])
+    sync(dev)
+    t0 = time.perf_counter()
+    model = init_params(cfg, c["seed"], device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    batch = _lm_batch(cfg, c["batch"], c["prompt"], c["seed"], dev)
+    with _MoEProbe() as probe:
+        out = lm_serving(dev, counted, "moe", cfg, model,
+                         _prefix(batch, c["prompt"]), c["prompt"] + c["gen"],
+                         c["gen"], c["prefills"], fail, probe)
+        out["init_s"] = init_s
+        probe.routes = True
+        tf = {"tokens": batch["tokens"][:c["tf_batch"], :c["tf_prompt"] + 1]}
+        out["teacher"] = lm_teacher_checks(
+            dev, "moe", cfg.replace(capacity_factor=c["tf_cf"]), model, tf,
+            c["tf_prompt"] + 8, fail, f32_layers=c["f32_layers"],
+            probe=probe)
+    out["teacher"]["capacity_factor"] = c["tf_cf"]
+    out["layer_split"] = lm_layer_split(dev, cfg, model, c["batch"],
+                                        c["prompt"])
+    out["layer_split_decode"] = lm_layer_split(dev, cfg, model, c["batch"], 1)
+    return out
+
+
+def lm_ring_serving(dev, counted, fail):
+    """(c) h2o-danube-1.8b FULL: an 8,191-token prompt wraps the 4,096-slot
+    ring; decode goes on overwriting slots; teacher forcing across it."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    c = LM_RING
+    cfg = get_config(c["arch"])
+    model = init_params(cfg, c["seed"], device=dev)
+    batch = _lm_batch(cfg, c["batch"], c["prompt"], c["seed"], dev)
+    max_len = c["prompt"] + c["gen"]
+    out = lm_serving(dev, counted, "ring", cfg, model,
+                     _prefix(batch, c["prompt"]), max_len, c["gen"],
+                     c["prefills"], fail)
+    if out["cache_window"] != cfg.sliding_window:
+        fail.append(f"ring: cache window {out['cache_window']}")
+    out["teacher"] = lm_teacher_checks(dev, "ring", cfg, model, batch,
+                                       max_len, fail)
+    return out
+
+
+def lm_train(dev, counted, fail):
+    """(d) h2o-danube-1.8b FULL training through ``make_train_step``:
+    batches of 2 x 4,096 from ``TokenPipeline``, remat "nothing", bf16
+    parameters and f32 moments.  The warm-up step runs on its own
+    optimizer state, so the timed steps start at step 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    c = LM_TRAIN
+    cfg = get_config(c["arch"]).replace(remat_policy="nothing")
+    batches = _token_batches(cfg.vocab, c["seq"], c["batch"],
+                             c["warmup"] + c["steps"], c["seed"], dev)
+    model = init_params(cfg, c["seed"], device=dev)
+    step, optc = make_train_step(cfg, device=dev)
+    opt = adamw.init(model, optc)
+    for b in batches[:c["warmup"]]:
+        model, opt, _ = step(model, opt, {"tokens": b})
+    del opt
+    _free(dev)
+    opt = adamw.init(model, optc)
+    before = _param_sums(model)
+
+    def run():
+        nonlocal model, opt
+        rows = []
+        for b in batches[c["warmup"]:]:
+            sync(dev)
+            t0 = time.perf_counter()
+            model, opt, m = step(model, opt, {"tokens": b})
+            sync(dev)
+            rows.append(dict(s=time.perf_counter() - t0,
+                             loss=float(m["loss"]),
+                             grad_norm=float(m["grad_norm"])))
+        return rows
+
+    rows = counted("lm_train", (), run)
+    s = [r["s"] for r in rows]
+    out = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+           "state_dtype": optc.state_dtype, "remat": cfg.remat_policy,
+           "params": sum(p.numel() for p in model.parameters()),
+           "batch": c["batch"], "seq": c["seq"], "steps": rows,
+           "s_per_step_median": float(np.median(s)),
+           "tokens_per_s": c["batch"] * c["seq"] / float(np.median(s)),
+           "peak_mem_gb": _peak_gb(dev), "opt_step": int(opt.step)}
+    if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in rows):
+        fail.append("lm train: a loss or grad norm is not finite")
+    if out["opt_step"] != c["steps"]:
+        fail.append(f"lm train: opt.step {out['opt_step']} != {c['steps']}")
+    if bool(torch.equal(before, _param_sums(model))):
+        fail.append("lm train: the parameters did not change")
+    return out
+
+
+def lm_phase(dev, counted):
+    """The "lm" phase, parts (a)-(d), each after the previous part's model
+    is released.  Returns the report; raises on any failure."""
+    fail, out = [], {}
+    t0 = time.perf_counter()
+    for name, fn in (("dense", lm_dense_serving), ("moe", lm_moe_serving),
+                     ("ring", lm_ring_serving), ("train", lm_train)):
+        _free(dev)
+        t = time.perf_counter()
+        out[name] = fn(dev, counted, fail)
+        sync(dev)
+        out[name]["part_s"] = time.perf_counter() - t
+        log(f"lm {name}", json.dumps(out[name]))
+    _free(dev)
+    out["lm_s"] = time.perf_counter() - t0
+    log(f"lm_s {out['lm_s']:.2f}")
+    if fail:
+        raise AssertionError(f"lm phase failed: {fail}")
+    return out
+
+
+# A check of the checks (``--measure lm_mutations``): each mutation breaks
+# the port in one place, monkeypatched for its run and restored after, and
+# the lm checks at LM_MUTATION_LAYERS layers must fail under it.
+def _sdpa_scores_bf16(q, k, v, qpos, kpos, kv_valid, *, causal, window):
+    """``layers._sdpa`` with the score product left in the inputs' dtype
+    (bf16 scores, as a plain bf16 einsum gives)."""
+    from repro_torch.models import layers
+    B, Sq, Hq, hd = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, Sq, Hkv, Hq // Hkv, hd)
+    s = torch.einsum("bqkgd,btkd->bkgqt", qg, k).float() * (hd ** -0.5)
+    mask = layers._scores_mask(qpos, kpos, causal=causal, window=window)
+    if kv_valid is not None:
+        mask = mask & kv_valid[None, :]
+    w = torch.softmax(torch.where(mask, s, -1e30), dim=-1)
+    o = torch.einsum("bkgqt,btkd->bqkgd", w.to(v.dtype), v)
+    return o.reshape(B, Sq, Hq, hd)
+
+
+def _mutations():
+    """name -> (part, module, attribute, replacement)."""
+    from repro_torch.models import layers, transformer
+    dec, mask = transformer._decode_attn, layers._scores_mask
+
+    def slot_off_by_one(lyr, xn, cfg, ck, cv, kpos, qpos, slot):
+        return dec(lyr, xn, cfg, ck, cv, kpos, qpos, (slot + 1) % ck.shape[1])
+
+    def window_dropped(qpos, kpos, *, causal, window):
+        return mask(qpos, kpos, causal=causal, window=0)
+
+    return {"scores_bf16": ("dense", layers, "_sdpa", _sdpa_scores_bf16),
+            "ring_slot_off_by_one": ("dense", transformer, "_decode_attn",
+                                     slot_off_by_one),
+            "window_mask_dropped": ("ring", layers, "_scores_mask",
+                                    window_dropped)}
+
+
+def lm_mutations(dev):
+    """(a)'s and (c)'s teacher-forcing checks (and (a)'s score check) at
+    LM_MUTATION_LAYERS layers, clean and under each mutation.  Returns each
+    run's distances and whether the checks failed; raises if a mutation
+    passed them."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    out, models = {}, {}
+    for part, c, n_text in (("dense", LM_DENSE, LM_DENSE["tf_text"]),
+                            ("ring", LM_RING, LM_RING["prompt"])):
+        cfg = get_config(c["arch"]).replace(n_layers=LM_MUTATION_LAYERS)
+        model = init_params(cfg, c["seed"], device=dev)
+        batch = _lm_batch(cfg, 1, n_text, c["seed"], dev)
+        models[part] = (cfg, model, batch,
+                        cfg.frontend_tokens + n_text + 8)
+        fail = []
+        out[f"{part}_clean"] = dict(lm_teacher_checks(
+            dev, part, cfg, model, batch, models[part][3], fail), failed=fail)
+        if part == "dense":
+            out["dense_clean"]["score_check"] = lm_score_check(dev, cfg, fail)
+    for name, (part, mod, attr, repl) in _mutations().items():
+        cfg, model, batch, max_len = models[part]
+        orig, fail = getattr(mod, attr), []
+        setattr(mod, attr, repl)
+        try:
+            res = lm_teacher_checks(dev, part, cfg, model, batch, max_len,
+                                    fail)
+            if part == "dense":
+                res["score_check"] = lm_score_check(dev, cfg, fail)
+        finally:
+            setattr(mod, attr, orig)
+        out[name] = dict(res, failed=fail, caught=bool(fail))
+        log(f"lm mutation {name}", json.dumps(out[name]))
+    missed = [n for n in _mutations() if not out[n]["caught"]]
+    if any(out[f"{p}_clean"]["failed"] for p in ("dense", "ring")) or missed:
+        raise AssertionError(f"lm mutations: clean runs {out} / passed the "
+                             f"checks: {missed}")
+    return out
+
+
 # --------------------------------------------------------------- timings
 def cdist_min(x, c, chunk=16_384):
     """Yardstick only: row-chunked ``torch.cdist`` + min (never in the
@@ -4168,7 +4786,8 @@ def make_data(dev):
     return kdd_np, kdd_truth, kdd_x, gauss_np, gauss_truth, gauss_x, ks, gs
 
 
-MEASURES = ("serve", "lloyd_split", "lloyd_ladder", "stream", "train")
+MEASURES = ("serve", "lloyd_split", "lloyd_ladder", "stream", "train", "lm",
+            "lm_mutations")
 
 
 def counted_runs(kernels, per_run):
@@ -4201,6 +4820,15 @@ def run_measure(dev: torch.device, card: str, phases) -> dict:
     from repro_torch.kernels import _build
     from repro_torch.kernels.dispatch import KernelPolicy
     log(f"card: {card}")
+    if {"lm", "lm_mutations"} & set(phases):
+        if len(phases) > 1:
+            raise ValueError("--measure lm and lm_mutations run alone")
+        if phases == ["lm_mutations"]:
+            return {"card": card, "lm_mutations": lm_mutations(dev)}
+        per_run = {}
+        counted = counted_runs(_kernel_objects(), per_run)
+        return {"card": card, "lm": lm_phase(dev, counted),
+                "launches_per_run": per_run}
     _build.build_all()
     if "train" in phases:
         if len(phases) > 1:
@@ -4459,6 +5087,10 @@ def run(dev: torch.device, card: str) -> dict:
     # ---- 3h. rwkv6-7b training (the "train" phase), with the serving
     # model released
     train_out = train_phase(dev, counted)
+
+    # ---- 3i. the dense and moe families (the "lm" phase): plain torch, no
+    # kernel of the port on their path; each part's launches are read
+    lm_out = lm_phase(dev, counted)
     launches = {k.name: sum(r[k.name] for r in per_run.values())
                 for k in kernels}
     log("main_path_launches", json.dumps(launches))
@@ -4489,7 +5121,7 @@ def run(dev: torch.device, card: str) -> dict:
         })
     report = {"card": card, "build_s": build_s, "checks": checks,
               "main_path": [kdd_out, g_out], "serve": serve_out,
-              "rwkv6_serving": rwkv_out, "train": train_out,
+              "rwkv6_serving": rwkv_out, "train": train_out, "lm": lm_out,
               "kernel_vs_blocked": cmp, "head_to_head": h2h,
               "stream": stream_out, "session": session_out,
               "serving": serving_out,

@@ -2,9 +2,9 @@
 
 ``get_config(arch_id, smoke=False)`` returns the exact assigned config
 (FULL) or the reduced same-family config the CPU tests use (SMOKE).  The
-port serves rwkv6-7b so far; every other architecture of the reference's
-registry raises ``NotImplementedError`` until its family is ported
-(``ROADMAP.md``).
+port serves the dense, moe and rwkv6 families (eight architectures); the
+rglru_hybrid and encdec architectures of the reference's registry raise
+``NotImplementedError`` until their families are ported (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -12,7 +12,16 @@ import importlib
 
 from repro_torch.models.config import ModelConfig
 
-_MODULES = {"rwkv6-7b": "rwkv6_7b"}
+_MODULES = {
+    "rwkv6-7b": "rwkv6_7b",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
+    "qwen2.5-32b": "qwen2_5_32b",
+    "qwen2-72b": "qwen2_72b",
+    "granite-20b": "granite_20b",
+    "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+}
 
 # the reference's registry, so a known architecture that is not ported yet
 # is told apart from a name that does not exist
@@ -26,7 +35,15 @@ ARCH_IDS = [
 # logical (data, model) re-mesh of a TPU pod.  The port runs on one card and
 # has no mesh, so only the overrides apply to it.
 OPTIMIZED = {
+    "qwen2-72b": ({"attn_chunk_remat": True}, (128, 2)),
     "rwkv6-7b": ({"wkv_inner_remat": True, "wkv_chunk": 64}, (128, 2)),
+    "qwen3-moe-235b-a22b": ({"attn_chunk_remat": True,
+                             "moe_group_tokens": 512}, (128, 2)),
+    "qwen2.5-32b": ({"attn_chunk_remat": True}, (128, 2)),
+    "granite-20b": ({"attn_chunk_remat": True}, (128, 2)),
+    "llava-next-mistral-7b": ({"attn_chunk_remat": True}, (128, 2)),
+    "h2o-danube-1.8b": ({"attn_chunk_remat": True}, (128, 2)),
+    "llama4-maverick-400b-a17b": ({"attn_chunk_remat": True}, (64, 4)),
 }
 
 

@@ -1,0 +1,11 @@
+"""granite-20b — llama-arch code model, MQA (kv=1) [arXiv:2405.04324; hf]."""
+from repro_torch.models.config import ModelConfig
+
+FULL = ModelConfig(
+    name="granite-20b", family="dense",
+    n_layers=52, d_model=6144, n_heads=48, n_kv_heads=1,
+    d_ff=24576, vocab=49152, rope_theta=10000.0, mlp_type="gelu",
+)
+
+SMOKE = FULL.replace(n_layers=2, d_model=64, n_heads=4, n_kv_heads=1,
+                     d_ff=128, vocab=512, dtype="float32")

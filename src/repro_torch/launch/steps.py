@@ -13,8 +13,8 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (check_family, forward_decode,
-                                            forward_prefill, forward_train)
+from repro_torch.models.transformer import (forward_decode, forward_prefill,
+                                            forward_train, model_class)
 from repro_torch.optim import adamw
 
 
@@ -22,7 +22,7 @@ def _setup(cfg: ModelConfig, mesh, device) -> torch.device:
     if mesh is not None:
         raise NotImplementedError("the port runs on one device: mesh=None "
                                   "only (ROADMAP.md, queue 1)")
-    check_family(cfg)
+    model_class(cfg)
     return resolve_device(device)
 
 

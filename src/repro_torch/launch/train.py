@@ -10,9 +10,11 @@ which the port does not have, so they raise.  The loop is the reference's:
 the token pipeline, the train step (forward, backward, AdamW), a
 checkpoint of (params, opt_state) every ``--ckpt-every`` steps in the
 reference's layout, a resume from the latest one, and the straggler
-monitor fed each step's time.  It prints the reference's lines.  Either
-package's launcher resumes the other's checkpoint, but for bf16 leaves:
-the reference's restore cannot read those back, not even its own
+monitor fed each step's time.  It prints the reference's lines.  An arch
+with a modality frontend is refused: the pipeline feeds tokens only, and
+the reference's launcher fails on it (``ROADMAP.md`` queue 3, item 8).
+Either package's launcher resumes the other's checkpoint, but for bf16
+leaves: the reference's restore cannot read those back, not even its own
 (``ROADMAP.md`` queue 3).
 """
 from __future__ import annotations
@@ -31,7 +33,7 @@ from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.data.tokens import PipelineConfig, TokenPipeline
 from repro_torch.launch.steps import make_train_step
-from repro_torch.models.transformer import (RWKV6Model, init_params,
+from repro_torch.models.transformer import (build_model, init_params,
                                             load_params_, params_tree)
 from repro_torch.optim import adamw
 from repro_torch.runtime.straggler import StragglerMonitor
@@ -46,7 +48,7 @@ def restore_train_state(ckpt: CheckpointManager, model, cfg, optc, device,
                         step: int | None = None):
     """Load the checkpoint at ``step`` (default: latest) into ``model``;
     returns (model, the restored opt_state, the checkpoint's step)."""
-    like_model = RWKV6Model(cfg, "meta")
+    like_model = build_model(cfg, "meta")
     like_opt = adamw.init(like_model, optc)
     (params, opt_tree), step = ckpt.restore(
         train_state_tree(like_model, like_opt), step, device=device)
@@ -84,6 +86,13 @@ def main(argv=None):
     if overrides:
         cfg = cfg.replace(**overrides)
 
+    if cfg.frontend != "none":
+        raise ValueError(
+            f"--arch {args.arch} has a {cfg.frontend!r} frontend, and the "
+            f"token pipeline feeds tokens only: the reference's launcher "
+            f"fails there (KeyError: 'patches' or 'frames'; ROADMAP.md queue "
+            f"3, item 8).  Train it through make_train_step with its "
+            f"features in the batch")
     if args.mesh != "auto":
         raise NotImplementedError(
             f"--mesh {args.mesh} builds the reference's TPU production mesh "

@@ -1,3 +1,4 @@
-"""Model side of the port: the configuration, the layers RWKV6 uses, the
-RWKV6 block and the rwkv6 family's prefill and decode (``ROADMAP.md`` lists
-the families still to port)."""
+"""Model side of the port: the configuration, the shared layers
+(attention, RoPE, the MLPs), token-choice MoE, the RWKV6 block and the
+dense, moe and rwkv6 families' training, prefill and decode
+(``ROADMAP.md`` lists the families still to port)."""

@@ -18,7 +18,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rwkv6 import torch_dtype
-from repro_torch.models.transformer import (RWKV6Model, reference_key,
+from repro_torch.models.transformer import (build_model, reference_key,
                                             stack_layers, tensor_from_numpy)
 
 
@@ -86,7 +86,8 @@ def clip_by_global_norm(grads: Mapping, max_norm: float):
 
 def reference_path(name: str) -> str:
     """The reference's pytree path of a port parameter name:
-    ``layers.3.tmix.wr`` -> ``layers/tmix/wr`` (layers are stacked there)."""
+    ``layers.3.tmix.wr`` -> ``layers/tmix/wr``, ``layers.1.dense.0.mlp.wi``
+    -> ``layers/dense/mlp/wi`` (layers are stacked there)."""
     return "/".join(reference_key(name)[0])
 
 
@@ -143,7 +144,7 @@ def opt_state_from_numpy(state, cfg: ModelConfig, device="cuda") \
     """The reference's ``AdamWState`` (numpy or tensor leaves, m and v
     stacked (L, ...) under ``layers``) as the port's, on ``device``."""
     dev = resolve_device(device)
-    names = [n for n, _ in RWKV6Model(cfg, "meta").named_parameters()]
+    names = [n for n, _ in build_model(cfg, "meta").named_parameters()]
 
     def carry(tree):
         out = {}
@@ -153,7 +154,7 @@ def opt_state_from_numpy(state, cfg: ModelConfig, device="cuda") \
             for part in key:
                 node = node[part]
             t = tensor_from_numpy(node)
-            out[name] = (t if index is None else t[index]).to(dev).clone()
+            out[name] = t[index].to(dev).clone()
         return out
 
     step = tensor_from_numpy(state.step).to(dev, torch.int32)

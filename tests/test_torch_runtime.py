@@ -232,7 +232,8 @@ def test_launch_train_main_cpu_and_resume(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train.main(argv + ["--mesh", "single"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train.main(["--arch", "qwen2-72b", "--smoke", "--device", "cpu",
+        train.main(["--arch", "recurrentgemma-9b", "--smoke", "--device",
+                    "cpu",
                     "--ckpt-dir", str(tmp_path / "q")])
 
 

@@ -74,7 +74,7 @@ def test_configs_match_the_reference():
     assert OPTIMIZED[ARCH] == JAX_OPTIMIZED[ARCH]
     assert OPTIMIZED[ARCH][0]["wkv_chunk"] == 64
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config("qwen2-72b")
+        get_config("recurrentgemma-9b")
     with pytest.raises(KeyError):
         get_config("no-such-arch")
 
@@ -278,8 +278,8 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch, smoke):
                  lambda: train_main(["--arch", ARCH, "--smoke"])):
         with pytest.raises(RuntimeError, match="cuda"):
             call()
-    dense = jax_get_config("h2o-danube-1.8b", smoke=True)
+    encdec = jax_get_config("seamless-m4t-medium", smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_prefill_step(dense, device="cpu")
+        make_prefill_step(encdec, device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         make_serve_step(cfg, mesh=object(), device="cpu")

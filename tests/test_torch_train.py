@@ -262,25 +262,34 @@ def test_make_train_step_from_carried_state(smoke):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_arch_smoke_forward_and_train_step(arch):
-    """``tests/test_models.py``'s smoke test for the port: rwkv6 takes one
-    full train step (fwd + bwd + AdamW) on the CPU, with finite metrics,
-    shapes kept and parameters changed; every other architecture raises,
-    naming ROADMAP."""
-    if arch != ARCH:
+    """``tests/test_models.py``'s smoke test for the port: every ported
+    architecture (rwkv6, dense, moe) takes one full train step (fwd + bwd
+    + AdamW) on the CPU, with finite metrics, shapes kept and parameters
+    changed, on the reference's batch (patches for a vlm arch); the
+    rglru_hybrid and encdec architectures raise, naming ROADMAP."""
+    jcfg = jax_get_config(arch, smoke=True)
+    if jcfg.family in ("rglru_hybrid", "encdec"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             get_config(arch, smoke=True)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(jax_get_config(arch, smoke=True), device="cpu")
+            make_train_step(jcfg, device="cpu")
         return
     cfg = get_config(arch, smoke=True)
     model = init_params(cfg, 0, device="cpu")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     step, optc = make_train_step(cfg, mesh=None, device="cpu")
     opt = adamw.init(model, optc)
-    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 64))
-    model, new_opt, metrics = step(model, opt, {"tokens": toks})
+    rng = np.random.default_rng(0)
+    S = 64
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, S - cfg.frontend_tokens))}
+    if cfg.frontend == "vlm_patches":
+        batch["patches"] = rng.normal(size=(2, cfg.frontend_tokens,
+                                            cfg.frontend_dim)).astype(
+            np.float32)
+    model, new_opt, metrics = step(model, opt, batch)
     assert np.isfinite(float(metrics["loss"]))
     assert np.isfinite(float(metrics["grad_norm"]))
+    assert (float(metrics["aux"]) > 0) == (cfg.family == "moe")
     changed = []
     for n, p in model.named_parameters():
         assert p.shape == before[n].shape
