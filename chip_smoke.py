@@ -5,6 +5,7 @@
     python3 chip_smoke.py --measure train
     python3 chip_smoke.py --measure lm
     python3 chip_smoke.py --measure lm_mutations
+    python3 chip_smoke.py --measure robust
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX, and:
@@ -170,7 +171,27 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    float64 oracle at trained-model score scales;
    (d) h2o-danube-1.8b FULL training, 1 warm-up and 3 steps of 2 x 4,096
    tokens through ``make_train_step``, s per step, tokens/s and peak
-   memory;
+   memory; the rglru_hybrid and encdec families, in the same phase: (e)
+   recurrentgemma-9b FULL (38 layers: 12 groups of 2 RG-LRU layers + 1
+   local-attention layer, and a 2-layer tail) on 4 x 4,096-token prompts,
+   which wrap its 2,048-slot ring, and 32 decode steps, its scan against
+   the stepwise recurrence at full width and its teacher forcing in f32 at
+   full depth from the weights upcast in place; (f) seamless-m4t-medium
+   FULL (12 + 12 layers) on 4 requests of 1,024 audio frames and 4,096
+   decoder tokens, its cross-attention cache bit for bit the projection of
+   the encoder's output; (g) recurrentgemma-9b training at its published
+   widths cut to 5 layers, 1 + 3 steps of 4 x 1,024 tokens;
+   and the "robust" phase: (a) int8 and bf16 gradient compression with
+   error feedback on (g)'s model's gradient at one recurrent layer's
+   leaves over 50 steps; (b) ``robust_mean_grads`` on 4 gloo ranks sharing
+   the card, each holding a full-width recurrent layer's gradient tree
+   (~201 M f32), one of them the base x 1,000: the corrupted rank is
+   flagged, every rank's mean is bit for bit the same and within the
+   honest spread of the honest mean, and ``lloyd_step`` and ``min_argmin``
+   launch in every rank; (c) the elastic runner on the reference test's
+   scenario over 8 logical replicas of the card, and over
+   ``make_train_step`` of recurrentgemma at d = 512, restarted after a
+   failure bit for bit against the uninterrupted run;
 4. re-runs gauss with ``backend="blocked"`` (the plain torch path) from the
    same seed, and on the kernels from another seed as the yardstick of two
    independent draws, and compares the results; re-runs the rwkv6 prefill
@@ -198,8 +219,8 @@ WKV's timings at its call shape, alone, after the build), ``lm`` (the lm
 phase alone, no build), ``lm_mutations`` (a check of the lm checks: (a)'s
 and (c)'s checks at 4 layers clean and under three mutations
 monkeypatched for a run each, bf16 scores, a ring slot off by one and a
-dropped window mask, each of which must fail them).  One process per
-reading, in turns with another tree's, compares two trees; ``serve`` and
+dropped window mask, each of which must fail them), ``robust`` (the
+robust phase alone, after the build).  One process per reading, in turns with another tree's, compares two trees; ``serve`` and
 ``stream`` run on any tree of the port from the stream slice on.
 
 It prints the card (``nvidia-smi``), one ``{"kernels": [...]}`` line and, as
@@ -3688,6 +3709,27 @@ LM_RING = dict(arch="h2o-danube-1.8b", batch=1, prompt=8191, gen=32,
 # (d) h2o-danube-1.8b FULL training: 2 x 4,096 tokens, remat "nothing"
 LM_TRAIN = dict(arch="h2o-danube-1.8b", batch=2, seq=4096, warmup=1,
                 steps=3, seed=3)
+# (e) recurrentgemma-9b FULL: 4 x 4,096-token prompts, twice its 2,048-token
+# local window, so the attention ring wraps; teacher forcing on 2 of them at
+# 4,095 + 1 tokens (S + 1 = 4 x 1,024), in bf16 and then in f32 from the
+# same weights upcast in place (~38 GB, with the bf16 copy gone); the scan
+# against the stepwise recurrence at full width over ``scan_T`` tokens
+LM_RGLRU = dict(arch="recurrentgemma-9b", batch=4, prompt=4096, gen=32,
+                prefills=3, tf_batch=2, tf_prompt=4095, scan_T=512, seed=6)
+# (f) seamless-m4t-medium FULL: 4 requests of 1,024 audio-frame embeddings
+# (dim 80) and 4,096 decoder tokens, the reference's input_structs rule at
+# L = 4,096; teacher forcing on 2 of them at 4,095 + 1 tokens
+LM_ENCDEC = dict(arch="seamless-m4t-medium", batch=4, text=4096, gen=32,
+                 prefills=3, tf_batch=2, tf_text=4095, seed=7)
+# (g) recurrentgemma-9b training at its published widths cut to 5 layers
+# (one group and the 2-layer tail): at 38 layers AdamW's f32 moments alone
+# take ~77 GB
+LM_RGLRU_TRAIN = dict(arch="recurrentgemma-9b", layers=5, batch=4, seq=1024,
+                      warmup=1, steps=3, seed=8)
+# The scan against the stepwise recurrence: the reference's own tolerance
+# for this check (tests/test_models.py, rtol = atol = 1e-4), as a scaled
+# distance.
+LM_SCAN_TOL = 1e-4
 # the mutation runs (``lm_mutations``): (a) and (c) cut to 4 layers
 LM_MUTATION_LAYERS = 4
 # Tolerances (each a scaled distance, max |a - b| / max(1, max |b|)):
@@ -3740,13 +3782,18 @@ def _peak_gb(dev):
 
 def _lm_batch(cfg, B, n_text, seed, dev):
     """Tokens (B, n_text + 1) on ``dev`` and, for a vlm arch, its patch
-    embeddings (B, frontend_tokens, frontend_dim) f32, from a seed."""
+    embeddings (B, frontend_tokens, frontend_dim) f32, for an audio arch
+    its frame embeddings (B, max(n_text // 4, 8), frontend_dim) f32 (the
+    reference's ``input_structs`` rule), from a seed."""
     g = torch.Generator(device="cpu").manual_seed(seed)
     b = {"tokens": torch.randint(2, cfg.vocab, (B, n_text + 1), generator=g)
          .to(dev)}
     if cfg.frontend == "vlm_patches":
         b["patches"] = torch.randn((B, cfg.frontend_tokens, cfg.frontend_dim),
                                    generator=g).to(dev)
+    elif cfg.frontend == "audio_frames":
+        b["frames"] = torch.randn((B, max(n_text // 4, 8), cfg.frontend_dim),
+                                  generator=g).to(dev)
     return b
 
 
@@ -3813,7 +3860,9 @@ def lm_serving(dev, counted, label, cfg, model, batch, max_len, gen,
     prefill = make_prefill_step(cfg, device=dev)
     serve = make_serve_step(cfg, device=dev)
     B = batch["tokens"].shape[0]
-    S = batch["tokens"].shape[1] + cfg.frontend_tokens
+    # an encdec model's frames go to its encoder, not the decoder's prompt
+    S = batch["tokens"].shape[1] + (0 if cfg.family == "encdec"
+                                    else cfg.frontend_tokens)
     prefill(model, batch, max_len)
     if probe is not None:
         probe.take()
@@ -3832,6 +3881,8 @@ def lm_serving(dev, counted, label, cfg, model, batch, max_len, gen,
         return lg, cache, times
 
     lg, cache, times = counted(f"lm_{label}_prefill", (), run)
+    if cfg.family == "encdec":     # the cache holds as many keys as frames
+        cfg = cfg.replace(frontend_tokens=batch["frames"].shape[1])
     drop_pre = ([float(d) for d, _ in probe.take()[-cfg.n_layers //
                                                    cfg.moe_every:]]
                 if probe is not None else None)
@@ -3851,12 +3902,14 @@ def lm_serving(dev, counted, label, cfg, model, batch, max_len, gen,
            "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
            "head_dim": cfg.hd,
            "d_ff": cfg.d_ff, "vocab": cfg.vocab, "dtype": cfg.dtype,
-           "window": cfg.sliding_window,
+           "window": cfg.sliding_window, "local_window": cfg.local_window,
            "params": sum(p.numel() for p in model.parameters()),
            "batch": B, "positions": S, "max_len": max_len, "gen": gen,
+           "frames": (int(batch["frames"].shape[1]) if "frames" in batch
+                      else None),
            "cache_window": int(cache["kpos"].shape[0]),
-           "cache_gb": 2 * cache["k"].numel() * cache["k"].element_size()
-           / 1e9,
+           "cache_gb": sum(c.numel() * c.element_size()
+                           for c in cache.values()) / 1e9,
            "prefill_s": times, "prefill_s_median": med,
            "prefill_tokens_per_s": B * S / med,
            "decode_p50_ms": float(np.percentile(lat_ms, 50)),
@@ -3915,12 +3968,14 @@ def _same_routes(n_rows, *runs):
 
 
 def lm_teacher_checks(dev, label, cfg, model, batch, max_len, fail,
-                      f32_layers=None, probe=None):
+                      f32_layers=None, probe=None, upcast_in_place=False):
     """Decode against teacher forcing: prefill(S) + decode(token S) against
     prefill(S + 1)'s last logits, in bf16 and in f32 from the same weights
     upcast, on the first ``f32_layers`` layers (default: all), and in bf16
-    at full depth when the f32 run is cut.  Returns the distances; appends
-    a failure to ``fail``.  For a moe model (``probe`` on) a row whose last
+    at full depth when the f32 run is cut.  ``upcast_in_place`` upcasts
+    ``model`` itself (which the caller may no longer use as a bf16 model),
+    so the bf16 copy is gone when the f32 one runs.  Returns the distances;
+    appends a failure to ``fail``.  For a moe model (``probe`` on) a row whose last
     token two of the compared runs route to other experts (a near tie of
     the router, moved by bf16 rounding) is reported, not gated."""
     import copy
@@ -3941,8 +3996,9 @@ def lm_teacher_checks(dev, label, cfg, model, batch, max_len, fail,
         src, ccfg = _cut(model, cfg, f32_layers // cfg.moe_every)
         d16, f16, r1, r2 = _lm_teacher(dev, ccfg, src, batch, max_len,
                                        probe)
-    m32 = copy.deepcopy(src).float()
+    m32 = src.float() if upcast_in_place else copy.deepcopy(src).float()
     del src
+    _free(dev)
     d32, f32, r3, r4 = _lm_teacher(dev, ccfg.replace(dtype="float32"),
                                    m32, batch, max_len, probe)
     del m32
@@ -4110,17 +4166,19 @@ def lm_ring_serving(dev, counted, fail):
     return out
 
 
-def lm_train(dev, counted, fail):
-    """(d) h2o-danube-1.8b FULL training through ``make_train_step``:
-    batches of 2 x 4,096 from ``TokenPipeline``, remat "nothing", bf16
-    parameters and f32 moments.  The warm-up step runs on its own
+def lm_train(dev, counted, fail, c=LM_TRAIN, label="lm_train"):
+    """(d) h2o-danube-1.8b FULL training (or (g), with ``c`` and ``label``
+    given, recurrentgemma-9b cut to ``c["layers"]`` layers) through
+    ``make_train_step``: batches from ``TokenPipeline``, remat "nothing",
+    bf16 parameters and f32 moments.  The warm-up step runs on its own
     optimizer state, so the timed steps start at step 0."""
     from repro_torch.configs import get_config
     from repro_torch.launch.steps import make_train_step
     from repro_torch.models.transformer import init_params
     from repro_torch.optim import adamw
-    c = LM_TRAIN
     cfg = get_config(c["arch"]).replace(remat_policy="nothing")
+    if "layers" in c:
+        cfg = cfg.replace(n_layers=c["layers"])
     batches = _token_batches(cfg.vocab, c["seq"], c["batch"],
                              c["warmup"] + c["steps"], c["seed"], dev)
     model = init_params(cfg, c["seed"], device=dev)
@@ -4146,7 +4204,7 @@ def lm_train(dev, counted, fail):
                              grad_norm=float(m["grad_norm"])))
         return rows
 
-    rows = counted("lm_train", (), run)
+    rows = counted(label, (), run)
     s = [r["s"] for r in rows]
     out = {"arch": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
            "state_dtype": optc.state_dtype, "remat": cfg.remat_policy,
@@ -4156,21 +4214,181 @@ def lm_train(dev, counted, fail):
            "tokens_per_s": c["batch"] * c["seq"] / float(np.median(s)),
            "peak_mem_gb": _peak_gb(dev), "opt_step": int(opt.step)}
     if not all(np.isfinite([r["loss"], r["grad_norm"]]).all() for r in rows):
-        fail.append("lm train: a loss or grad norm is not finite")
+        fail.append(f"{label}: a loss or grad norm is not finite")
     if out["opt_step"] != c["steps"]:
-        fail.append(f"lm train: opt.step {out['opt_step']} != {c['steps']}")
+        fail.append(f"{label}: opt.step {out['opt_step']} != {c['steps']}")
     if bool(torch.equal(before, _param_sums(model))):
-        fail.append("lm train: the parameters did not change")
+        fail.append(f"{label}: the parameters did not change")
     return out
 
 
+def rglru_scan_check(dev, cfg, model, fail):
+    """The RG-LRU block of the model's first recurrent layer, in f32 at
+    full width, over ``scan_T`` tokens at once (the doubling scan) against
+    one token at a time (the decode step), from gates drawn so that r is
+    small and a near 1 (memory over ~50 tokens; the init's zero gates give
+    a <= 0.03, which would leave the scan nothing to carry).  Also the
+    scan alone at the prefill's shape (B, prompt, lru_width) f32, in
+    CUDA-event ms, and its share of a prefill's 26 recurrent layers."""
+    import copy
+    from repro_torch.models import rglru
+    c = LM_RGLRU
+    rec = copy.deepcopy(model.groups[0].recs[0].rec).float()
+    g = torch.Generator(device=dev).manual_seed(c["seed"] + 100)
+    W = cfg.lru_width
+    with torch.no_grad():
+        rec.gate_r_w.copy_(torch.randn(W, generator=g, device=dev))
+        rec.gate_i_w.copy_(torch.randn(W, generator=g, device=dev))
+        rec.gate_r_b.copy_(torch.randn(W, generator=g, device=dev) - 4.0)
+        rec.gate_i_b.copy_(torch.randn(W, generator=g, device=dev))
+    c32 = cfg.replace(dtype="float32")
+    T = c["scan_T"]
+    x = torch.randn((2, T, cfg.d_model), generator=g, device=dev)
+    with torch.inference_mode():
+        y_scan, st_scan = rglru.rglru_block(rec, x, c32)
+        st, ys = None, []
+        for t in range(T):
+            y, st = rglru.rglru_block(rec, x[:, t:t + 1], c32, st)
+            ys.append(y)
+        y_step = torch.cat(ys, 1)
+        a = torch.rand((c["batch"], c["prompt"], W), generator=g, device=dev)
+        b = torch.randn((c["batch"], c["prompt"], W), generator=g, device=dev)
+        h0 = torch.zeros((c["batch"], W), device=dev)
+        scan_ms = time_ms(lambda: rglru.linear_scan(a, b, h0), 3)
+    out = {"T": T, "width": W, "y_err": _scaled(y_scan, y_step),
+           "h_err": _scaled(st_scan["h"], st["h"]), "tol": LM_SCAN_TOL,
+           "scan_shape": [c["batch"], c["prompt"], W],
+           "scan_ms_per_layer": scan_ms,
+           "scan_ms_per_prefill": scan_ms * (cfg.n_layers - cfg.n_layers
+                                             // (cfg.rec_per_attn + 1))}
+    if not (out["y_err"] <= LM_SCAN_TOL and out["h_err"] <= LM_SCAN_TOL):
+        fail.append(f"rglru: scan vs stepwise {out}")
+    return out
+
+
+def rglru_layer_split(dev, cfg, model, B, S):
+    """CUDA-event ms (3 calls after a warm-up) at (B, S) of the first
+    group's recurrent layer (its RG-LRU block, then its FFN) and of its
+    local-attention layer (attention at the local window, then its FFN)."""
+    from repro_torch.models import layers
+    from repro_torch.models.rglru import rglru_block
+    from repro_torch.models.transformer import _ffn
+    grp = model.groups[0]
+    rec, att = grp.recs[0], grp.attn
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn((B, S, cfg.d_model), generator=g, device=dev).to(
+        att.attn.wq.dtype)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        return {"batch": B, "seq": S,
+                "rglru_block_ms": time_ms(
+                    lambda: rglru_block(rec.rec, x, cfg), 3),
+                "rec_ffn_ms": time_ms(lambda: _ffn(rec, x, cfg), 3),
+                "attention_ms": time_ms(lambda: layers.attention(
+                    att.attn, x, cfg, positions=pos,
+                    window=cfg.local_window), 3),
+                "attn_ffn_ms": time_ms(lambda: _ffn(att, x, cfg), 3)}
+
+
+def lm_rglru_serving(dev, counted, fail):
+    """(e) recurrentgemma-9b FULL serving: the ring of its local window
+    wraps; caches, the scan on the card, then teacher forcing in bf16 and
+    in f32 at full depth (the model upcast in place: the last use of it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    c = LM_RGLRU
+    cfg = get_config(c["arch"])
+    sync(dev)
+    t0 = time.perf_counter()
+    model = init_params(cfg, c["seed"], device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    batch = _lm_batch(cfg, c["batch"], c["prompt"], c["seed"], dev)
+    max_len = c["prompt"] + c["gen"]
+    out = lm_serving(dev, counted, "rglru", cfg, model,
+                     _prefix(batch, c["prompt"]), max_len, c["gen"],
+                     c["prefills"], fail)
+    out.update(init_s=init_s, param_count=cfg.param_count(),
+               groups=len(model.groups), tail=len(model.tail))
+    if out["cache_window"] != cfg.local_window:
+        fail.append(f"rglru: cache window {out['cache_window']}")
+    out["layer_split"] = rglru_layer_split(dev, cfg, model, c["batch"],
+                                           c["prompt"])
+    out["scan_check"] = rglru_scan_check(dev, cfg, model, fail)
+    tf = {"tokens": batch["tokens"][:c["tf_batch"], :c["tf_prompt"] + 1]}
+    out["teacher"] = lm_teacher_checks(dev, "rglru", cfg, model, tf,
+                                       c["tf_prompt"] + 8, fail,
+                                       upcast_in_place=True)
+    return out
+
+
+def encdec_cross_check(dev, cfg, model, batch, fail):
+    """A prefill's cross-attention cache is each decoder layer's
+    projection of the encoder's output (one ``final_norm``, no RoPE): the
+    first and last layers' ``ck`` / ``cv`` bit for bit against
+    ``kv_proj`` of ``_encode`` on the same frames."""
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models.layers import kv_proj
+    from repro_torch.models.transformer import _encode
+    _, cache = make_prefill_step(cfg, device=dev)(model, batch)
+    with torch.inference_mode():
+        x_enc, pos_e, _ = _encode(model, batch["frames"], cfg)
+        same = []
+        for i in (0, cfg.n_layers - 1):
+            ck, cv = kv_proj(model.dec_layers[i].xattn, x_enc, cfg, pos_e,
+                             use_rope=False)
+            same.append(bool(torch.equal(ck, cache["ck"][i])
+                             and torch.equal(cv, cache["cv"][i])))
+    out = {"ck_shape": list(cache["ck"].shape), "layers_bitwise": same}
+    if not all(same):
+        fail.append(f"encdec: cross-attention cache {out}")
+    return out
+
+
+def lm_encdec_serving(dev, counted, fail):
+    """(f) seamless-m4t-medium FULL serving: 1,024 frames and 4,096
+    decoder tokens per request; the cross-attention cache, then teacher
+    forcing in bf16 and in f32 at full depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    c = LM_ENCDEC
+    cfg = get_config(c["arch"])
+    sync(dev)
+    t0 = time.perf_counter()
+    model = init_params(cfg, c["seed"], device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    batch = _lm_batch(cfg, c["batch"], c["text"], c["seed"], dev)
+    max_len = c["text"] + c["gen"]
+    out = lm_serving(dev, counted, "encdec", cfg, model,
+                     _prefix(batch, c["text"]), max_len, c["gen"],
+                     c["prefills"], fail)
+    out.update(init_s=init_s, param_count=cfg.param_count(),
+               enc_layers=len(model.enc_layers))
+    out["cross_cache"] = encdec_cross_check(dev, cfg, model,
+                                            _prefix(batch, c["text"]), fail)
+    tf = {"tokens": batch["tokens"][:c["tf_batch"], :c["tf_text"] + 1],
+          "frames": batch["frames"][:c["tf_batch"]]}
+    out["teacher"] = lm_teacher_checks(dev, "encdec", cfg, model, tf,
+                                       c["tf_text"] + 8, fail)
+    return out
+
+
+def lm_rglru_train(dev, counted, fail):
+    """(g) recurrentgemma-9b training at its published widths, 5 layers."""
+    return lm_train(dev, counted, fail, LM_RGLRU_TRAIN, "lm_rglru_train")
+
+
 def lm_phase(dev, counted):
-    """The "lm" phase, parts (a)-(d), each after the previous part's model
+    """The "lm" phase, parts (a)-(g), each after the previous part's model
     is released.  Returns the report; raises on any failure."""
     fail, out = [], {}
     t0 = time.perf_counter()
     for name, fn in (("dense", lm_dense_serving), ("moe", lm_moe_serving),
-                     ("ring", lm_ring_serving), ("train", lm_train)):
+                     ("ring", lm_ring_serving), ("train", lm_train),
+                     ("rglru", lm_rglru_serving),
+                     ("encdec", lm_encdec_serving),
+                     ("rglru_train", lm_rglru_train)):
         _free(dev)
         t = time.perf_counter()
         out[name] = fn(dev, counted, fail)
@@ -4263,6 +4481,386 @@ def lm_mutations(dev):
 
 
 # --------------------------------------------------------------- timings
+# ---------------------------------------------------------------- robust
+# The "robust" phase: gradient compression, the paper's outlier detection
+# guarding data-parallel training, and the elastic runner.
+# (a) int8 / bf16 error-feedback compression of (g)'s model's gradient at
+# one recurrent layer's leaves (~201 M), over ``ef_steps`` steps
+# (b) robust_mean_grads on ``ranks`` gloo ranks sharing the card, each
+# holding a gradient tree of one recurrentgemma-9b recurrent layer's leaf
+# shapes at full width: a shared base plus ``noise`` x N(0, 1) from the
+# rank's seed; rank ``bad`` holds ``blowup`` in every entry (the reference
+# test's corruption)
+ROBUST = dict(ranks=4, bad=2, noise=0.01, blowup=1000.0, budget=1, seed=0,
+              ef_steps=50, ef_batch=2, ef_seq=1024)
+# (c) the reference test's elastic scenario (tests/test_checkpoint_runtime.py)
+# on 8 logical replicas of the card, then an ElasticRunner over
+# make_train_step of recurrentgemma at d = 512 (4 layers: a group and a
+# 1-layer tail; the vocabulary cut to 32,768 so that each of its six
+# checkpoints of params and f32 moments is ~0.5 GB, not ~2.7 GB), a failure
+# after the step-3 checkpoint, against the uninterrupted run
+ELASTIC = dict(steps=60, replicas=8, fail_at={23: 4, 41: 2}, ckpt_every=5,
+               dim=16)
+ELASTIC_TRAIN = dict(layers=4, d_model=512, n_heads=4, head_dim=128,
+                     lru_width=512, d_ff=1536, vocab=32_768, batch=2,
+                     seq=256, steps=8, ckpt_every=3, fail_at={5: 4},
+                     replicas=8, seed=6)
+
+
+def _rec_leaf_shapes() -> dict:
+    """{name: shape} of one recurrentgemma-9b recurrent layer (FULL)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import RecLayer
+    cfg = get_config("recurrentgemma-9b")
+    return {n: tuple(p.shape) for n, p in
+            RecLayer(cfg, torch.bfloat16, "meta").named_parameters()}
+
+
+def _robust_grads(rank, dev, shapes) -> dict:
+    """Rank ``rank``'s f32 gradient tree (see ROBUST), made on ``dev``."""
+    c = ROBUST
+    g = torch.Generator(device=dev).manual_seed(c["seed"])
+    tree = {n: torch.randn(shapes[n], generator=g, device=dev)
+            for n in sorted(shapes)}
+    if rank == c["bad"]:
+        return {n: t.fill_(c["blowup"]) for n, t in tree.items()}
+    g = torch.Generator(device=dev).manual_seed(c["seed"] + 1 + rank)
+    return {n: t.add_(torch.randn(t.shape, generator=g, device=dev),
+                      alpha=c["noise"]) for n, t in tree.items()}
+
+
+def _tree_maxabs(a: dict, b: dict) -> float:
+    return max(float((a[n] - b[n]).abs().max()) for n in a)
+
+
+def robust_rank(rank, n, workdir, dev, shapes):
+    """One rank of (b): ``robust_mean_grads`` on its tree, its launches, a
+    digest of its mean and its sketch (the row it adds to the gathered
+    sketches); rank 0 also rebuilds every rank's tree to hold the robust
+    mean against the honest ranks' mean and their spread."""
+    import hashlib
+    from repro_torch.runtime.robust_agg import robust_mean_grads, sketch
+    c = ROBUST
+    kernels = _kernel_objects()
+    grads = _robust_grads(rank, dev, shapes)
+    own_sketch = sketch(grads, c["seed"]).cpu()
+    sync(dev)
+    t0 = time.perf_counter()
+    (mean, (n_honest, flagged)), launches = _count(
+        kernels, lambda: robust_mean_grads(
+            grads, byzantine_budget=c["budget"], seed=c["seed"]))
+    sync(dev)
+    wall = time.perf_counter() - t0
+    del grads
+    h = hashlib.sha256()
+    for name in sorted(mean):
+        h.update(mean[name].cpu().numpy().tobytes())
+    out = {"rank": rank, "flagged": bool(flagged), "n_honest": int(n_honest),
+           "digest": h.hexdigest(), "s": wall, "launches": launches,
+           "sketch": own_sketch, "dtype": str(mean[next(iter(mean))].dtype),
+           "leaves": len(mean),
+           "elements": sum(t.numel() for t in mean.values())}
+    if rank == 0:
+        honest = [r for r in range(n) if r != c["bad"]]
+        total = None
+        for r in honest:
+            t = _robust_grads(r, dev, shapes)
+            total = t if total is None else {k: total[k].add_(t[k])
+                                             for k in total}
+        want = {k: v / len(honest) for k, v in total.items()}
+        spread = max(_tree_maxabs(_robust_grads(r, dev, shapes), want)
+                     for r in honest)
+        bad = _robust_grads(c["bad"], dev, shapes)
+        naive = {k: (total[k] + bad[k]) / n for k in total}
+        out.update(robust_err=_tree_maxabs(mean, want), honest_spread=spread,
+                   naive_err=_tree_maxabs(naive, want))
+        del total, want, bad, naive
+    return out
+
+
+def robust_kernel_checks(dev, sketches, fail):
+    """``lloyd_step`` and ``min_argmin`` at the robust path's shape, on the
+    ranks' gathered sketches (ranks, PROJ) with unit weights, f32, l2sq,
+    against their plain versions: one center where k-means++ seeds it (a
+    sketch) and one where the Lloyd loop settles (the honest sketches'
+    mean)."""
+    x = sketches.to(dev, torch.float32).contiguous()
+    w = torch.ones(x.shape[0], dtype=torch.float32, device=dev)
+    honest = [r for r in range(x.shape[0]) if r != ROBUST["bad"]]
+    recs = []
+    for name, c in (("robust_seed_center", x[:1].clone()),
+                    ("robust_honest_center",
+                     x[honest].mean(0, keepdim=True))):
+        recs.append(check_lloyd(dev, name, x, w, c, "l2sq", fail))
+        recs.append(check_pdist(dev, name, x, c, "l2sq", fail))
+    return recs
+
+
+def robust_aggregation(dev, tmp, fail):
+    """(b): ``robust_mean_grads`` on ROBUST["ranks"] gloo ranks sharing the
+    card (their tensors on the card, gloo staging them through the host),
+    then its two kernels on the gathered sketches against their plain
+    versions.  Returns (report, every rank's launches as per-run
+    counts)."""
+    from repro_torch.core.collective import gathered_bytes
+    from repro_torch.runtime.robust_agg import PROJ
+    c, n = ROBUST, ROBUST["ranks"]
+    shapes = _rec_leaf_shapes()
+    rs, wall = spawn_ranks(robust_rank, n, tmp, dev, shapes)
+    elements = rs[0]["elements"]
+    out = {"ranks": n, "backend": "gloo (ranks share one card; not NVLink)",
+           "bad_rank": c["bad"], "budget": c["budget"],
+           "leaves": rs[0]["leaves"], "elements_per_rank": elements,
+           "ranks_wall_s": wall,
+           "sketch_gather_bytes": gathered_bytes(torch.zeros(1, PROJ), n),
+           "allreduce_payload_bytes_per_rank": 4 * elements,
+           "rank_s": [r["s"] for r in rs],
+           "flags": [r["flagged"] for r in rs],
+           "n_honest": [r["n_honest"] for r in rs],
+           "means_bitwise": len({r["digest"] for r in rs}) == 1
+           and all(r["dtype"] == "torch.float32" for r in rs),
+           "robust_err": rs[0]["robust_err"],
+           "honest_spread": rs[0]["honest_spread"],
+           "naive_err": rs[0]["naive_err"],
+           "launches_per_rank": [r["launches"] for r in rs]}
+    if not out["means_bitwise"]:
+        fail.append("robust: the ranks' means differ")
+    for i, r in enumerate(rs):
+        if not (r["launches"]["lloyd_step"] > 0
+                and r["launches"]["min_argmin"] > 0):
+            fail.append(f"robust rank {i}: a kernel was not launched: "
+                        f"{r['launches']}")
+    if out["flags"] != [r == c["bad"] for r in range(n)] \
+            or set(out["n_honest"]) != {n - 1}:
+        fail.append(f"robust: flags {out['flags']}, honest {out['n_honest']}")
+    if not (out["robust_err"] <= out["honest_spread"]
+            and out["naive_err"] > 100 * out["honest_spread"]):
+        fail.append(f"robust: robust mean {out['robust_err']:.3g} / naive "
+                    f"{out['naive_err']:.3g} from the honest mean, whose "
+                    f"spread is {out['honest_spread']:.3g}")
+    out["kernel_checks"] = robust_kernel_checks(
+        dev, torch.stack([r["sketch"] for r in rs]), fail)
+    return out, {f"robust_rank{i}": r["launches"] for i, r in enumerate(rs)}
+
+
+def robust_compression(dev, fail):
+    """(a): the gradient of (g)'s model (its config and seed) on one batch
+    at its first recurrent layer's leaves, encoded and decoded with error
+    feedback for ROBUST["ef_steps"] steps in each scheme.  Per leaf: the
+    int8 residual within half a quantization step at every step, and the
+    time-average of the decoded steps within twice its bound (the last
+    residual over the steps: half a step, or half a bf16 ulp, over 50) of
+    the gradient."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import forward_train, init_params
+    from repro_torch.optim import compression as C
+    c, t = ROBUST, LM_RGLRU_TRAIN
+    cfg = get_config(t["arch"]).replace(n_layers=t["layers"])
+    model = init_params(cfg, t["seed"], device=dev)
+    tokens = _token_batches(cfg.vocab, c["ef_seq"], c["ef_batch"], 1,
+                            t["seed"], dev)[0]
+    leaves = {n: p for n, p in model.named_parameters()
+              if n.startswith("groups.0.recs.0.")}
+    loss, _ = forward_train(model, {"tokens": tokens}, cfg)
+    grads = dict(zip(leaves, torch.autograd.grad(loss, list(
+        leaves.values()))))
+    del model, leaves, loss
+    _free(dev)
+    gmax = {n: float(g.float().abs().max()) for n, g in grads.items()}
+    out = {"leaves": len(grads), "elements": sum(g.numel()
+                                                 for g in grads.values()),
+           "grad_dtype": str(next(iter(grads.values())).dtype),
+           "steps": c["ef_steps"]}
+    for scheme in ("bf16", "int8"):
+        enc, dec = getattr(C, f"encode_{scheme}"), getattr(C,
+                                                           f"decode_{scheme}")
+        ef = C.init_ef(grads)
+        acc = {n: torch.zeros_like(g, dtype=torch.float32)
+               for n, g in grads.items()}
+        worst_res, times = 0.0, []
+        for _ in range(c["ef_steps"]):
+            sync(dev)
+            t0 = time.perf_counter()
+            q, ef = enc(grads, ef)
+            d = dec(q)
+            sync(dev)
+            times.append(time.perf_counter() - t0)
+            for n in acc:
+                acc[n] += d[n]
+            if scheme == "int8":
+                worst_res = max(worst_res, max(
+                    float(ef.residual[n].abs().max()) / float(q[n][1])
+                    for n in q))
+        bound = 2.0 / 127 if scheme == "int8" else 2.0 ** -8
+        avg = max(float((acc[n] / c["ef_steps"] - grads[n].float()).abs()
+                        .max()) / max(gmax[n], 1e-30) for n in acc)
+        out[scheme] = {"avg_err_rel": avg,
+                       "avg_tol_rel": bound / c["ef_steps"],
+                       "ms_per_step_median": 1e3 * float(np.median(times))}
+        if scheme == "int8":
+            out[scheme]["residual_over_scale_max"] = worst_res
+            if not worst_res <= 0.5 + 2 ** -16:
+                fail.append(f"compression int8: residual {worst_res} x the "
+                            f"scale > half a step")
+        if not avg <= bound / c["ef_steps"]:
+            fail.append(f"compression {scheme}: time-average off by {avg:.3g}"
+                        f" of the gradient > {bound / c['ef_steps']:.3g}")
+    return out
+
+
+def _elastic_regression_runner(dev, tmp):
+    """The reference test's scenario: a linear regression, the global
+    batch of 8 rows split evenly over the mesh's replicas and their
+    gradients averaged."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.runtime.elastic import ElasticConfig, ElasticRunner
+    D = ELASTIC["dim"]
+
+    def make_step(mesh):
+        def run(state, batch):
+            w, opt_step = state
+            x = torch.as_tensor(batch["x"], device=mesh[0])
+            y = torch.as_tensor(batch["y"], device=mesh[0])
+            w = w.detach().requires_grad_(True)
+            losses = [((xs @ w - ys) ** 2).mean() for xs, ys in
+                      zip(x.chunk(len(mesh)), y.chunk(len(mesh)))]
+            loss = sum(losses) / len(losses)
+            (g,) = torch.autograd.grad(loss, [w])
+            return ((w - 0.1 * g).detach(), opt_step + 1), \
+                {"loss": loss.detach()}
+        return run
+
+    w_true = np.random.default_rng(0).normal(size=D)
+
+    def data_fn(step):
+        r = np.random.default_rng(step)
+        x = r.normal(size=(8, D)).astype(np.float32)
+        return {"x": x, "y": (x @ w_true).astype(np.float32)}
+
+    return ElasticRunner(
+        make_step=make_step,
+        init_state=lambda mesh: (torch.zeros(D, device=mesh[0]), torch.zeros(
+            (), dtype=torch.int32, device=mesh[0])),
+        state_shardings=lambda mesh, state: mesh[0], data_fn=data_fn,
+        ckpt=CheckpointManager(tmp),
+        cfg=ElasticConfig(ckpt_every=ELASTIC["ckpt_every"]))
+
+
+def _elastic_train_runner(dev, tmp):
+    """An ElasticRunner over ``make_train_step`` of recurrentgemma at
+    ELASTIC_TRAIN's narrow width: the state is (params, opt_state) in the
+    checkpoint's layout, loaded into a model on the mesh's first device
+    for each step."""
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import PipelineConfig, TokenPipeline
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.launch.train import train_state_tree
+    from repro_torch.models.transformer import (build_model, init_params,
+                                                load_params_)
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.elastic import ElasticConfig, ElasticRunner
+    c = ELASTIC_TRAIN
+    cfg = get_config("recurrentgemma-9b").replace(
+        n_layers=c["layers"], d_model=c["d_model"], n_heads=c["n_heads"],
+        head_dim=c["head_dim"], lru_width=c["lru_width"], d_ff=c["d_ff"],
+        vocab=c["vocab"])
+    pipe = TokenPipeline(PipelineConfig(vocab=cfg.vocab, seq_len=c["seq"],
+                                        global_batch=c["batch"],
+                                        seed=c["seed"]))
+
+    def make_step(mesh):
+        step, optc = make_train_step(cfg, device=mesh[0])
+        holder = build_model(cfg, mesh[0])
+
+        def run(state, batch):
+            params, opt_tree = state
+            load_params_(holder, params)
+            opt = adamw.opt_state_from_numpy(opt_tree, cfg, mesh[0])
+            model, opt, m = step(holder, opt, batch)
+            return train_state_tree(model, opt), m
+        return run
+
+    def init_state(mesh):
+        model = init_params(cfg, c["seed"], device=mesh[0])
+        _, optc = make_train_step(cfg, device=mesh[0])
+        return train_state_tree(model, adamw.init(model, optc))
+
+    return cfg, ElasticRunner(
+        make_step=make_step, init_state=init_state,
+        state_shardings=lambda mesh, state: mesh[0],
+        data_fn=lambda step: {"tokens": pipe.global_batch(step)["tokens"]},
+        ckpt=CheckpointManager(tmp),
+        cfg=ElasticConfig(ckpt_every=c["ckpt_every"]))
+
+
+def robust_elastic(dev, tmp, fail):
+    """(c): the reference test's scenario, then a restart of the train step
+    bit for bit against the uninterrupted run."""
+    e = ELASTIC
+    t0 = time.perf_counter()
+    state, log = _elastic_regression_runner(dev, tmp / "regression").run(
+        e["steps"], devices=[dev] * e["replicas"], fail_at=dict(e["fail_at"]))
+    sync(dev)
+    out = {"regression": {
+        "s": time.perf_counter() - t0, "remesh_steps": log["remesh_steps"],
+        "devices_seen": sorted(set(log["device_counts"]), reverse=True),
+        "final_loss": log["losses"][-1], "opt_step": int(state[1])}}
+    r = out["regression"]
+    if not (len(r["remesh_steps"]) == 2 and r["devices_seen"] == [8, 4, 2]
+            and r["final_loss"] < 1e-2):
+        fail.append(f"elastic: {r}")
+    c = ELASTIC_TRAIN
+    t0 = time.perf_counter()
+    _, plain = _elastic_train_runner(dev, tmp / "train_plain")
+    _, lp = plain.run(c["steps"], devices=[dev] * c["replicas"])
+    _, failing = _elastic_train_runner(dev, tmp / "train_fail")
+    _, lf = failing.run(c["steps"], devices=[dev] * c["replicas"],
+                        fail_at=dict(c["fail_at"]))
+    sync(dev)
+    (fail_step,) = c["fail_at"]
+    restart = lf["remesh_steps"][0] if lf["remesh_steps"] else None
+    same = (restart is not None
+            and lf["losses"] == lp["losses"][:fail_step]
+            + lp["losses"][restart:])
+    out["train"] = {"s": time.perf_counter() - t0, "steps": c["steps"],
+                    "fail_at": {str(k): v for k, v in c["fail_at"].items()},
+                    "restart_step": restart, "losses_plain": lp["losses"],
+                    "losses_restarted": lf["losses"],
+                    "devices_seen": sorted(set(lf["device_counts"]),
+                                           reverse=True),
+                    "bitwise": same}
+    if not same or not np.isfinite(lp["losses"]).all():
+        fail.append(f"elastic train: {out['train']}")
+    return out
+
+
+def robust_phase(dev):
+    """The "robust" phase, (a) to (c).  Raises on any failure, after every
+    part has run.  Returns (report, launches of the robust ranks)."""
+    import tempfile
+    fail, out = [], {}
+    t0 = time.perf_counter()
+    _free(dev)
+    out["compression"] = robust_compression(dev, fail)
+    log("robust compression", json.dumps(out["compression"]))
+    _free(dev)
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-robust-") as tmp:
+        tmp = Path(tmp)
+        (tmp / "ranks").mkdir()
+        out["aggregation"], launches = robust_aggregation(dev, tmp / "ranks",
+                                                          fail)
+        log("robust aggregation", json.dumps(out["aggregation"]))
+        out["elastic"] = robust_elastic(dev, tmp, fail)
+        log("robust elastic", json.dumps(out["elastic"]))
+    _free(dev)
+    out["robust_s"] = time.perf_counter() - t0
+    log(f"robust_s {out['robust_s']:.2f}")
+    if fail:
+        raise AssertionError(f"robust phase failed: {fail}")
+    return out, launches
+
+
 def cdist_min(x, c, chunk=16_384):
     """Yardstick only: row-chunked ``torch.cdist`` + min (never in the
     port)."""
@@ -4787,7 +5385,7 @@ def make_data(dev):
 
 
 MEASURES = ("serve", "lloyd_split", "lloyd_ladder", "stream", "train", "lm",
-            "lm_mutations")
+            "lm_mutations", "robust")
 
 
 def counted_runs(kernels, per_run):
@@ -4830,6 +5428,12 @@ def run_measure(dev: torch.device, card: str, phases) -> dict:
         return {"card": card, "lm": lm_phase(dev, counted),
                 "launches_per_run": per_run}
     _build.build_all()
+    if "robust" in phases:
+        if len(phases) > 1:
+            raise ValueError("--measure robust runs alone")
+        robust, launches = robust_phase(dev)
+        return {"card": card, "robust": robust,
+                "launches_per_run": launches}
     if "train" in phases:
         if len(phases) > 1:
             raise ValueError("--measure train runs alone")
@@ -5091,6 +5695,11 @@ def run(dev: torch.device, card: str) -> dict:
     # ---- 3i. the dense and moe families (the "lm" phase): plain torch, no
     # kernel of the port on their path; each part's launches are read
     lm_out = lm_phase(dev, counted)
+
+    # ---- 3j. compression, robust aggregation and the elastic runner (the
+    # "robust" phase): its rank processes report their own launch counts
+    robust_out, robust_launches = robust_phase(dev)
+    per_run.update(robust_launches)
     launches = {k.name: sum(r[k.name] for r in per_run.values())
                 for k in kernels}
     log("main_path_launches", json.dumps(launches))
@@ -5122,6 +5731,7 @@ def run(dev: torch.device, card: str) -> dict:
     report = {"card": card, "build_s": build_s, "checks": checks,
               "main_path": [kdd_out, g_out], "serve": serve_out,
               "rwkv6_serving": rwkv_out, "train": train_out, "lm": lm_out,
+              "robust": robust_out,
               "kernel_vs_blocked": cmp, "head_to_head": h2h,
               "stream": stream_out, "session": session_out,
               "serving": serving_out,

@@ -1,10 +1,8 @@
 """Architecture registry, port of ``repro.configs``.
 
 ``get_config(arch_id, smoke=False)`` returns the exact assigned config
-(FULL) or the reduced same-family config the CPU tests use (SMOKE).  The
-port serves the dense, moe and rwkv6 families (eight architectures); the
-rglru_hybrid and encdec architectures of the reference's registry raise
-``NotImplementedError`` until their families are ported (``ROADMAP.md``).
+(FULL) or the reduced same-family config the CPU tests use (SMOKE), for
+every architecture of the reference's registry.
 """
 from __future__ import annotations
 
@@ -19,17 +17,13 @@ _MODULES = {
     "qwen2-72b": "qwen2_72b",
     "granite-20b": "granite_20b",
     "h2o-danube-1.8b": "h2o_danube_1_8b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "llama4-maverick-400b-a17b": "llama4_maverick_400b_a17b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
-# the reference's registry, so a known architecture that is not ported yet
-# is told apart from a name that does not exist
-ARCH_IDS = [
-    "rwkv6-7b", "llava-next-mistral-7b", "qwen2.5-32b", "qwen2-72b",
-    "granite-20b", "h2o-danube-1.8b", "seamless-m4t-medium",
-    "llama4-maverick-400b-a17b", "qwen3-moe-235b-a22b", "recurrentgemma-9b",
-]
+ARCH_IDS = list(_MODULES)
 
 # The reference's per-arch beyond-baseline settings: cfg overrides plus a
 # logical (data, model) re-mesh of a TPU pod.  The port runs on one card and
@@ -43,16 +37,14 @@ OPTIMIZED = {
     "granite-20b": ({"attn_chunk_remat": True}, (128, 2)),
     "llava-next-mistral-7b": ({"attn_chunk_remat": True}, (128, 2)),
     "h2o-danube-1.8b": ({"attn_chunk_remat": True}, (128, 2)),
+    "seamless-m4t-medium": ({"attn_chunk_remat": True}, (128, 2)),
     "llama4-maverick-400b-a17b": ({"attn_chunk_remat": True}, (64, 4)),
+    "recurrentgemma-9b": ({"attn_chunk_remat": True}, (128, 2)),
 }
 
 
 def get_config(arch: str, smoke: bool = False) -> ModelConfig:
     if arch not in ARCH_IDS:
         raise KeyError(f"unknown arch {arch!r}; known: {ARCH_IDS}")
-    if arch not in _MODULES:
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet; the port serves "
-            f"{sorted(_MODULES)} (ROADMAP.md, queue 1)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     return mod.SMOKE if smoke else mod.FULL

@@ -24,6 +24,8 @@ Python, and the group over the ``sites`` ranks takes the place of
 * ``gather_sites``       — all_gather every leaf in rank order and collapse
                            the site dim: "send every site's summary to the
                            coordinator" as one collective per leaf;
+* ``sum_sites``          — all_reduce (sum) every leaf over the group: the
+                           reference's ``psum`` over the sites axis;
 * ``replicated_coordinator`` — hands each rank its own block of the sharded
                            arguments (leading site dim kept, length 1) and
                            returns the replicated result;
@@ -127,6 +129,23 @@ def gather_sites(tree, group=None):
         return out.to(a.device)
 
     return _tree_map(g, tree)
+
+
+def sum_sites(tree, group=None):
+    """The sum over ``group``'s ranks of every tensor leaf of ``tree`` (an
+    all_reduce per leaf, the reference's ``psum``).  Every rank must pass
+    leaves of the same shapes and dtypes; the result is identical on every
+    rank, lies on each leaf's device, and the caller's leaves are left as
+    they were.  gloo stages a CUDA payload through the host, as
+    :func:`gather_sites` does."""
+    gloo = dist.get_backend(group) == "gloo"
+
+    def s(a: torch.Tensor) -> torch.Tensor:
+        buf = (a.to("cpu", copy=True) if gloo else a.clone()).contiguous()
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        return buf.to(a.device)
+
+    return _tree_map(s, tree)
 
 
 def replicated_coordinator(per_site, group=None, *, n_sharded: int = 1):

@@ -4,8 +4,9 @@
 
 The reference builds these for a mesh or for one device (``mesh=None``);
 the port has no mesh yet and takes ``mesh=None`` only.  Each step moves its
-token inputs to ``device``; the serving steps run under
-``torch.inference_mode()``.
+batch (``tokens``, and a frontend's ``patches`` or ``frames``: an encdec
+batch's frames reach its encoder) to ``device``; the serving steps run
+under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 

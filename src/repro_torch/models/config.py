@@ -2,10 +2,8 @@
 
 Port of ``repro.models.config``: the same dataclass, field for field, so a
 configuration reads the same in both packages.  One dataclass covers the
-five families (dense / moe / rwkv6 / rglru_hybrid / encdec); the port
-serves the dense, moe and rwkv6 families so far (``ROADMAP.md``), and the
-other families' fields are kept so that configurations stay
-interchangeable.
+five families (dense / moe / rwkv6 / rglru_hybrid / encdec), all of which
+the port serves.
 """
 from __future__ import annotations
 

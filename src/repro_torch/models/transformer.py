@@ -1,23 +1,26 @@
 """Model parameters, the training forward (with remat), prefill and cached
-decode, port of ``repro.models.transformer`` for the dense, moe and rwkv6
-families.
+decode, port of ``repro.models.transformer`` for all five families
+(dense / moe / rwkv6 / rglru_hybrid / encdec).
 
 The reference stacks each layer's parameters along a leading (L, ...) axis
 and scans over them; the port holds one model class per family
-(``DenseModel``, ``MoEModel``, ``RWKV6Model``) with a ``ModuleList`` of
-layers and loops over it.  A moe model's list holds groups of
-``moe_every - 1`` dense layers and one MoE layer, as the reference's
-scanned super-layer.  Parameter names follow the reference's pytree
+(``DenseModel``, ``MoEModel``, ``RWKV6Model``, ``RGLRUModel``,
+``EncDecModel``) with ``ModuleList``s of layers and loops over them.  A moe
+model's ``layers`` hold groups of ``moe_every - 1`` dense layers and one
+MoE layer, as the reference's scanned super-layer; an rglru_hybrid model's
+``groups`` hold ``rec_per_attn`` recurrent layers and one local-attention
+layer, and its ``tail`` the ``n_layers % (rec_per_attn + 1)`` recurrent
+layers left over; an encdec model has ``enc_layers`` and ``dec_layers``
+(with cross-attention).  Parameter names follow the reference's pytree
 (``embed.table``, ``lm_head``, ``frontend.proj``, ``layers.<i>.attn.wq``,
-``layers.<g>.dense.<j>.mlp.wi``, ...), so :func:`params_from_numpy` carries
-its weights across: every integer in a name is a stacked index there.
+``layers.<g>.dense.<j>.mlp.wi``, ``groups.<g>.recs.<j>.rec.w_x``, ...), so
+:func:`params_from_numpy` carries its weights across: every integer in a
+name is a stacked index there.
 
 Decode keeps the reference's absolute-position ring-buffer KV cache: the
 key of position p lives at slot p % W, ``kpos`` records each slot's
 position (-1 for empty), and the mask is computed from positions, so a
-sliding window and a full cache share one path.  The rglru_hybrid and
-encdec families raise ``NotImplementedError`` until their slice is ported
-(``ROADMAP.md``).
+sliding window and a full cache share one path.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.models.layers import (MLP, Attention, RMSNorm, attention,
                                        embed_init, kv_proj, mlp, mlp_init_,
                                        unembed)
 from repro_torch.models.moe import MoE, moe_ffn, moe_init_
+from repro_torch.models.rglru import RGLRU, rglru_block, rglru_layer_init_
 from repro_torch.models.rwkv6 import (RWKV6Block, init_block_, rwkv_block,
                                       torch_dtype)
 
@@ -46,10 +50,11 @@ AUX_LOSS_COEF = 0.01
 class DenseLayer(nn.Module):
     """One attention layer (the reference's ``_attn_layer_init``): ``ln1``,
     ``attn``, ``ln2`` and an ``mlp`` or, in a moe model's MoE layer, a
-    ``moe``."""
+    ``moe``; an encdec decoder layer (``cross``) adds ``ln_x`` and the
+    cross-attention ``xattn``."""
 
     def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None,
-                 moe_layer: bool | None = None):
+                 moe_layer: bool | None = None, cross: bool = False):
         super().__init__()
         if moe_layer is None:
             moe_layer = cfg.family == "moe"
@@ -57,12 +62,16 @@ class DenseLayer(nn.Module):
         self.ln1 = RMSNorm(D, device)
         self.attn = Attention(cfg, dtype, device)
         self.ln2 = RMSNorm(D, device)
+        self.ln_x = RMSNorm(D, device) if cross else None
+        self.xattn = Attention(cfg, dtype, device) if cross else None
         self.moe = MoE(cfg, dtype, device) if moe_layer else None
         self.mlp = None if moe_layer else MLP(D, cfg.d_ff, dtype,
                                               cfg.mlp_type, device)
 
     def init_(self, gen: torch.Generator) -> "DenseLayer":
         attn_init_(self.attn, gen)
+        if self.xattn is not None:
+            attn_init_(self.xattn, gen)
         if self.moe is not None:
             moe_init_(self.moe, gen)
         else:
@@ -92,11 +101,48 @@ class MoEGroup(nn.Module):
         return self
 
 
+class RecLayer(nn.Module):
+    """One recurrent layer of the rglru_hybrid family (the reference's
+    ``_rec_layer_init``): the RG-LRU block ``rec``, then ``ln2`` and a
+    SwiGLU ``mlp``."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.rec = RGLRU(cfg, dtype, device)
+        self.ln2 = RMSNorm(cfg.d_model, device)
+        self.mlp = MLP(cfg.d_model, cfg.d_ff, dtype, "swiglu", device)
+        self.moe = None
+
+    def init_(self, gen: torch.Generator) -> "RecLayer":
+        rglru_layer_init_(self.rec, gen)
+        mlp_init_(self.mlp, gen)
+        return self
+
+
+class RGLRUGroup(nn.Module):
+    """One rglru_hybrid group (the reference's ``_rglru_group_init``):
+    ``rec_per_attn`` recurrent layers under ``recs``, then one local
+    attention layer ``attn``, each followed by its own MLP."""
+
+    def __init__(self, cfg: ModelConfig, dtype: torch.dtype, device=None):
+        super().__init__()
+        self.recs = nn.ModuleList(RecLayer(cfg, dtype, device)
+                                  for _ in range(cfg.rec_per_attn))
+        self.attn = DenseLayer(cfg, dtype, device)
+
+    def init_(self, gen: torch.Generator) -> "RGLRUGroup":
+        for lyr in self.recs:
+            lyr.init_(gen)
+        self.attn.init_(gen)
+        return self
+
+
 # =============================================================== models
 class LMModel(nn.Module):
     """What every family shares: ``embed.table``, ``final_norm``,
     ``lm_head`` and, with a modality frontend, ``frontend.proj``; a family
-    adds its ``layers``.  Allocated uninitialised on ``device``
+    adds its stacks of layers (:meth:`make_stacks`: ``layers``, or the
+    family's own names).  Allocated uninitialised on ``device``
     (:func:`init_params` draws the weights, :func:`params_from_numpy`
     copies the reference's in)."""
 
@@ -115,40 +161,70 @@ class LMModel(nn.Module):
             self.frontend = nn.Module()
             self.frontend.proj = nn.Parameter(torch.empty(
                 (cfg.frontend_dim, D), dtype=dtype, device=device))
-        self.layers = nn.ModuleList(self.make_layers(cfg, dtype, device))
+        self.stack_names = []
+        for name, lyrs in self.make_stacks(cfg, dtype, device).items():
+            setattr(self, name, nn.ModuleList(lyrs))
+            self.stack_names.append(name)
 
-    def make_layers(self, cfg, dtype, device):
+    def make_stacks(self, cfg, dtype, device) -> dict:
+        """{stack name: its layers}, in the reference's draw order."""
         raise NotImplementedError
 
 
 class RWKV6Model(LMModel):
-    def make_layers(self, cfg, dtype, device):
-        return [RWKV6Block(cfg, dtype, device) for _ in range(cfg.n_layers)]
+    def make_stacks(self, cfg, dtype, device):
+        return {"layers": [RWKV6Block(cfg, dtype, device)
+                           for _ in range(cfg.n_layers)]}
 
 
 class DenseModel(LMModel):
-    def make_layers(self, cfg, dtype, device):
-        return [DenseLayer(cfg, dtype, device) for _ in range(cfg.n_layers)]
+    def make_stacks(self, cfg, dtype, device):
+        return {"layers": [DenseLayer(cfg, dtype, device)
+                           for _ in range(cfg.n_layers)]}
 
 
 class MoEModel(LMModel):
-    def make_layers(self, cfg, dtype, device):
+    def make_stacks(self, cfg, dtype, device):
         if cfg.n_layers % cfg.moe_every:
             raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of "
                              f"moe_every {cfg.moe_every}")
-        return [MoEGroup(cfg, dtype, device)
-                for _ in range(cfg.n_layers // cfg.moe_every)]
+        return {"layers": [MoEGroup(cfg, dtype, device)
+                           for _ in range(cfg.n_layers // cfg.moe_every)]}
 
 
-MODELS = {"rwkv6": RWKV6Model, "dense": DenseModel, "moe": MoEModel}
+class RGLRUModel(LMModel):
+    """``groups`` of ``rec_per_attn`` recurrent layers + 1 attention layer
+    (12 at 38 layers), then a ``tail`` of ``n_layers % (rec_per_attn +
+    1)`` recurrent layers (2 at 38 layers)."""
+
+    def make_stacks(self, cfg, dtype, device):
+        n_groups, tail = divmod(cfg.n_layers, cfg.rec_per_attn + 1)
+        return {"groups": [RGLRUGroup(cfg, dtype, device)
+                           for _ in range(n_groups)],
+                "tail": [RecLayer(cfg, dtype, device) for _ in range(tail)]}
+
+
+class EncDecModel(LMModel):
+    """``enc_layers`` (non-causal self-attention) and ``dec_layers``
+    (causal self-attention, then cross-attention to the encoder's
+    output)."""
+
+    def make_stacks(self, cfg, dtype, device):
+        return {"enc_layers": [DenseLayer(cfg, dtype, device)
+                               for _ in range(cfg.n_enc_layers)],
+                "dec_layers": [DenseLayer(cfg, dtype, device, cross=True)
+                               for _ in range(cfg.n_layers)]}
+
+
+MODELS = {"rwkv6": RWKV6Model, "dense": DenseModel, "moe": MoEModel,
+          "rglru_hybrid": RGLRUModel, "encdec": EncDecModel}
 
 
 def model_class(cfg: ModelConfig) -> type:
-    """The family's model class; a family not ported yet raises."""
+    """The family's model class."""
     if cfg.family not in MODELS:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet; the port serves "
-            f"{sorted(MODELS)} (ROADMAP.md, queue 1)")
+        raise ValueError(f"unknown family {cfg.family!r}; known: "
+                         f"{sorted(MODELS)}")
     return MODELS[cfg.family]
 
 
@@ -176,11 +252,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     dense_init(model.lm_head, gen)
     if cfg.frontend != "none":
         dense_init(model.frontend.proj, gen)
-    for lyr in model.layers:
-        if isinstance(lyr, RWKV6Block):
-            init_block_(lyr, gen)
-        else:
-            lyr.init_(gen)
+    for name in model.stack_names:
+        for lyr in getattr(model, name):
+            if isinstance(lyr, RWKV6Block):
+                init_block_(lyr, gen)
+            else:
+                lyr.init_(gen)
     return model
 
 
@@ -287,7 +364,8 @@ def _embed_inputs(model: LMModel, batch: dict, cfg: ModelConfig):
     tokens = batch["tokens"]
     x_txt = embed(model.embed.table, tokens)
     txt = torch.ones_like(tokens, dtype=torch.bool)
-    if cfg.frontend == "none":
+    if cfg.frontend == "none" or cfg.family == "encdec":
+        # encdec consumes frames in the encoder, not as a decoder prefix
         return x_txt, txt
     feats = batch["patches"] if cfg.frontend == "vlm_patches" \
         else batch["frames"]
@@ -307,11 +385,22 @@ def _ffn(lyr: DenseLayer, x, cfg: ModelConfig):
                                              device=x.device)
 
 
-def _dense_layer_train(lyr: DenseLayer, x, cfg: ModelConfig, positions):
+def _dense_layer_train(lyr: DenseLayer, x, cfg: ModelConfig, positions, *,
+                       causal: bool = True, window: int | None = None,
+                       enc_kv: tuple | None = None):
+    """Self-attention (``window``: default cfg.sliding_window), then, with
+    ``enc_kv`` = (k, v, kpos, valid) of the encoder's output, the decoder's
+    non-causal cross-attention (no RoPE), then the FFN."""
     xn = lyr.ln1(x, cfg.norm_eps)
-    h, _ = attention(lyr.attn, xn, cfg, positions=positions,
-                     window=cfg.sliding_window)
-    return _ffn(lyr, x + h, cfg)
+    h, _ = attention(lyr.attn, xn, cfg, positions=positions, causal=causal,
+                     window=cfg.sliding_window if window is None else window)
+    x = x + h
+    if enc_kv is not None:
+        hx, _ = attention(lyr.xattn, lyr.ln_x(x, cfg.norm_eps), cfg,
+                          kv=enc_kv, positions=positions, causal=False,
+                          window=0, use_rope=False)
+        x = x + hx
+    return _ffn(lyr, x, cfg)
 
 
 # =============================================================== train forward
@@ -351,27 +440,97 @@ def _remat(fn, cfg: ModelConfig):
     raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
+def _rec_layer(lyr: RecLayer, x, cfg: ModelConfig, state=None):
+    """One recurrent layer: the RG-LRU block, then its FFN.  Returns (x,
+    the block's new state)."""
+    x, st = rglru_block(lyr.rec, x, cfg, state)
+    return _ffn(lyr, x, cfg)[0], st
+
+
+def _encode(model: EncDecModel, frames, cfg: ModelConfig):
+    """The encoder over ``frames @ frontend.proj`` (non-causal, RoPE),
+    normalised by the model's one ``final_norm``, as in the reference.
+    Returns (x_enc, its positions, the layers' aux sum)."""
+    x = frames.to(torch_dtype(cfg.dtype)) @ model.frontend.proj
+    pos_e = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def body(lyr, h, aux):
+        h, a = _dense_layer_train(lyr, h, cfg, pos_e, causal=False)
+        return h, aux + a
+
+    body = _remat(body, cfg)
+    for lyr in model.enc_layers:
+        x, aux = body(lyr, x, aux)
+    return model.final_norm(x, cfg.norm_eps), pos_e, aux
+
+
+def _forward_train_encdec(model: EncDecModel, batch: dict, cfg: ModelConfig):
+    x_enc, pos_e, aux = _encode(model, batch["frames"], cfg)
+    tokens = batch["tokens"]
+    x = embed(model.embed.table, tokens)
+    pos_d = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
+
+    def body(lyr, h, aux, x_enc):
+        # cross-attention keys from the encoder output, projected per layer
+        ck, cv = kv_proj(lyr.xattn, x_enc, cfg, pos_e, use_rope=False)
+        h, a = _dense_layer_train(lyr, h, cfg, pos_d,
+                                  enc_kv=(ck, cv, pos_e, None))
+        return h, aux + a
+
+    body = _remat(body, cfg)
+    for lyr in model.dec_layers:
+        x, aux = body(lyr, x, aux, x_enc)
+    x = model.final_norm(x, cfg.norm_eps)
+    loss = ce_loss(unembed(model.lm_head, x), tokens,
+                   torch.ones_like(tokens, dtype=torch.bool))
+    return loss + AUX_LOSS_COEF * aux, {"ce": loss, "aux": aux}
+
+
 def forward_train(model: LMModel, batch: dict, cfg: ModelConfig):
     """Returns (loss, metrics {"ce", "aux"}), a graph for autograd; the
-    remat policy wraps one stacked entry (a layer, or a moe group).  aux
-    sums the MoE layers' load-balance losses (0 for dense and rwkv6), and
-    the loss is ce + AUX_LOSS_COEF * aux, as in the reference."""
+    remat policy wraps one stacked entry (a layer, a moe group, an
+    rglru_hybrid group or a tail layer).  aux sums the MoE layers'
+    load-balance losses (0 for the other families), and the loss is ce +
+    AUX_LOSS_COEF * aux, as in the reference.  An encdec batch carries the
+    encoder's ``frames`` beside the decoder's ``tokens``."""
     model_class(cfg)
+    if cfg.family == "encdec":
+        return _forward_train_encdec(model, batch, cfg)
     x, mask = _embed_inputs(model, batch, cfg)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def body(grp, h, aux):
-        if cfg.family == "rwkv6":
-            return rwkv_block(grp, h, cfg)[0], aux
-        for lyr in _sublayers(cfg, grp):
-            h, a = _dense_layer_train(lyr, h, cfg, positions)
-            aux = aux + a
-        return h, aux
+    if cfg.family == "rglru_hybrid":
+        def rec_body(lyr, h, aux):
+            return _rec_layer(lyr, h, cfg)[0], aux
 
-    body = _remat(body, cfg)
-    for grp in model.layers:
-        x, aux = body(grp, x, aux)
+        def group_body(grp, h, aux):
+            for lyr in grp.recs:
+                h, aux = rec_body(lyr, h, aux)
+            h, a = _dense_layer_train(grp.attn, h, cfg, positions,
+                                      window=cfg.local_window)
+            return h, aux + a
+
+        # as in the reference, a group's recurrent layers run inside the
+        # group's checkpoint only; each tail layer has its own
+        group_body, tail_body = _remat(group_body, cfg), _remat(rec_body, cfg)
+        for grp in model.groups:
+            x, aux = group_body(grp, x, aux)
+        for lyr in model.tail:
+            x, aux = tail_body(lyr, x, aux)
+    else:
+        def body(grp, h, aux):
+            if cfg.family == "rwkv6":
+                return rwkv_block(grp, h, cfg)[0], aux
+            for lyr in _sublayers(cfg, grp):
+                h, a = _dense_layer_train(lyr, h, cfg, positions)
+                aux = aux + a
+            return h, aux
+
+        body = _remat(body, cfg)
+        for grp in model.layers:
+            x, aux = body(grp, x, aux)
     x = model.final_norm(x, cfg.norm_eps)
     logits = unembed(model.lm_head, x)
     S_txt = batch["tokens"].shape[1]
@@ -387,18 +546,45 @@ def _cache_index(cfg: ModelConfig, i: int, j: int) -> tuple:
     return (i, j) if cfg.family == "moe" else (i,)
 
 
+def _prefill_attn(lyr: DenseLayer, x, cfg: ModelConfig, positions, window,
+                  cache, at, slots, m):
+    """A prompt's causal self-attention through ``lyr``: writes the last
+    ``m`` positions' keys and values at ``slots`` of the cache's slice
+    ``at``; returns x + the attention's output."""
+    h, (k, v) = attention(lyr.attn, lyr.ln1(x, cfg.norm_eps), cfg,
+                          positions=positions, causal=True, window=window)
+    cache["k"][at][:, slots] = k[:, -m:]
+    cache["v"][at][:, slots] = v[:, -m:]
+    return x + h
+
+
 def forward_prefill(model: LMModel, batch: dict, cfg: ModelConfig,
                     max_len: int | None = None):
     """Process a full prompt, returning (last-token logits (B,V) f32,
     cache).  An attention cache is a ring of width W = cache_window(cfg,
     max_len) (default: the prompt's length) with the key of position p at
     slot p % W; pass max_len > the prompt for generation head-room on full
-    attention (a sliding window caps W at its width).  The rwkv6 cache is
-    a fixed-size state and does not use it."""
+    attention (a sliding or local window caps W at its width).  The rwkv6
+    cache is a fixed-size state and does not use it; the rglru_hybrid
+    cache adds each recurrent layer's state, the encdec cache each decoder
+    layer's cross-attention keys and values (``ck`` / ``cv``, as many as
+    the batch's ``frames``)."""
     model_class(cfg)
     x, _ = _embed_inputs(model, batch, cfg)
     B, S = x.shape[:2]
     dev = x.device
+    positions = torch.arange(S, dtype=torch.int32, device=dev)
+    if cfg.family != "rwkv6":
+        ccfg = cfg
+        if cfg.family == "encdec":
+            x_enc, pos_e, _ = _encode(model, batch["frames"], cfg)
+            ccfg = cfg.replace(frontend_tokens=x_enc.shape[1])
+        cache = init_cache(ccfg, B, max_len if max_len is not None else S,
+                           device=dev)
+        W = cache["kpos"].shape[0]
+        m = min(W, S)
+        slots = (positions[-m:] % W).long()      # the last m positions' slots
+        cache["kpos"][slots] = positions[-m:]
     if cfg.family == "rwkv6":
         t1, t2, s = [], [], []
         for blk in model.layers:
@@ -408,23 +594,35 @@ def forward_prefill(model: LMModel, batch: dict, cfg: ModelConfig,
             s.append(st["s"])
         cache = {"ts_t": torch.stack(t1), "ts_c": torch.stack(t2),
                  "s": torch.stack(s)}
+    elif cfg.family == "rglru_hybrid":
+        for g, grp in enumerate(model.groups):
+            for j, lyr in enumerate(grp.recs):
+                x, st = _rec_layer(lyr, x, cfg)
+                cache["h"][g, j] = st["h"]
+                cache["conv"][g, j] = st["conv"]
+            x = _prefill_attn(grp.attn, x, cfg, positions, cfg.local_window,
+                              cache, g, slots, m)
+            x, _ = _ffn(grp.attn, x, cfg)
+        for i, lyr in enumerate(model.tail):
+            x, st = _rec_layer(lyr, x, cfg)
+            cache["tail_h"][i] = st["h"]
+            cache["tail_conv"][i] = st["conv"]
+    elif cfg.family == "encdec":
+        for i, lyr in enumerate(model.dec_layers):
+            x = _prefill_attn(lyr, x, cfg, positions, 0, cache, i, slots, m)
+            ck, cv = kv_proj(lyr.xattn, x_enc, cfg, pos_e, use_rope=False)
+            hx, _ = attention(lyr.xattn, lyr.ln_x(x, cfg.norm_eps), cfg,
+                              kv=(ck, cv, pos_e, None), positions=positions,
+                              causal=False, window=0, use_rope=False)
+            x, _ = _ffn(lyr, x + hx, cfg)
+            cache["ck"][i] = ck
+            cache["cv"][i] = cv
     else:
-        positions = torch.arange(S, dtype=torch.int32, device=dev)
-        cache = init_cache(cfg, B, max_len if max_len is not None else S,
-                           device=dev)
-        W = cache["kpos"].shape[0]
-        m = min(W, S)
-        slots = (positions[-m:] % W).long()      # the last m positions' slots
-        cache["kpos"][slots] = positions[-m:]
         for i, grp in enumerate(model.layers):
             for j, lyr in enumerate(_sublayers(cfg, grp)):
-                xn = lyr.ln1(x, cfg.norm_eps)
-                h, (k, v) = attention(lyr.attn, xn, cfg, positions=positions,
-                                      causal=True, window=cfg.sliding_window)
-                x, _ = _ffn(lyr, x + h, cfg)
-                at = _cache_index(cfg, i, j)
-                cache["k"][at][:, slots] = k[:, -m:]
-                cache["v"][at][:, slots] = v[:, -m:]
+                x = _prefill_attn(lyr, x, cfg, positions, cfg.sliding_window,
+                                  cache, _cache_index(cfg, i, j), slots, m)
+                x, _ = _ffn(lyr, x, cfg)
     cache["pos"] = torch.tensor(S, dtype=torch.int32, device=dev)
     # the norm is per row, so the last row alone gives the reference's value
     x = model.final_norm(x[:, -1:, :], cfg.norm_eps)
@@ -433,6 +631,8 @@ def forward_prefill(model: LMModel, batch: dict, cfg: ModelConfig,
 
 # =============================================================== decode
 def cache_window(cfg: ModelConfig, max_len: int) -> int:
+    if cfg.family == "rglru_hybrid":
+        return min(cfg.local_window, max_len)
     if cfg.sliding_window > 0:
         return min(cfg.sliding_window, max_len)
     return max_len
@@ -442,7 +642,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device="cuda") -> dict:
     """Zero cache.  rwkv6: per layer, the two token-shift rows and the WKV
     state.  dense / moe: the ring of keys and values in ``cfg.dtype``,
-    ``kpos`` (W,) = -1 (empty) and ``pos`` = 0."""
+    ``kpos`` (W,) = -1 (empty) and ``pos`` = 0.  rglru_hybrid: a ring per
+    group's attention layer (W = min(local_window, max_len)), and per
+    recurrent layer ``h`` (f32) and ``conv`` (its last 3 inputs): (G,
+    rec_per_attn, B, ...) in the groups, (tail, B, ...) in the tail.
+    encdec: the decoder's ring, and ``ck`` / ``cv`` (L, B,
+    frontend_tokens, Hkv, hd) for the encoder's keys and values."""
     dev = resolve_device(device)
     model_class(cfg)
     dtype = torch_dtype(cfg.dtype)
@@ -456,13 +661,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                                  device=dev),
                 "pos": torch.zeros((), dtype=torch.int32, device=dev)}
     W = cache_window(cfg, max_len)
-    lead = ((L // cfg.moe_every, cfg.moe_every) if cfg.family == "moe"
-            else (L,))
-    shape = lead + (B, W, cfg.n_kv_heads, cfg.hd)
-    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "kpos": torch.full((W,), -1, dtype=torch.int32, device=dev),
-            "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    Hkv, hd = cfg.n_kv_heads, cfg.hd
+    if cfg.family == "moe":
+        lead = (L // cfg.moe_every, cfg.moe_every)
+    elif cfg.family == "rglru_hybrid":
+        G, tail = divmod(L, cfg.rec_per_attn + 1)
+        lead = (G,)
+    else:
+        lead = (L,)
+    shape = lead + (B, W, Hkv, hd)
+    cache = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+             "v": torch.zeros(shape, dtype=dtype, device=dev),
+             "kpos": torch.full((W,), -1, dtype=torch.int32, device=dev),
+             "pos": torch.zeros((), dtype=torch.int32, device=dev)}
+    if cfg.family == "rglru_hybrid":
+        Wl = cfg.lru_width or cfg.d_model
+        cache["h"] = torch.zeros((G, cfg.rec_per_attn, B, Wl),
+                                 dtype=torch.float32, device=dev)
+        cache["conv"] = torch.zeros((G, cfg.rec_per_attn, B, 3, Wl),
+                                    dtype=dtype, device=dev)
+        if tail:
+            cache["tail_h"] = torch.zeros((tail, B, Wl), dtype=torch.float32,
+                                          device=dev)
+            cache["tail_conv"] = torch.zeros((tail, B, 3, Wl), dtype=dtype,
+                                             device=dev)
+    elif cfg.family == "encdec":
+        S_enc = max(cfg.frontend_tokens, 1)
+        for name in ("ck", "cv"):
+            cache[name] = torch.zeros((L, B, S_enc, Hkv, hd), dtype=dtype,
+                                      device=dev)
+    return cache
 
 
 def _decode_attn(lyr: DenseLayer, xn, cfg: ModelConfig, ck, cv, kpos, qpos,
@@ -486,7 +714,8 @@ def forward_decode(model: LMModel, cache: dict, tokens: torch.Tensor,
     reference returns new arrays; copying a multi-GB cache every token is
     what a card's KV cache avoids), so the cache passed in is spent: clone
     it first to decode from it twice.  ``kpos`` and ``pos`` are new
-    tensors.  The rwkv6 state is returned new, as in the reference."""
+    tensors.  The rwkv6 and RG-LRU states are returned new, as in the
+    reference; an encdec step reads ``ck`` / ``cv`` and leaves them."""
     model_class(cfg)
     x = embed(model.embed.table, tokens)
     pos = cache["pos"]
@@ -501,10 +730,43 @@ def forward_decode(model: LMModel, cache: dict, tokens: torch.Tensor,
             s.append(st["s"])
         cache = dict(cache, ts_t=torch.stack(t1), ts_c=torch.stack(t2),
                      s=torch.stack(s), pos=pos + 1)
+        x = model.final_norm(x, cfg.norm_eps)
+        return unembed(model.lm_head, x)[:, 0, :], cache
+    qpos = pos.reshape(1).to(torch.int32)
+    slot = (qpos % cache["kpos"].shape[0]).long()
+    kpos = cache["kpos"].index_put((slot,), qpos)
+    if cfg.family == "rglru_hybrid":
+        dcfg = cfg.replace(sliding_window=cfg.local_window)
+        new = {name: torch.empty_like(cache[name]) for name in
+               ("h", "conv", "tail_h", "tail_conv") if name in cache}
+        for g, grp in enumerate(model.groups):
+            for j, lyr in enumerate(grp.recs):
+                x, st = _rec_layer(lyr, x, cfg, {"h": cache["h"][g, j],
+                                                 "conv": cache["conv"][g, j]})
+                new["h"][g, j], new["conv"][g, j] = st["h"], st["conv"]
+            xn = grp.attn.ln1(x, cfg.norm_eps)
+            x = x + _decode_attn(grp.attn, xn, dcfg, cache["k"][g],
+                                 cache["v"][g], kpos, qpos, slot)
+            x, _ = _ffn(grp.attn, x, cfg)
+        for i, lyr in enumerate(model.tail):
+            x, st = _rec_layer(lyr, x, cfg, {"h": cache["tail_h"][i],
+                                             "conv": cache["tail_conv"][i]})
+            new["tail_h"][i], new["tail_conv"][i] = st["h"], st["conv"]
+        cache = dict(cache, **new, kpos=kpos, pos=pos + 1)
+    elif cfg.family == "encdec":
+        S_enc = cache["ck"].shape[2]
+        epos = torch.arange(S_enc, dtype=torch.int32, device=x.device)
+        for i, lyr in enumerate(model.dec_layers):
+            xn = lyr.ln1(x, cfg.norm_eps)
+            x = x + _decode_attn(lyr, xn, cfg, cache["k"][i], cache["v"][i],
+                                 kpos, qpos, slot)
+            hx, _ = attention(lyr.xattn, lyr.ln_x(x, cfg.norm_eps), cfg,
+                              kv=(cache["ck"][i], cache["cv"][i], epos, None),
+                              positions=qpos, causal=False, window=0,
+                              use_rope=False)
+            x, _ = _ffn(lyr, x + hx, cfg)
+        cache = dict(cache, kpos=kpos, pos=pos + 1)
     else:
-        qpos = pos.reshape(1).to(torch.int32)
-        slot = (qpos % cache["kpos"].shape[0]).long()
-        kpos = cache["kpos"].index_put((slot,), qpos)
         for i, grp in enumerate(model.layers):
             for j, lyr in enumerate(_sublayers(cfg, grp)):
                 at = _cache_index(cfg, i, j)

@@ -41,6 +41,18 @@ class AdamWConfig(NamedTuple):
     state_dtype: str = "float32"
 
 
+# The update is elementwise, so it runs over flat slices of at most this
+# many elements: the same numbers, with a leaf's f32 temporaries bounded
+# (a 256,000 x 4,096 embedding would otherwise hold ~7 f32 copies of
+# itself, ~29 GB, at once).
+_PIECE = 1 << 26
+
+
+def _pieces(t: torch.Tensor):
+    """Flat views of ``t`` (contiguous) of at most ``_PIECE`` elements."""
+    return t.view(-1).split(_PIECE)
+
+
 def _named(params) -> dict:
     """A name -> tensor mapping from a mapping or an ``nn.Module``."""
     if isinstance(params, torch.nn.Module):
@@ -80,8 +92,12 @@ def clip_by_global_norm(grads: Mapping, max_norm: float):
     back to its dtype, as the reference does; the norm before)."""
     norm = global_norm(grads)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    return {n: (g.float() * scale).to(g.dtype) for n, g in grads.items()}, \
-        norm
+    out = {}
+    for n, g in grads.items():
+        out[n] = torch.empty_like(g, memory_format=torch.contiguous_format)
+        for gs, os_ in zip(_pieces(g.contiguous()), _pieces(out[n])):
+            os_.copy_((gs.float() * scale).to(g.dtype))
+    return out, norm
 
 
 def reference_path(name: str) -> str:
@@ -114,18 +130,21 @@ def apply(params, grads: Mapping, state: AdamWState, c: AdamWConfig):
         bc2 = 1 - torch.pow(b2, stepf)
         sdt = torch_dtype(c.state_dtype)
         for name, p in named.items():
-            m, v = state.m[name], state.v[name]
-            gf = grads[name].float()
-            mf = m.float() * b1 + gf * (1 - b1)
-            vf = v.float() * b2 + gf * gf * (1 - b2)
-            mhat = mf / bc1
-            vhat = vf / bc2
-            delta = mhat / (torch.sqrt(vhat) + c.eps)
-            if _decay_mask(name):
-                delta = delta + c.weight_decay * p.float()
-            p.copy_((p.float() - lr * delta).to(p.dtype))
-            m.copy_(mf.to(sdt))
-            v.copy_(vf.to(sdt))
+            decay = _decay_mask(name)
+            for ps, m, v, g in zip(_pieces(p), _pieces(state.m[name]),
+                                   _pieces(state.v[name]),
+                                   _pieces(grads[name])):
+                gf = g.float()
+                mf = m.float() * b1 + gf * (1 - b1)
+                vf = v.float() * b2 + gf * gf * (1 - b2)
+                mhat = mf / bc1
+                vhat = vf / bc2
+                delta = mhat / (torch.sqrt(vhat) + c.eps)
+                if decay:
+                    delta = delta + c.weight_decay * ps.float()
+                ps.copy_((ps.float() - lr * delta).to(ps.dtype))
+                m.copy_(mf.to(sdt))
+                v.copy_(vf.to(sdt))
     return params, AdamWState(step=step, m=state.m, v=state.v), {
         "grad_norm": gnorm, "lr": lr}
 

@@ -134,12 +134,23 @@ def test_configs_match_the_reference(arch):
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-9b", "seamless-m4t-medium"])
 def test_unported_families_still_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        build_model(jax_get_config(arch, smoke=True), "meta")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        make_prefill_step(jax_get_config(arch, smoke=True), device="cpu")
+    """The two families the port refused until its last slice (rglru_hybrid
+    and encdec) now configure and build: the reference's configs, the
+    reference's parameter tree on the meta device, and the serving steps
+    on the CPU; an unknown family raises."""
+    for smoke in (False, True):
+        assert dataclasses.asdict(get_config(arch, smoke=smoke)) == \
+            dataclasses.asdict(jax_get_config(arch, smoke=smoke))
+    cfg = get_config(arch)
+    assert cfg.param_count() == jax_get_config(arch).param_count()
+    jshapes = jax.eval_shape(lambda: jtf.init_params(cfg, jax.random.key(0)))
+    assert sum(p.numel() for p in build_model(cfg, "meta").parameters()) == \
+        sum(int(np.prod(w.shape)) for w in jax.tree.leaves(jshapes))
+    smoke = get_config(arch, smoke=True)
+    assert callable(make_prefill_step(smoke, device="cpu"))
+    assert callable(make_serve_step(smoke, device="cpu"))
+    with pytest.raises(ValueError, match="family"):
+        build_model(smoke.replace(family="ssm"), "meta")
 
 
 # ------------------------------------------------------------ layers

@@ -14,6 +14,8 @@ the neighbouring bf16 value on one side, so there each gradient leaf is
 held to one bf16 ulp (2^-8) of its largest magnitude.  Remat policies
 change what a backward pass saves, not what it computes: bit for bit.
 """
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -262,27 +264,27 @@ def test_make_train_step_from_carried_state(smoke):
 
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_arch_smoke_forward_and_train_step(arch):
-    """``tests/test_models.py``'s smoke test for the port: every ported
-    architecture (rwkv6, dense, moe) takes one full train step (fwd + bwd
-    + AdamW) on the CPU, with finite metrics, shapes kept and parameters
-    changed, on the reference's batch (patches for a vlm arch); the
-    rglru_hybrid and encdec architectures raise, naming ROADMAP."""
-    jcfg = jax_get_config(arch, smoke=True)
-    if jcfg.family in ("rglru_hybrid", "encdec"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_config(arch, smoke=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(jcfg, device="cpu")
-        return
+    """``tests/test_models.py``'s smoke test for the port: every
+    architecture (rwkv6, dense, moe, rglru_hybrid, encdec) takes one full
+    train step (fwd + bwd + AdamW) on the CPU, with finite metrics, shapes
+    kept and parameters changed, on the reference's batch (patches for a
+    vlm arch; for encdec, 64 tokens and max(64 // 4, 8) frames)."""
     cfg = get_config(arch, smoke=True)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(
+        jax_get_config(arch, smoke=True))
     model = init_params(cfg, 0, device="cpu")
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     step, optc = make_train_step(cfg, mesh=None, device="cpu")
     opt = adamw.init(model, optc)
     rng = np.random.default_rng(0)
     S = 64
-    batch = {"tokens": rng.integers(0, cfg.vocab, (2, S - cfg.frontend_tokens))}
-    if cfg.frontend == "vlm_patches":
+    n_text = S if cfg.family == "encdec" else S - cfg.frontend_tokens
+    batch = {"tokens": rng.integers(0, cfg.vocab, (2, n_text))}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(size=(2, max(S // 4, 8),
+                                           cfg.frontend_dim)).astype(
+            np.float32)
+    elif cfg.frontend == "vlm_patches":
         batch["patches"] = rng.normal(size=(2, cfg.frontend_tokens,
                                             cfg.frontend_dim)).astype(
             np.float32)
