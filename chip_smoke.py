@@ -6,6 +6,7 @@
     python3 chip_smoke.py --measure lm
     python3 chip_smoke.py --measure lm_mutations
     python3 chip_smoke.py --measure robust
+    python3 chip_smoke.py --measure mesh
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX, and:
@@ -126,8 +127,8 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    ``Session.stats()`` through ``benchmarks/check_obs_snapshot.py
    --require-set serving`` and ``dump_trace`` through
    ``benchmarks/check_trace.py``; ``python -m repro_torch stats`` and
-   ``serve --clients 4 --metrics-interval 0 --metrics-out F --trace-out
-   F``, their files through the same validators;
+   ``serve --clients 4 --offered-rps 1000000 --metrics-interval 0
+   --metrics-out F --trace-out F``, their files through the same validators;
    and rwkv6 training (the "train" phase, once the serving model is
    released): (a) rwkv6-7b at full width (bf16, WKV on the kernel, remat
    "nothing", the default AdamW) cut to 8 layers, 1 warm-up and 6 timed
@@ -192,6 +193,18 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    scenario over 8 logical replicas of the card, and over
    ``make_train_step`` of recurrentgemma at d = 512, restarted after a
    failure bit for bit against the uninterrupted run;
+   and the "mesh" phase: (a) ``launch/cluster_dryrun.py`` at the
+   production pod's size (256 sites x 65,536 x 32 f32 on the card, k =
+   100, t = 131,072, plain summaries) under the step counter, its record
+   and outliers checked, then ``min_argmin`` at a site's Alg. 1 round and
+   ``lloyd_step`` at the second level against their plain versions; (b)
+   ``python -m repro_torch.launch.cluster_job --sites 4`` on gloo ranks
+   sharing the card, its four lines; (c) the dry run of the reference
+   test's cells (danube train_4k single, decode_32k multi, qwen2.5-32b and
+   rwkv6-7b long_500k) on fake tensors over fake groups of 256 / 512
+   ranks, each in its own process; (d) a sharded train step, prefill and
+   decode step of danube SMOKE (f32) on a (1, 1) NCCL ``DeviceMesh`` on the
+   card against ``mesh=None`` within 1e-5;
 4. re-runs gauss with ``backend="blocked"`` (the plain torch path) from the
    same seed, and on the kernels from another seed as the yardstick of two
    independent draws, and compares the results; re-runs the rwkv6 prefill
@@ -220,7 +233,8 @@ phase alone, no build), ``lm_mutations`` (a check of the lm checks: (a)'s
 and (c)'s checks at 4 layers clean and under three mutations
 monkeypatched for a run each, bf16 scores, a ring slot off by one and a
 dropped window mask, each of which must fail them), ``robust`` (the
-robust phase alone, after the build).  One process per reading, in turns with another tree's, compares two trees; ``serve`` and
+robust phase alone, after the build), ``mesh`` (the mesh phase alone,
+after the build).  One process per reading, in turns with another tree's, compares two trees; ``serve`` and
 ``stream`` run on any tree of the port from the stream slice on.
 
 It prints the card (``nvidia-smi``), one ``{"kernels": [...]}`` line and, as
@@ -1975,10 +1989,16 @@ SERVING = dict(queue_bound=512, batch_window_ms=1.0, shed_policy="shed",
                query_seed=7, bitwise_rows=1_024, clients=16, rung_s=2.0,
                ladder=(0.25, 0.5, 1.0, 2.0, 4.0), capacity_s=0.5,
                quota=256)
+# serve's load phase must shed, or its snapshot lacks the ``serve.shed{``
+# series that ``--require-set serving`` demands.  Its default offer, 1.5x a
+# closed-loop capacity estimate, can fall below what the scheduler sustains
+# open-loop (it batches more there), and then nothing is shed; so the offer
+# is fixed far above any rate this path reaches.
 SERVING_CLI = (
     ("stats", "examples/oneshot.json", ("--out", "{dir}/stats.json")),
     ("serve", "examples/stream.toml",
-     ("--clients", "4", "--load-seconds", "1", "--metrics-interval", "0",
+     ("--clients", "4", "--load-seconds", "1", "--offered-rps", "1000000",
+      "--metrics-interval", "0",
       "--metrics-out", "{dir}/metrics.jsonl", "--trace-out",
       "{dir}/serve_trace.json")),
 )
@@ -3816,8 +3836,8 @@ class _MoEProbe:
         from repro_torch.models import transformer
         self._orig = fn = transformer.moe_ffn
 
-        def probed(p, x, cfg):
-            y, aux = fn(p, x, cfg)
+        def probed(p, x, cfg, *ctx):
+            y, aux = fn(p, x, cfg, *ctx)
             ids = None
             if self.routes:
                 last = torch.softmax(x[:, -1].float() @ p.router, dim=-1)
@@ -4427,8 +4447,9 @@ def _mutations():
     from repro_torch.models import layers, transformer
     dec, mask = transformer._decode_attn, layers._scores_mask
 
-    def slot_off_by_one(lyr, xn, cfg, ck, cv, kpos, qpos, slot):
-        return dec(lyr, xn, cfg, ck, cv, kpos, qpos, (slot + 1) % ck.shape[1])
+    def slot_off_by_one(lyr, xn, cfg, ck, cv, kpos, qpos, slot, *ctx):
+        return dec(lyr, xn, cfg, ck, cv, kpos, qpos, (slot + 1) % ck.shape[1],
+                   *ctx)
 
     def window_dropped(qpos, kpos, *, causal, window):
         return mask(qpos, kpos, causal=causal, window=0)
@@ -4859,6 +4880,253 @@ def robust_phase(dev):
     if fail:
         raise AssertionError(f"robust phase failed: {fail}")
     return out, launches
+
+
+# ---- the "mesh" phase: the mesh tooling on the card
+MESH = dict(sites=256, n_per_site=65_536, d=32, k=100, t=131_072,
+            seed=0, job_sites=4,
+            dry_cells=(("h2o-danube-1.8b", "train_4k", "single"),
+                       ("h2o-danube-1.8b", "decode_32k", "multi"),
+                       ("qwen2.5-32b", "long_500k", "single"),
+                       ("rwkv6-7b", "long_500k", "single")),
+            steps_arch="h2o-danube-1.8b", steps_batch=4, steps_seq=64,
+            steps_gen=4, tol=1e-5)
+JOB_LINES = (r"sites=(\d+) n=(\d+) partition=random wall=([\d.]+)s",
+             r"communication: (\d+) records \(([\d.]+)% of data\)",
+             r"l1=(\S+) l2=(\S+)",
+             r"preRec=([\d.]+) prec=([\d.]+) recall=([\d.]+)")
+
+
+def mesh_cluster_dryrun(dev, counted, fail):
+    """(a): ``launch/cluster_dryrun.py`` at its single-pod defaults (256
+    sites x 65,536 x 32, k = 100, t = 131,072, plain summaries,
+    block_n = 16,384) on the card, its record checked, then ``min_argmin``
+    at a site's Alg. 1 round (65,536 x the round's centers x 32) and
+    ``lloyd_step`` at the second level (the gathered records, k = 100)
+    against their plain versions."""
+    from repro_torch.core.distributed import local_budget
+    from repro_torch.core.summary import _plan
+    from repro_torch.launch.cluster_dryrun import run as cluster_run
+    c = MESH
+    _free(dev)
+    rec, ctx = counted("mesh_cluster_dryrun", ("min_argmin", "lloyd_step"),
+                       lambda: cluster_run(sites=c["sites"],
+                                           n=c["n_per_site"], d=c["d"],
+                                           k=c["k"], t=c["t"], seed=c["seed"],
+                                           device=dev))
+    truth = set(ctx["out_ids"].cpu().tolist())
+    found = set(np.asarray(ctx["result"]["outlier_ids"]).tolist())
+    summ = set(np.asarray(ctx["result"]["summary_ids"]).tolist())
+    rec["recall"] = len(truth & found) / len(truth)
+    rec["precision"] = len(truth & found) / max(len(found), 1)
+    rec["preRec"] = len(truth & summ) / len(truth)
+    rec["peak_gb"] = _peak_gb(dev)
+    terms = [rec[k] for k in ("hlo_flops", "hlo_bytes", "wire_bytes",
+                              "compute_s", "memory_s", "collective_s")]
+    if not (rec["status"] == "ok" and np.isfinite(terms).all()
+            and min(terms) > 0 and 0 < rec["comm_fraction"] < 1
+            and rec["recall"] > 0.5 and rec["preRec"] > 0.5):
+        fail.append(f"cluster_dryrun: implausible record {rec}")
+    x0 = ctx["x"][0]
+    t_i = local_budget(c["t"], c["sites"], "random")
+    m = _plan(c["n_per_site"], c["k"], t_i, 2.0, 0.45)[1]
+    g = torch.Generator(device="cpu").manual_seed(7)
+    cen = x0[torch.randperm(x0.shape[0], generator=g)[:m].to(dev)]
+    pts = torch.cat(ctx["points"]).float().contiguous()
+    wts = torch.cat(ctx["weights"]).float().contiguous()
+    c2 = pts[torch.randperm(pts.shape[0], generator=g)[:c["k"]].to(dev)]
+    checks = [check_pdist(dev, "cluster_dryrun_site_round", x0.contiguous(),
+                          cen.contiguous(), "l2sq", fail),
+              check_lloyd(dev, "cluster_dryrun_second_level", pts, wts,
+                          c2.contiguous(), "l2sq", fail)]
+    del ctx
+    _free(dev)
+    return rec, checks
+
+
+def mesh_job_rank(rank, n, workdir, dev, argv):
+    """(b), in a rank: ``cluster_job``'s part of rank ``rank`` (its
+    ``site_job``, with the flags ``argv``), its kernels' launches counted
+    from 0."""
+    from repro_torch.launch import cluster_job
+    args = cluster_job.parse_args(argv)
+    lines, launches = _count(_kernel_objects(),
+                             lambda: cluster_job.site_job(rank, n, args, dev))
+    return {"lines": lines, "launches": launches}
+
+
+def mesh_cluster_job(dev, tmp, fail):
+    """(b): ``python -m repro_torch.launch.cluster_job --sites 4``'s job on
+    four gloo ranks sharing the card, one site each: its four lines, and
+    both distance kernels launched in every rank (each rank runs its site's
+    summary and the replicated second level).  Returns (report, every
+    rank's launches)."""
+    import re
+    n = MESH["job_sites"]
+    rs, wall = spawn_ranks(mesh_job_rank, n, tmp, dev,
+                           ["--sites", str(n)])
+    lines = rs[0]["lines"] or []
+    out = {"lines": lines, "wall_s": wall,
+           "launches_per_rank": [r["launches"] for r in rs]}
+    for i, r in enumerate(rs):
+        if not (r["launches"]["min_argmin"] > 0
+                and r["launches"]["lloyd_step"] > 0):
+            fail.append(f"cluster_job rank {i}: a kernel was not launched: "
+                        f"{r['launches']}")
+    got = [re.fullmatch(p + r".*", ln) for p, ln in zip(JOB_LINES, lines)]
+    if len(lines) != 4 or not all(got):
+        fail.append(f"cluster_job: lines {lines}")
+    else:
+        pre, prec, rec = (float(v) for v in got[3].groups())
+        out.update(sites=int(got[0].group(1)), preRec=pre, precision=prec,
+                   recall=rec, comm_percent=float(got[1].group(2)))
+        if out["sites"] != n or pre < 0.5 or rec < 0.5:
+            fail.append(f"cluster_job: implausible result {out}")
+    return out, {f"cluster_job_rank{i}": r["launches"]
+                 for i, r in enumerate(rs)}
+
+
+def _src_env():
+    import os
+    root = Path(__file__).resolve().parent
+    return dict(os.environ, PYTHONPATH=str(root / "src"))
+
+
+def mesh_dryrun_cells(tmp, fail):
+    """(c): the port's dry run of the reference test's cells, each in its
+    own process (a fake process group of 256 or 512 ranks is global to a
+    process), the four side by side, on fake tensors of the device type
+    the build allows (printed)."""
+    t0 = time.perf_counter()
+    procs = {}
+    for arch, shape, mesh in MESH["dry_cells"]:
+        procs[(arch, shape, mesh)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, "--out", str(tmp)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=_src_env())
+    out = {}
+    for (arch, shape, mesh), p in procs.items():
+        so, se = p.communicate(timeout=900)
+        tag = f"{arch}__{shape}__{mesh}"
+        path = Path(tmp) / f"{tag}.json"
+        rec = json.loads(path.read_text()) if path.exists() else {}
+        keep = {k: rec.get(k) for k in (
+            "status", "chips", "device_type", "reason", "error", "lower_s",
+            "compile_s", "hlo_flops", "hlo_bytes", "wire_bytes", "compute_s",
+            "memory_s", "collective_s", "bottleneck", "useful_flops_ratio",
+            "model_flops_per_chip", "memory")}
+        keep["collectives"] = {k: v.get("count") for k, v in
+                               (rec.get("collectives") or {}).items()}
+        out[tag] = keep
+        log("mesh dryrun", tag, json.dumps(keep))
+        want = "skipped" if arch == "qwen2.5-32b" else "ok"
+        if p.returncode or rec.get("status") != want:
+            fail.append(f"dryrun {tag}: rc {p.returncode}, status "
+                        f"{rec.get('status')}, {rec.get('error')} "
+                        f"{se[-1500:]}")
+        elif want == "ok" and not (rec["hlo_flops"] > 0 and rec["chips"] in
+                                   (256, 512)):
+            fail.append(f"dryrun {tag}: implausible record {keep}")
+    c = out.get("h2o-danube-1.8b__train_4k__single", {})
+    if c.get("status") == "ok" and not (
+            c["hlo_flops"] > 0.5 * c["model_flops_per_chip"]
+            and 0.05 < c["useful_flops_ratio"] < 1.5
+            and c["memory"]["argument_bytes"] < 80e9):
+        fail.append(f"dryrun danube train_4k: implausible terms {c}")
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_steps_rank(rank, n, workdir, dev):
+    """(d), in a rank of a one-rank NCCL group: a SMOKE-width dense config
+    (f32) built on a (1, 1) ``DeviceMesh`` on the card as the launcher
+    builds it (``init_sharded_params``, ``init_opt_state``), one train step
+    and a prefill + one decode step, against ``mesh=None`` on the card."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_train_step)
+    from repro_torch.models.sharding import (init_opt_state,
+                                             init_sharded_params)
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim import adamw
+    c = MESH
+    mesh = init_device_mesh(dev.type, (1, 1),
+                            mesh_dim_names=("data", "model"))
+    cfg = get_config(c["steps_arch"], smoke=True).replace(dtype="float32")
+    g = torch.Generator(device=dev).manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (c["steps_batch"],
+                                                    c["steps_seq"]),
+                                     generator=g, device=dev)}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    m0 = init_params(cfg, 0, device=dev)
+    m1 = init_sharded_params(cfg, 0, mesh, device=dev)   # the launcher's
+    st0, optc = make_train_step(cfg, None, device=dev)
+    st1, _ = make_train_step(cfg, mesh, device=dev)
+    _, _, r0 = st0(m0, adamw.init(m0, optc), batch)
+    _, _, r1 = st1(m1, init_opt_state(m1, optc, mesh), batch)
+    p0 = dict(m0.named_parameters())
+    out = {"mesh": str(mesh), "loss": (float(r0["loss"]), float(r1["loss"])),
+           "grad_norm": (float(r0["grad_norm"]), float(r1["grad_norm"])),
+           "param_rel": max(rel(p.detach().full_tensor(), p0[k].detach())
+                            for k, p in m1.named_parameters())}
+    L = c["steps_seq"] + c["steps_gen"]
+    lg0, c0 = make_prefill_step(cfg, None, device=dev)(m0, batch, L)
+    lg1, c1 = make_prefill_step(cfg, mesh, device=dev)(m1, batch, L)
+    tok = lg0.argmax(-1, keepdim=True)
+    d0, _ = make_serve_step(cfg, None, device=dev)(m0, c0, tok)
+    d1, _ = make_serve_step(cfg, mesh, device=dev)(m1, c1, tok)
+    out["prefill_rel"] = rel(lg1.full_tensor(), lg0)
+    out["decode_rel"] = rel(d1.full_tensor(), d0)
+    return out
+
+
+def mesh_steps(dev, tmp, fail):
+    """(d): DTensor steps on the card.  Gloo ranks sharing the card do not
+    carry DTensor's collectives on CUDA tensors (a rank died with SIGSEGV
+    when tried, PERF.md), so the mesh is (1, 1) over one NCCL rank."""
+    rs, wall = spawn_ranks(mesh_steps_rank, 1, tmp, dev)
+    out = dict(rs[0], wall_s=wall, backend="nccl, one rank")
+    tol = MESH["tol"]
+    (l0, l1), (n0, n1) = out["loss"], out["grad_norm"]
+    if not (abs(l1 - l0) <= tol * abs(l0) and abs(n1 - n0) <= tol * abs(n0)
+            and out["param_rel"] <= tol and out["prefill_rel"] <= tol
+            and out["decode_rel"] <= tol):
+        fail.append(f"mesh steps: sharded and one-device steps differ {out}")
+    return out
+
+
+def mesh_phase(dev, counted):
+    """The "mesh" phase, (a) to (d).  Raises on any failure, after every
+    part has run.  Returns (report, its kernel check records, the launches
+    of (b)'s ranks, which report their own counts)."""
+    import tempfile
+    fail, out = [], {}
+    t0 = time.perf_counter()
+    out["cluster_dryrun"], checks = mesh_cluster_dryrun(dev, counted, fail)
+    log("mesh cluster_dryrun", json.dumps(out["cluster_dryrun"]))
+    for r in checks:
+        log("check", json.dumps(r))
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        tmp = Path(tmp)
+        for sub in ("job", "cells", "ranks"):
+            (tmp / sub).mkdir()
+        out["cluster_job"], launches = mesh_cluster_job(dev, tmp / "job",
+                                                        fail)
+        log("mesh cluster_job", json.dumps(out["cluster_job"]))
+        out["dryrun"] = mesh_dryrun_cells(tmp / "cells", fail)
+        out["steps"] = mesh_steps(dev, tmp / "ranks", fail)
+    log("mesh steps", json.dumps(out["steps"]))
+    out["mesh_s"] = time.perf_counter() - t0
+    log(f"mesh_s {out['mesh_s']:.2f}")
+    if fail:
+        raise AssertionError(f"mesh phase failed: {fail}")
+    return out, checks, launches
 
 
 def cdist_min(x, c, chunk=16_384):
@@ -5385,7 +5653,7 @@ def make_data(dev):
 
 
 MEASURES = ("serve", "lloyd_split", "lloyd_ladder", "stream", "train", "lm",
-            "lm_mutations", "robust")
+            "lm_mutations", "robust", "mesh")
 
 
 def counted_runs(kernels, per_run):
@@ -5428,6 +5696,15 @@ def run_measure(dev: torch.device, card: str, phases) -> dict:
         return {"card": card, "lm": lm_phase(dev, counted),
                 "launches_per_run": per_run}
     _build.build_all()
+    if "mesh" in phases:
+        if len(phases) > 1:
+            raise ValueError("--measure mesh runs alone")
+        per_run = {}
+        counted = counted_runs(_kernel_objects(), per_run)
+        mesh, checks, launches = mesh_phase(dev, counted)
+        per_run.update(launches)
+        return {"card": card, "mesh": mesh, "checks": checks,
+                "launches_per_run": per_run}
     if "robust" in phases:
         if len(phases) > 1:
             raise ValueError("--measure robust runs alone")
@@ -5700,6 +5977,13 @@ def run(dev: torch.device, card: str) -> dict:
     # "robust" phase): its rank processes report their own launch counts
     robust_out, robust_launches = robust_phase(dev)
     per_run.update(robust_launches)
+
+    # ---- 3k. the mesh tooling (the "mesh" phase): the paper's job at the
+    # pod's size, cluster_job's ranks (reporting their own launch counts),
+    # the dry run's cells, DTensor steps
+    mesh_out, mesh_checks, mesh_launches = mesh_phase(dev, counted)
+    per_run.update(mesh_launches)
+    checks += mesh_checks
     launches = {k.name: sum(r[k.name] for r in per_run.values())
                 for k in kernels}
     log("main_path_launches", json.dumps(launches))
@@ -5731,7 +6015,7 @@ def run(dev: torch.device, card: str) -> dict:
     report = {"card": card, "build_s": build_s, "checks": checks,
               "main_path": [kdd_out, g_out], "serve": serve_out,
               "rwkv6_serving": rwkv_out, "train": train_out, "lm": lm_out,
-              "robust": robust_out,
+              "robust": robust_out, "mesh": mesh_out,
               "kernel_vs_blocked": cmp, "head_to_head": h2h,
               "stream": stream_out, "session": session_out,
               "serving": serving_out,

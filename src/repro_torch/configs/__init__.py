@@ -26,8 +26,9 @@ _MODULES = {
 ARCH_IDS = list(_MODULES)
 
 # The reference's per-arch beyond-baseline settings: cfg overrides plus a
-# logical (data, model) re-mesh of a TPU pod.  The port runs on one card and
-# has no mesh, so only the overrides apply to it.
+# logical (data, model) re-mesh of the production pod's ranks, both applied
+# by the dry run (``launch/dryrun.py --optimized``); one card takes the
+# overrides only.
 OPTIMIZED = {
     "qwen2-72b": ({"attn_chunk_remat": True}, (128, 2)),
     "rwkv6-7b": ({"wkv_inner_remat": True, "wkv_chunk": 64}, (128, 2)),

@@ -146,13 +146,27 @@ class CudaKernel:
 
     ``launches`` is a plain int, bumped once per kernel launch and nowhere
     else, so a run can show its main path went through the kernel; set it
-    to 0 to start a count.
+    to 0 to start a count.  ``flops(*args, **kwargs)`` is the work of one
+    call from its arguments.  While ``observers`` holds callables, a call
+    that launched hands each of them (kernel, args, kwargs, result): how a
+    counter of dispatched ops (``launch/hlo.py``) sees work that reaches
+    the card through ``ctypes``, not through an aten op.
     """
 
-    def __init__(self, name: str, fn):
+    observers: list = []
+
+    def __init__(self, name: str, fn, flops):
         self.name = name
         self._fn = fn
+        self.flops = flops
         self.launches = 0
 
     def __call__(self, *args, **kwargs):
-        return self._fn(self, *args, **kwargs)
+        if not CudaKernel.observers:
+            return self._fn(self, *args, **kwargs)
+        before = self.launches
+        out = self._fn(self, *args, **kwargs)
+        if self.launches != before:
+            for obs in list(CudaKernel.observers):
+                obs(self, args, kwargs, out)
+        return out

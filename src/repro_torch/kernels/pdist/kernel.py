@@ -119,4 +119,9 @@ def _launch_route(how, x: torch.Tensor, c: torch.Tensor, *,
     return dist, idx
 
 
-min_argmin_cuda = _build.CudaKernel("min_argmin", _launch)
+def _flops(x, c, **_) -> float:
+    """3 a (row, center, feature): difference, product, sum."""
+    return 3.0 * x.shape[0] * c.shape[0] * x.shape[1]
+
+
+min_argmin_cuda = _build.CudaKernel("min_argmin", _launch, _flops)

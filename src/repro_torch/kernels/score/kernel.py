@@ -84,4 +84,9 @@ def _launch(kern, x: torch.Tensor, c: torch.Tensor, threshold, *,
     return dist, idx.view(torch.int32), score
 
 
-score_cuda = _build.CudaKernel("score", _launch)
+def _flops(x, c, threshold, **_) -> float:
+    """3 a (row, center, feature), as ``min_argmin``'s."""
+    return 3.0 * x.shape[0] * c.shape[0] * x.shape[1]
+
+
+score_cuda = _build.CudaKernel("score", _launch, _flops)

@@ -191,7 +191,13 @@ def _launch(kern, r, k, v, lw, u, s0, *, chunk: int = 16):
     return o, sT
 
 
-wkv_forward_cuda = _build.CudaKernel("wkv_forward", _launch)
+def _flops(r, k, v, lw, u, s0, **_) -> float:
+    """4 a (row, token, key, value): the state's decay, update and read."""
+    BH, T, K = r.shape
+    return 4.0 * BH * T * K * K
+
+
+wkv_forward_cuda = _build.CudaKernel("wkv_forward", _launch, _flops)
 
 
 def wkv_chunk_w_cuda(r, k, lw, u, *, chunk: int = 16):

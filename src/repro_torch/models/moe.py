@@ -15,8 +15,14 @@ whose position in its expert is >= C is dropped.  The reference scatters
 those to an out-of-range slot with ``mode="drop"``; the port gives the
 buffer one extra slot C and slices it off.  The combine adds each token's K
 expert outputs with ``index_add_``, in another order than the reference's
-scatter-add, so bf16 outputs agree to rounding, not bit for bit.  The
-reference's mesh (sharded groups and experts) has no counterpart.
+scatter-add, so bf16 outputs agree to rounding, not bit for bit.
+
+On a mesh (``ShardCtx``) the groups are cut from each batch shard's tokens
+(the reference's per-shard group size), the routing and the scatter and
+gather run on each rank's own groups (DTensor has no rule for ``bincount``,
+the stable sort or the accumulating ``index_put``), and the buffer goes
+over the model axis by experts before the three products, as the
+reference's hints put it.
 """
 from __future__ import annotations
 
@@ -27,7 +33,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import MLP, mlp, mlp_init_, normal_
+from repro_torch.models.layers import (NO_MESH, MLP, ShardCtx, mlp,
+                                       mlp_init_, normal_)
+from repro_torch.models.sharding import axis_sizes
 
 
 class MoE(nn.Module):
@@ -64,38 +72,36 @@ def moe_init_(p: MoE, gen: torch.Generator) -> MoE:
     return p
 
 
-def _group_tokens(cfg: ModelConfig, n_tokens: int) -> int:
+def _group_tokens(cfg: ModelConfig, n_tokens: int,
+                  ctx: ShardCtx = NO_MESH) -> int:
     """The largest divisor of ``n_tokens`` not above
-    ``cfg.moe_group_tokens`` (one device: the reference's ``mesh=None``)."""
-    g = int(min(cfg.moe_group_tokens, max(1, n_tokens)))
+    ``cfg.moe_group_tokens`` nor a batch shard's tokens, as in the
+    reference."""
+    bd = 1
+    if ctx.mesh is not None:
+        sizes = axis_sizes(ctx.mesh)
+        for a in (ctx.batch if isinstance(ctx.batch, tuple)
+                  else (ctx.batch,)):
+            bd *= sizes[a]
+    per_shard = max(1, n_tokens // bd)
+    g = int(min(cfg.moe_group_tokens, per_shard))
     while n_tokens % g:
         g -= 1
     return g
 
 
-def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig):
-    """x: (B, S, D) -> (y (B, S, D), {"aux_loss", "drop_frac"})."""
-    B, S, D = x.shape
+def _dispatch(xg, probs, cfg: ModelConfig, C: int):
+    """Top-k routing of groups xg (G, g, D) by ``probs`` (G, g, E) into the
+    (G, E, C, D) buffer.  Returns (topi, buf, the indices and weights the
+    combine reads)."""
+    G, g, D = xg.shape
     E, K = cfg.n_experts, cfg.top_k
-    N = B * S
-    g = _group_tokens(cfg, N)
-    G = N // g
-    C = max(1, math.ceil(g * K / E * cfg.capacity_factor))
-    dev = x.device
-
-    xg = x.reshape(G, g, D)
-    logits = xg.float() @ p.router                           # (G, g, E) f32
-    probs = torch.softmax(logits, dim=-1)
+    dev = xg.device
     topw, topi = torch.topk(probs, K, dim=-1)                # (G, g, K)
     topw = topw / torch.clamp(topw.sum(-1, keepdim=True), min=1e-9)
 
-    # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
-    me = probs.mean(dim=(0, 1))                              # (E,)
-    ce = torch.bincount(topi.reshape(-1), minlength=E).float() / (G * g * K)
-    aux_loss = E * torch.sum(me * ce)
-
     ids_f = topi.reshape(G, g * K)
-    w_f = topw.reshape(G, g * K).to(x.dtype)
+    w_f = topw.reshape(G, g * K).to(xg.dtype)
     tok_f = torch.arange(g, device=dev).repeat_interleave(K).expand(G, -1)
 
     order = torch.argsort(ids_f, dim=1, stable=True)
@@ -111,22 +117,118 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig):
 
     gi = torch.arange(G, device=dev)[:, None].expand(-1, g * K)
     upd = xg[gi, st]                                         # (G, gK, D)
-    buf = torch.zeros((G, E, C + 1, D), dtype=x.dtype, device=dev)
+    buf = torch.zeros((G, E, C + 1, D), dtype=xg.dtype, device=dev)
     buf = buf.index_put((gi, se, pos_c), upd, accumulate=True)[:, :, :C]
-
-    hg = F.silu(torch.einsum("gecd,edf->gecf", buf, p.we_g))
-    hi = torch.einsum("gecd,edf->gecf", buf, p.we_i)
-    ho = torch.einsum("gecf,efd->gecd", hg * hi, p.we_o)     # (G, E, C, D)
-
     w_sorted = torch.gather(w_f, 1, order)
+    return topi, buf, (gi, se, st, pos_c, keep, w_sorted)
+
+
+def _combine(ho, idx, g: int):
+    """The experts' outputs ho (G, E, C, D) back to their tokens, weighted:
+    (G, g, D)."""
+    gi, se, st, pos_c, keep, w_sorted = idx
+    G, _, C, D = ho.shape
     out = ho[gi, se, torch.clamp(pos_c, max=C - 1)]          # (G, gK, D)
     out = out * (keep[..., None] * w_sorted[..., None])
-    yg = torch.zeros((G, g, D), dtype=x.dtype, device=dev)
-    yg = yg.index_put((gi, st), out, accumulate=True)
-    y = yg.reshape(B, S, D)
+    yg = torch.zeros((G, g, D), dtype=ho.dtype, device=ho.device)
+    return yg.index_put((gi, st), out, accumulate=True)
 
+
+def _experts(buf, we_g, we_i, we_o):
+    hg = F.silu(torch.einsum("gecd,edf->gecf", buf, we_g))
+    hi = torch.einsum("gecd,edf->gecf", buf, we_i)
+    return torch.einsum("gecf,efd->gecd", hg * hi, we_o)     # (G, E, C, D)
+
+
+def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig,
+            ctx: ShardCtx = NO_MESH):
+    """x: (B, S, D) -> (y (B, S, D), {"aux_loss", "drop_frac"})."""
+    from repro_torch.models.layers import is_dtensor
+    if ctx.mesh is not None and is_dtensor(x):
+        return _moe_ffn_sharded(p, x, cfg, ctx)
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    N = B * S
+    g = _group_tokens(cfg, N)
+    G = N // g
+    C = max(1, math.ceil(g * K / E * cfg.capacity_factor))
+
+    xg = x.reshape(G, g, D)
+    logits = xg.float() @ p.router                           # (G, g, E) f32
+    probs = torch.softmax(logits, dim=-1)
+    topi, buf, idx = _dispatch(xg, probs, cfg, C)
+
+    # load-balance aux loss (Switch-style): E * sum_e f_e * p_e
+    me = probs.mean(dim=(0, 1))                              # (E,)
+    ce = torch.bincount(topi.reshape(-1), minlength=E).float() / (G * g * K)
+    aux_loss = E * torch.sum(me * ce)
+
+    y = _combine(_experts(buf, p.we_g, p.we_i, p.we_o), idx,
+                 g).reshape(B, S, D)
     if p.shared is not None:
         y = y + mlp(p.shared, x)
 
-    drop_frac = 1.0 - keep.float().mean()
+    drop_frac = 1.0 - idx[4].float().mean()
     return y, {"aux_loss": aux_loss, "drop_frac": drop_frac}
+
+
+def _moe_ffn_sharded(p: MoE, x, cfg: ModelConfig, ctx: ShardCtx):
+    """:func:`moe_ffn` on a mesh.  The tokens stay on their batch shard
+    (replicated over the model axis); each rank routes its own groups, the
+    buffer's experts go over the model axis for the products (the
+    reference's hints) and are gathered back over it for the combine.  The
+    counts of the aux loss and of the dropped tokens are summed over the
+    batch shards."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    B, S, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    N = B * S
+    g = _group_tokens(cfg, N, ctx)
+    C = max(1, math.ceil(g * K / E * cfg.capacity_factor))
+    mesh = ctx.mesh
+
+    x = ctx.hint(x, ctx.batch, None, None)
+    probs = ctx.hint(torch.softmax(x.float() @ p.router, dim=-1), ctx.batch,
+                     None, None)                             # (B, S, E) f32
+    me = probs.mean(dim=(0, 1))                              # (E,)
+    x_l = x.to_local(grad_placements=x.placements)
+    p_l = probs.to_local(grad_placements=probs.placements)
+    n_l = x_l.shape[0] * S
+    if n_l % g:
+        raise ValueError(f"a batch shard's {n_l} tokens are not a multiple "
+                         f"of the group size {g}")
+    topi, buf_l, idx = _dispatch(x_l.reshape(n_l // g, g, D),
+                                 p_l.reshape(n_l // g, g, E), cfg, C)
+    summed = [Partial() if isinstance(pl, Shard) else Replicate()
+              for pl in x.placements]
+
+    def total(t):
+        """A per-rank count summed over the batch shards."""
+        return DTensor.from_local(t, mesh, summed, run_check=False) \
+            .redistribute(mesh, [Replicate()] * mesh.ndim)
+
+    ones = torch.ones(topi.numel(), dtype=torch.float32, device=topi.device)
+    # bincount's length depends on the data, which fake tensors cannot
+    # know; the same integer counts, exact in f32
+    counts = torch.zeros(E, dtype=torch.float32,
+                         device=topi.device).index_add_(0, topi.reshape(-1),
+                                                        ones)
+    ce = total(counts) / (N * K)
+    aux_loss = E * torch.sum(me * ce)
+
+    buf = DTensor.from_local(buf_l, mesh, x.placements, run_check=False)
+    buf = ctx.hint(buf, ctx.batch, ctx.model, None, None)
+    # each rank's experts on its groups (DTensor's einsum rule fails on
+    # some of these layouts); the weights whole but for their experts
+    ws = [ctx.hint(w, ctx.model, None, None) for w in (p.we_g, p.we_i,
+                                                      p.we_o)]
+    ho = ctx.local(_experts, buf, *ws, out=buf.placements, summed=(1, 2, 3))
+    ho = ctx.hint(ho, ctx.batch, None, None, None)
+    y_l = _combine(ho.to_local(grad_placements=ho.placements), idx, g)
+    y = DTensor.from_local(y_l.reshape(x_l.shape), mesh, x.placements,
+                           run_check=False)
+    if p.shared is not None:
+        y = y + mlp(p.shared, x, ctx)
+
+    drop_frac = 1.0 - total(idx[4].float().sum()) / (N * K)
+    return ctx.residual(y), {"aux_loss": aux_loss, "drop_frac": drop_frac}

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import RMSNorm, dense_init, normal_
+from repro_torch.models.layers import (NO_MESH, RMSNorm, ShardCtx,
+                                       dense_init, normal_)
 
 _C = 8.0  # Griffin's fixed scale inside a_t
 
@@ -103,11 +104,37 @@ def linear_scan(a: torch.Tensor, b: torch.Tensor,
     return bb
 
 
+def _recurrence(u, w_conv, carry, h0, gr_w, gr_b, gi_w, gi_b, lam):
+    """The conv, the gates and the RG-LRU over u (B, T, W) from the state
+    (carry, h0).  Returns (every h_t (B, T, W) f32, the last h, the conv's
+    new carry)."""
+    u, conv_carry = _conv4(u, w_conv, carry)
+    uf = u.float()
+    r = torch.sigmoid(uf * gr_w + gr_b)
+    i = torch.sigmoid(uf * gi_w + gi_b)
+    # jax.nn.softplus is logaddexp(x, 0); torch.logaddexp is the same form
+    softplus = torch.logaddexp(lam, torch.zeros_like(lam))
+    a = torch.exp(-_C * softplus * r)                       # (B, T, W)
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
+    if u.shape[1] == 1:
+        h = a[:, 0] * h0 + b[:, 0]
+        hs = h[:, None, :]
+    else:
+        hs = linear_scan(a, b, h0)
+        h = hs[:, -1, :]
+    return hs, h, conv_carry
+
+
 def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
-                state: dict | None = None):
+                state: dict | None = None, ctx: ShardCtx = NO_MESH):
     """x: (B, T, D).  ``state`` = {"h": (B, W) f32, "conv": (B, 3, W) in
     x's dtype} carried from earlier tokens; None starts from zeros.
-    Returns (x + the block's output, the new state)."""
+    Returns (x + the block's output, the new state).
+
+    On a mesh the width goes over the model axis (the reference's hints)
+    and each rank runs the conv, the gates and the scan over its own rows
+    and width (all of it per (row, channel), the concatenations along
+    time), the block's weights read alike by every batch shard."""
     B, T, D = x.shape
     W = cfg.lru_width or D
     if state is None:
@@ -115,23 +142,23 @@ def rglru_block(p: RGLRU, x: torch.Tensor, cfg: ModelConfig,
                                   device=x.device),
                  "conv": torch.zeros((B, 3, W), dtype=x.dtype,
                                      device=x.device)}
-    xn = p.ln(x, cfg.norm_eps)
+    xn = ctx.gathered(p.ln(x, cfg.norm_eps))
     gate = F.gelu(xn @ p.w_y, approximate="tanh")   # jax.nn.gelu's default
-    u, conv_carry = _conv4(xn @ p.w_x, p.conv, state["conv"])
-
-    uf = u.float()
-    r = torch.sigmoid(uf * p.gate_r_w + p.gate_r_b)
-    i = torch.sigmoid(uf * p.gate_i_w + p.gate_i_b)
-    # jax.nn.softplus is logaddexp(x, 0); torch.logaddexp is the same form
-    softplus = torch.logaddexp(p.lam, torch.zeros_like(p.lam))
-    a = torch.exp(-_C * softplus * r)                       # (B, T, W)
-    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * uf)
-
-    if T == 1:
-        h = a[:, 0] * state["h"] + b[:, 0]
-        hs = h[:, None, :]
+    u = xn @ p.w_x
+    weights = (p.gate_r_w, p.gate_r_b, p.gate_i_w, p.gate_i_b, p.lam)
+    if ctx.mesh is not None:
+        gate = ctx.hint(gate, ctx.batch, None, ctx.model)
+        u = ctx.hint(u, ctx.batch, None, ctx.model)
+        carry = ctx.hint(ctx.replicated(state["conv"]), ctx.batch, None,
+                         ctx.model)
+        h0 = ctx.hint(ctx.replicated(state["h"]), ctx.batch, ctx.model)
+        hs, h, conv_carry = ctx.local(
+            _recurrence, u, ctx.hint(p.conv, None, ctx.model), carry, h0,
+            *(ctx.hint(w, ctx.model) for w in weights),
+            out=(u.placements, h0.placements, carry.placements),
+            summed=(1, 4, 5, 6, 7, 8))
     else:
-        hs = linear_scan(a, b, state["h"])
-        h = hs[:, -1, :]
+        hs, h, conv_carry = _recurrence(u, p.conv, state["conv"],
+                                        state["h"], *weights)
     out = (hs.to(x.dtype) * gate) @ p.w_out
-    return x + out, {"h": h, "conv": conv_carry}
+    return x + ctx.residual(out), {"h": h, "conv": conv_carry}

@@ -32,7 +32,8 @@ from repro_torch.kernels.wkv.kernel import wkv_forward_plain
 from repro_torch.kernels.wkv.ops import wkv_forward
 from repro_torch.kernels.wkv.ref import wkv_ref
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import RMSNorm, dense_init
+from repro_torch.models.layers import (NO_MESH, RMSNorm, ShardCtx,
+                                       dense_init, is_dtensor)
 
 LORA_RANK = 64
 
@@ -161,8 +162,38 @@ def wkv_recurrent(r, k, v, lw, u, s0):
     return _unflat(o, B, H).to(r.dtype), sT.reshape(B, H, K, -1)
 
 
+def _wkv(r, kk, vv, lw, u, s0, cfg: ModelConfig):
+    """The recurrence on plain tensors, routed as the reference routes it:
+    one token the step oracle, else the chunk kernel under
+    ``cfg.wkv_use_pallas``, else the plain chunked scan."""
+    B, T, H, hd = r.shape
+    if T == 1:
+        return wkv_recurrent(r, kk, vv, lw, u, s0)
+    if cfg.wkv_use_pallas:
+        # the chunk kernel, flattened (B, H) -> BH rows with a per-row u
+        o_f, s_f = wkv_forward(_flat(r), _flat(kk), _flat(vv), _flat(lw),
+                               u.reshape(H, hd).repeat(B, 1),
+                               s0.reshape(B * H, hd, hd), cfg.wkv_chunk)
+        return _unflat(o_f, B, H), s_f.reshape(B, H, hd, hd)
+    return wkv_chunked(r, kk, vv, lw, u, s0, cfg.wkv_chunk,
+                       cfg.wkv_inner_remat, torch_dtype(cfg.wkv_compute_dtype))
+
+
+def _wkv_sharded(r, kk, vv, lw, u, s0, cfg: ModelConfig, ctx: ShardCtx):
+    """:func:`_wkv` on a mesh: the heads over the model axis (the
+    reference's hints), each rank running the recurrence over its own
+    batch rows and heads (the recurrence is per (row, head); DTensor has
+    no rule for its flattened (B H) rows).  ``u`` is a weight read alike
+    by every batch shard, so its gradient sums over the batch axes."""
+    r, kk, vv, lw = (ctx.heads(a) for a in (r, kk, vv, lw))
+    s0 = ctx.hint(ctx.replicated(s0), ctx.batch, ctx.model, None, None)
+    u = ctx.hint(u, ctx.model, None)
+    return ctx.local(lambda *a: _wkv(*a, cfg), r, kk, vv, lw, u, s0,
+                     out=(r.placements, s0.placements), summed=(4,))
+
+
 def rwkv_block(p: RWKV6Block, x: torch.Tensor, cfg: ModelConfig,
-               state: dict | None = None):
+               state: dict | None = None, ctx: ShardCtx = NO_MESH):
     """One RWKV6 block. state = {"ts_t","ts_c": (B,D), "s": (B,H,K,V)} for
     decode; None for a fresh sequence (zero-init)."""
     B, T, D = x.shape
@@ -178,7 +209,8 @@ def rwkv_block(p: RWKV6Block, x: torch.Tensor, cfg: ModelConfig,
 
     # ---- time mix ----
     tm = p.tmix
-    xn = p.ln1(x, cfg.norm_eps)
+    # on a mesh the shift's concatenation runs along an unsharded seq
+    xn = ctx.gathered(p.ln1(x, cfg.norm_eps))
     xs = _shift(xn, state["ts_t"])
     mu = tm.mu.to(x.dtype)
     xr, xk, xv, xg, xw = (xn + mu[i] * (xs - xn) for i in range(5))
@@ -189,32 +221,24 @@ def rwkv_block(p: RWKV6Block, x: torch.Tensor, cfg: ModelConfig,
     # data-dependent decay (the Finch signature): log w = -exp(w0 + lora(x))
     lora = torch.tanh(xw.float() @ tm.wa) @ tm.wb
     lw = -torch.exp(tm.w0.reshape(1, 1, D) + lora).reshape(B, T, H, hd)
-    if T == 1:
-        o, sT = wkv_recurrent(r, kk, vv, lw, tm.u, state["s"])
-    elif cfg.wkv_use_pallas:
-        # the chunk kernel, flattened (B, H) -> BH rows with a per-row u
-        o_f, s_f = wkv_forward(_flat(r), _flat(kk), _flat(vv), _flat(lw),
-                               tm.u.reshape(H, hd).repeat(B, 1),
-                               state["s"].reshape(B * H, hd, hd),
-                               cfg.wkv_chunk)
-        o, sT = _unflat(o_f, B, H), s_f.reshape(B, H, hd, hd)
+    if ctx.mesh is not None and is_dtensor(r):
+        o, sT = _wkv_sharded(r, kk, vv, lw, tm.u, state["s"], cfg, ctx)
     else:
-        o, sT = wkv_chunked(r, kk, vv, lw, tm.u, state["s"], cfg.wkv_chunk,
-                            cfg.wkv_inner_remat,
-                            torch_dtype(cfg.wkv_compute_dtype))
+        o, sT = _wkv(r, kk, vv, lw, tm.u, state["s"], cfg)
     o = tm.ln_out(o.reshape(B, T, D), cfg.norm_eps) * g
-    x = x + o @ tm.wo
+    x = x + ctx.residual(o @ tm.wo)
 
     # ---- channel mix ----
     cm = p.cmix
-    xn2 = p.ln2(x, cfg.norm_eps)
+    xn2 = ctx.gathered(p.ln2(x, cfg.norm_eps))
     xs2 = _shift(xn2, state["ts_c"])
     cmu = cm.mu.to(x.dtype)
     xk2 = xn2 + cmu[0] * (xs2 - xn2)
     xr2 = xn2 + cmu[1] * (xs2 - xn2)
-    kk2 = torch.square(torch.relu(xk2 @ cm.wk))
+    kk2 = ctx.hint(torch.square(torch.relu(xk2 @ cm.wk)), ctx.batch, None,
+                   ctx.model)
     ffn = torch.sigmoid(xr2 @ cm.wr) * (kk2 @ cm.wv)
-    x = x + ffn
+    x = x + ctx.residual(ffn)
 
     new_state = {"ts_t": xn[:, -1, :], "ts_c": xn2[:, -1, :], "s": sT}
     return x, new_state

@@ -21,6 +21,11 @@ Decode keeps the reference's absolute-position ring-buffer KV cache: the
 key of position p lives at slot p % W, ``kpos`` records each slot's
 position (-1 for empty), and the mask is computed from positions, so a
 sliding window and a full cache share one path.
+
+Every entry point takes the reference's ``ShardCtx`` (``models/layers.py``):
+on a ``DeviceMesh`` the model's parameters, the batch and the cache are
+DTensors (``models/sharding.py``) and the hints sit where the reference's
+do; ``ctx=NO_MESH`` is the one-device path.
 """
 from __future__ import annotations
 
@@ -34,9 +39,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (MLP, Attention, RMSNorm, attention,
-                                       attn_init_, dense_init, embed,
-                                       embed_init, kv_proj, mlp, mlp_init_,
+from repro_torch.models.layers import (MLP, NO_MESH, Attention, RMSNorm,
+                                       ShardCtx, attention, attn_init_,
+                                       dense_init, embed, embed_init,
+                                       is_dtensor, kv_proj, mlp, mlp_init_,
                                        unembed)
 from repro_torch.models.moe import MoE, moe_ffn, moe_init_
 from repro_torch.models.rglru import RGLRU, rglru_block, rglru_layer_init_
@@ -248,17 +254,28 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     dev = resolve_device(device)
     model = build_model(cfg, dev)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    embed_init(model.embed.table, gen)
-    dense_init(model.lm_head, gen)
-    if cfg.frontend != "none":
-        dense_init(model.frontend.proj, gen)
-    for name in model.stack_names:
-        for lyr in getattr(model, name):
-            if isinstance(lyr, RWKV6Block):
-                init_block_(lyr, gen)
-            else:
-                lyr.init_(gen)
+    for _, fill in init_units(model, cfg):
+        fill(gen)
     return model
+
+
+def init_units(model: LMModel, cfg: ModelConfig) -> list:
+    """:func:`init_params`' draws in their order: (the name of the parameter
+    or layer a draw fills, ``fill(gen)``).  Each ``fill`` reads its
+    parameters when called, so a caller may swap them in between (a mesh
+    build, ``models/sharding.py::init_sharded_params``).  Norm scales keep
+    their constructor's ones and are in no unit."""
+    units = [("embed.table", lambda g: embed_init(model.embed.table, g)),
+             ("lm_head", lambda g: dense_init(model.lm_head, g))]
+    if cfg.frontend != "none":
+        units.append(("frontend.proj",
+                      lambda g: dense_init(model.frontend.proj, g)))
+    for name in model.stack_names:
+        for i, lyr in enumerate(getattr(model, name)):
+            fill = (functools.partial(init_block_, lyr)
+                    if isinstance(lyr, RWKV6Block) else lyr.init_)
+            units.append((f"{name}.{i}", fill))
+    return units
 
 
 def reference_key(name: str) -> tuple:
@@ -358,49 +375,64 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device="cuda") \
 
 
 # =============================================================== inputs
-def _embed_inputs(model: LMModel, batch: dict, cfg: ModelConfig):
+def _embed_inputs(model: LMModel, batch: dict, cfg: ModelConfig,
+                  ctx: ShardCtx = NO_MESH):
     """Returns (x (B,S,D), loss_mask (B,S)): the mask is True where the
     next-token loss applies (the text, not the frontend's prefix)."""
     tokens = batch["tokens"]
-    x_txt = embed(model.embed.table, tokens)
-    txt = torch.ones_like(tokens, dtype=torch.bool)
+    x_txt = embed(model.embed.table, tokens, ctx)
+    txt = torch.ones(tokens.shape, dtype=torch.bool, device=tokens.device)
     if cfg.frontend == "none" or cfg.family == "encdec":
         # encdec consumes frames in the encoder, not as a decoder prefix
-        return x_txt, txt
+        return ctx.residual(x_txt), txt
     feats = batch["patches"] if cfg.frontend == "vlm_patches" \
         else batch["frames"]
     x_pre = feats.to(x_txt.dtype) @ model.frontend.proj
     mask = torch.zeros(x_pre.shape[:2], dtype=torch.bool,
                        device=tokens.device)
-    return torch.cat([x_pre, x_txt], dim=1), torch.cat([mask, txt], dim=1)
+    if ctx.mesh is not None:   # the two parts meet along an unsharded seq
+        x_pre = ctx.hint(x_pre, ctx.batch, None, None)
+        x_txt = ctx.hint(x_txt, ctx.batch, None, None)
+    return ctx.residual(torch.cat([x_pre, x_txt], dim=1)), \
+        torch.cat([mask, txt], dim=1)
 
 
-def _ffn(lyr: DenseLayer, x, cfg: ModelConfig):
+def _sp_hint(x, ctx: ShardCtx):
+    """The reference's Megatron-SP boundary at norm outputs (forward
+    all-gather, backward reduce-scatter at this point)."""
+    if ctx.mesh is not None and x.shape[1] > 1:
+        return ctx.residual(x)
+    return x
+
+
+def _ffn(lyr: DenseLayer, x, cfg: ModelConfig, ctx: ShardCtx = NO_MESH):
     """ln2 + (mlp | moe). Returns (x, aux_loss)."""
-    xn = lyr.ln2(x, cfg.norm_eps)
+    xn = _sp_hint(lyr.ln2(x, cfg.norm_eps), ctx)
     if cfg.family == "moe" and lyr.moe is not None:
-        m, aux = moe_ffn(lyr.moe, xn, cfg)
+        m, aux = moe_ffn(lyr.moe, xn, cfg, ctx)
         return x + m, aux["aux_loss"]
-    return x + mlp(lyr.mlp, xn), torch.zeros((), dtype=torch.float32,
-                                             device=x.device)
+    return x + mlp(lyr.mlp, xn, ctx), torch.zeros((), dtype=torch.float32,
+                                                  device=x.device)
 
 
 def _dense_layer_train(lyr: DenseLayer, x, cfg: ModelConfig, positions, *,
                        causal: bool = True, window: int | None = None,
-                       enc_kv: tuple | None = None):
+                       enc_kv: tuple | None = None, ctx: ShardCtx = NO_MESH):
     """Self-attention (``window``: default cfg.sliding_window), then, with
     ``enc_kv`` = (k, v, kpos, valid) of the encoder's output, the decoder's
     non-causal cross-attention (no RoPE), then the FFN."""
-    xn = lyr.ln1(x, cfg.norm_eps)
-    h, _ = attention(lyr.attn, xn, cfg, positions=positions, causal=causal,
+    xn = _sp_hint(lyr.ln1(x, cfg.norm_eps), ctx)
+    h, _ = attention(lyr.attn, xn, cfg, ctx=ctx, positions=positions,
+                     causal=causal,
                      window=cfg.sliding_window if window is None else window)
     x = x + h
     if enc_kv is not None:
-        hx, _ = attention(lyr.xattn, lyr.ln_x(x, cfg.norm_eps), cfg,
-                          kv=enc_kv, positions=positions, causal=False,
-                          window=0, use_rope=False)
+        xc = _sp_hint(lyr.ln_x(x, cfg.norm_eps), ctx)
+        hx, _ = attention(lyr.xattn, xc, cfg, ctx=ctx, kv=enc_kv,
+                          positions=positions, causal=False, window=0,
+                          use_rope=False)
         x = x + hx
-    return _ffn(lyr, x, cfg)
+    return _ffn(lyr, x, cfg, ctx)
 
 
 # =============================================================== train forward
@@ -440,23 +472,64 @@ def _remat(fn, cfg: ModelConfig):
     raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
 
 
-def _rec_layer(lyr: RecLayer, x, cfg: ModelConfig, state=None):
+def _ce_loss_sharded(logits, tokens, ctx: ShardCtx):
+    """:func:`ce_loss` of a DTensor ``logits`` (B, S, V) (its text the last
+    ``S_txt = tokens.shape[1]`` positions, every text position in the loss,
+    as every caller's mask says) without gathering the logits: each rank
+    sums the loss of its own rows and sequence positions, whose targets it
+    reads from the whole (batch-sharded) ``tokens``, and the partial sums
+    meet in one all-reduce."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    B, S, _ = logits.shape
+    S_txt = tokens.shape[1]
+    off = S - S_txt
+    mi = list(ctx.mesh.mesh_dim_names).index(ctx.model)
+    seq_sharded = logits.placements[mi] == Shard(1)
+    tokens = ctx.hint(tokens, ctx.batch, None)
+
+    def local_nll(lg, tok):
+        n = lg.shape[1]
+        lo = ctx.model_index() * n if seq_sharded else 0
+        t = torch.arange(lo, lo + n, device=lg.device) - off
+        m = ((t >= 0) & (t < S_txt - 1)).float()
+        tgt = tok[:, torch.clamp(t + 1, 0, S_txt - 1)].long()
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, tgt[..., None])[..., 0]
+        return ((logz - gold) * m).sum()
+
+    out = [Partial() if isinstance(pl, Shard) else Replicate()
+           for pl in logits.placements]
+    nll = ctx.local(local_nll, logits, tokens, out=out)
+    nll = nll.redistribute(ctx.mesh, [Replicate()] * len(out))
+    return nll / max(B * (S_txt - 1), 1)
+
+
+def _loss(logits, tokens, mask, ctx: ShardCtx):
+    if ctx.mesh is not None and is_dtensor(logits):
+        return _ce_loss_sharded(logits, tokens, ctx)
+    S_txt = tokens.shape[1]
+    return ce_loss(logits[:, -S_txt:], tokens, mask[:, -S_txt:])
+
+
+def _rec_layer(lyr: RecLayer, x, cfg: ModelConfig, state=None,
+               ctx: ShardCtx = NO_MESH):
     """One recurrent layer: the RG-LRU block, then its FFN.  Returns (x,
     the block's new state)."""
-    x, st = rglru_block(lyr.rec, x, cfg, state)
-    return _ffn(lyr, x, cfg)[0], st
+    x, st = rglru_block(lyr.rec, x, cfg, state, ctx)
+    return _ffn(lyr, x, cfg, ctx)[0], st
 
 
-def _encode(model: EncDecModel, frames, cfg: ModelConfig):
+def _encode(model: EncDecModel, frames, cfg: ModelConfig,
+            ctx: ShardCtx = NO_MESH):
     """The encoder over ``frames @ frontend.proj`` (non-causal, RoPE),
     normalised by the model's one ``final_norm``, as in the reference.
     Returns (x_enc, its positions, the layers' aux sum)."""
-    x = frames.to(torch_dtype(cfg.dtype)) @ model.frontend.proj
+    x = ctx.residual(frames.to(torch_dtype(cfg.dtype)) @ model.frontend.proj)
     pos_e = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def body(lyr, h, aux):
-        h, a = _dense_layer_train(lyr, h, cfg, pos_e, causal=False)
+        h, a = _dense_layer_train(lyr, h, cfg, pos_e, causal=False, ctx=ctx)
         return h, aux + a
 
     body = _remat(body, cfg)
@@ -465,29 +538,33 @@ def _encode(model: EncDecModel, frames, cfg: ModelConfig):
     return model.final_norm(x, cfg.norm_eps), pos_e, aux
 
 
-def _forward_train_encdec(model: EncDecModel, batch: dict, cfg: ModelConfig):
-    x_enc, pos_e, aux = _encode(model, batch["frames"], cfg)
+def _forward_train_encdec(model: EncDecModel, batch: dict, cfg: ModelConfig,
+                          ctx: ShardCtx = NO_MESH):
+    x_enc, pos_e, aux = _encode(model, batch["frames"], cfg, ctx)
     tokens = batch["tokens"]
-    x = embed(model.embed.table, tokens)
+    x = ctx.residual(embed(model.embed.table, tokens, ctx))
     pos_d = torch.arange(tokens.shape[1], dtype=torch.int32, device=x.device)
 
     def body(lyr, h, aux, x_enc):
         # cross-attention keys from the encoder output, projected per layer
-        ck, cv = kv_proj(lyr.xattn, x_enc, cfg, pos_e, use_rope=False)
+        ck, cv = kv_proj(lyr.xattn, x_enc, cfg, pos_e, use_rope=False,
+                         ctx=ctx)
         h, a = _dense_layer_train(lyr, h, cfg, pos_d,
-                                  enc_kv=(ck, cv, pos_e, None))
+                                  enc_kv=(ck, cv, pos_e, None), ctx=ctx)
         return h, aux + a
 
     body = _remat(body, cfg)
     for lyr in model.dec_layers:
         x, aux = body(lyr, x, aux, x_enc)
     x = model.final_norm(x, cfg.norm_eps)
-    loss = ce_loss(unembed(model.lm_head, x), tokens,
-                   torch.ones_like(tokens, dtype=torch.bool))
+    loss = _loss(unembed(model.lm_head, x, ctx), tokens,
+                 torch.ones(tokens.shape, dtype=torch.bool,
+                            device=tokens.device), ctx)
     return loss + AUX_LOSS_COEF * aux, {"ce": loss, "aux": aux}
 
 
-def forward_train(model: LMModel, batch: dict, cfg: ModelConfig):
+def forward_train(model: LMModel, batch: dict, cfg: ModelConfig,
+                  ctx: ShardCtx = NO_MESH):
     """Returns (loss, metrics {"ce", "aux"}), a graph for autograd; the
     remat policy wraps one stacked entry (a layer, a moe group, an
     rglru_hybrid group or a tail layer).  aux sums the MoE layers'
@@ -496,20 +573,20 @@ def forward_train(model: LMModel, batch: dict, cfg: ModelConfig):
     encoder's ``frames`` beside the decoder's ``tokens``."""
     model_class(cfg)
     if cfg.family == "encdec":
-        return _forward_train_encdec(model, batch, cfg)
-    x, mask = _embed_inputs(model, batch, cfg)
+        return _forward_train_encdec(model, batch, cfg, ctx)
+    x, mask = _embed_inputs(model, batch, cfg, ctx)
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     if cfg.family == "rglru_hybrid":
         def rec_body(lyr, h, aux):
-            return _rec_layer(lyr, h, cfg)[0], aux
+            return _rec_layer(lyr, h, cfg, ctx=ctx)[0], aux
 
         def group_body(grp, h, aux):
             for lyr in grp.recs:
                 h, aux = rec_body(lyr, h, aux)
             h, a = _dense_layer_train(grp.attn, h, cfg, positions,
-                                      window=cfg.local_window)
+                                      window=cfg.local_window, ctx=ctx)
             return h, aux + a
 
         # as in the reference, a group's recurrent layers run inside the
@@ -522,9 +599,9 @@ def forward_train(model: LMModel, batch: dict, cfg: ModelConfig):
     else:
         def body(grp, h, aux):
             if cfg.family == "rwkv6":
-                return rwkv_block(grp, h, cfg)[0], aux
+                return rwkv_block(grp, h, cfg, ctx=ctx)[0], aux
             for lyr in _sublayers(cfg, grp):
-                h, a = _dense_layer_train(lyr, h, cfg, positions)
+                h, a = _dense_layer_train(lyr, h, cfg, positions, ctx=ctx)
                 aux = aux + a
             return h, aux
 
@@ -532,9 +609,7 @@ def forward_train(model: LMModel, batch: dict, cfg: ModelConfig):
         for grp in model.layers:
             x, aux = body(grp, x, aux)
     x = model.final_norm(x, cfg.norm_eps)
-    logits = unembed(model.lm_head, x)
-    S_txt = batch["tokens"].shape[1]
-    loss = ce_loss(logits[:, -S_txt:], batch["tokens"], mask[:, -S_txt:])
+    loss = _loss(unembed(model.lm_head, x, ctx), batch["tokens"], mask, ctx)
     return loss + AUX_LOSS_COEF * aux, {"ce": loss, "aux": aux}
 
 
@@ -546,20 +621,74 @@ def _cache_index(cfg: ModelConfig, i: int, j: int) -> tuple:
     return (i, j) if cfg.family == "moe" else (i,)
 
 
+def _write_slots(buf, at, slots, val, ctx: ShardCtx):
+    """``buf[at][:, slots] = val`` (``slots`` None: the whole slice).  A
+    DTensor ``buf`` is laid out as ``val`` is (the prefill's write layout,
+    :func:`_prefill_layout`), so each rank writes its own shard (DTensor
+    has no rule for an indexed write)."""
+    def write(b, v):
+        if slots is None:
+            b[at] = v
+        else:
+            b[at][:, slots] = v
+        return b
+    if is_dtensor(buf):
+        ctx.local(write, buf, val, out=buf.placements)
+    else:
+        write(buf, val)
+
+
+def _prefill_layout(cache: dict, cfg: ModelConfig, ctx: ShardCtx,
+                    dev) -> dict:
+    """A cache (of meta tensors from :func:`init_cache`) as DTensors in the layout the prefill writes it in,
+    each rank allocating only its shard: keys and values (..., B, W, Hkv,
+    hd) with B over the batch axes and the kv heads over the model axis
+    when they divide it (as ``kv_proj`` makes them); the recurrent states
+    as ``cache_specs`` lays them out.  ``kpos`` (-1: empty) and ``pos`` are
+    plain tensors on ``dev``, the same on every rank."""
+    from torch.distributed.tensor import zeros
+
+    from repro_torch.models.sharding import cache_specs
+    specs = cache_specs(cache, ctx.mesh, cfg)
+    m = ctx.model if cfg.n_kv_heads % ctx.model_size() == 0 else None
+    out = {}
+    for nm, t in cache.items():
+        if t.dim() <= 1:
+            out[nm] = torch.full(t.shape, -1 if nm == "kpos" else 0,
+                                 dtype=t.dtype, device=dev)
+            continue
+        spec = specs[nm]
+        if nm in ("k", "v", "ck", "cv"):
+            spec = (None,) * (t.dim() - 4) + (ctx.batch, None, m, None)
+        out[nm] = zeros(t.shape, dtype=t.dtype, device_mesh=ctx.mesh,
+                        placements=ctx.placements(t, spec))
+    return out
+
+
+def _to_cache_layout(cache: dict, cfg: ModelConfig, ctx: ShardCtx) -> dict:
+    """The cache redistributed to ``cache_specs``' layout, which decode
+    reads (the keys' length dim over the model axis)."""
+    from repro_torch.models.sharding import cache_specs
+    specs = cache_specs(cache, ctx.mesh, cfg)
+    return {nm: ctx.hint(t, *specs[nm]) if is_dtensor(t) else t
+            for nm, t in cache.items()}
+
+
 def _prefill_attn(lyr: DenseLayer, x, cfg: ModelConfig, positions, window,
-                  cache, at, slots, m):
+                  cache, at, slots, m, ctx: ShardCtx = NO_MESH):
     """A prompt's causal self-attention through ``lyr``: writes the last
     ``m`` positions' keys and values at ``slots`` of the cache's slice
     ``at``; returns x + the attention's output."""
-    h, (k, v) = attention(lyr.attn, lyr.ln1(x, cfg.norm_eps), cfg,
-                          positions=positions, causal=True, window=window)
-    cache["k"][at][:, slots] = k[:, -m:]
-    cache["v"][at][:, slots] = v[:, -m:]
+    h, (k, v) = attention(lyr.attn, _sp_hint(lyr.ln1(x, cfg.norm_eps), ctx),
+                          cfg, ctx=ctx, positions=positions, causal=True,
+                          window=window)
+    _write_slots(cache["k"], at, slots, k[:, -m:], ctx)
+    _write_slots(cache["v"], at, slots, v[:, -m:], ctx)
     return x + h
 
 
 def forward_prefill(model: LMModel, batch: dict, cfg: ModelConfig,
-                    max_len: int | None = None):
+                    max_len: int | None = None, ctx: ShardCtx = NO_MESH):
     """Process a full prompt, returning (last-token logits (B,V) f32,
     cache).  An attention cache is a ring of width W = cache_window(cfg,
     max_len) (default: the prompt's length) with the key of position p at
@@ -570,17 +699,19 @@ def forward_prefill(model: LMModel, batch: dict, cfg: ModelConfig,
     layer's cross-attention keys and values (``ck`` / ``cv``, as many as
     the batch's ``frames``)."""
     model_class(cfg)
-    x, _ = _embed_inputs(model, batch, cfg)
+    x, _ = _embed_inputs(model, batch, cfg, ctx)
     B, S = x.shape[:2]
     dev = x.device
     positions = torch.arange(S, dtype=torch.int32, device=dev)
     if cfg.family != "rwkv6":
         ccfg = cfg
         if cfg.family == "encdec":
-            x_enc, pos_e, _ = _encode(model, batch["frames"], cfg)
+            x_enc, pos_e, _ = _encode(model, batch["frames"], cfg, ctx)
             ccfg = cfg.replace(frontend_tokens=x_enc.shape[1])
         cache = init_cache(ccfg, B, max_len if max_len is not None else S,
-                           device=dev)
+                           device="meta" if ctx.mesh is not None else dev)
+        if ctx.mesh is not None:
+            cache = _prefill_layout(cache, cfg, ctx, dev)
         W = cache["kpos"].shape[0]
         m = min(W, S)
         slots = (positions[-m:] % W).long()      # the last m positions' slots
@@ -588,7 +719,7 @@ def forward_prefill(model: LMModel, batch: dict, cfg: ModelConfig,
     if cfg.family == "rwkv6":
         t1, t2, s = [], [], []
         for blk in model.layers:
-            x, st = rwkv_block(blk, x, cfg)
+            x, st = rwkv_block(blk, x, cfg, ctx=ctx)
             t1.append(st["ts_t"])
             t2.append(st["ts_c"])
             s.append(st["s"])
@@ -597,36 +728,44 @@ def forward_prefill(model: LMModel, batch: dict, cfg: ModelConfig,
     elif cfg.family == "rglru_hybrid":
         for g, grp in enumerate(model.groups):
             for j, lyr in enumerate(grp.recs):
-                x, st = _rec_layer(lyr, x, cfg)
-                cache["h"][g, j] = st["h"]
-                cache["conv"][g, j] = st["conv"]
+                x, st = _rec_layer(lyr, x, cfg, ctx=ctx)
+                _write_slots(cache["h"], (g, j), None, st["h"], ctx)
+                _write_slots(cache["conv"], (g, j), None, st["conv"], ctx)
             x = _prefill_attn(grp.attn, x, cfg, positions, cfg.local_window,
-                              cache, g, slots, m)
-            x, _ = _ffn(grp.attn, x, cfg)
+                              cache, g, slots, m, ctx)
+            x, _ = _ffn(grp.attn, x, cfg, ctx)
         for i, lyr in enumerate(model.tail):
-            x, st = _rec_layer(lyr, x, cfg)
-            cache["tail_h"][i] = st["h"]
-            cache["tail_conv"][i] = st["conv"]
+            x, st = _rec_layer(lyr, x, cfg, ctx=ctx)
+            _write_slots(cache["tail_h"], i, None, st["h"], ctx)
+            _write_slots(cache["tail_conv"], i, None, st["conv"], ctx)
     elif cfg.family == "encdec":
         for i, lyr in enumerate(model.dec_layers):
-            x = _prefill_attn(lyr, x, cfg, positions, 0, cache, i, slots, m)
-            ck, cv = kv_proj(lyr.xattn, x_enc, cfg, pos_e, use_rope=False)
-            hx, _ = attention(lyr.xattn, lyr.ln_x(x, cfg.norm_eps), cfg,
-                              kv=(ck, cv, pos_e, None), positions=positions,
-                              causal=False, window=0, use_rope=False)
-            x, _ = _ffn(lyr, x + hx, cfg)
-            cache["ck"][i] = ck
-            cache["cv"][i] = cv
+            x = _prefill_attn(lyr, x, cfg, positions, 0, cache, i, slots, m,
+                              ctx)
+            ck, cv = kv_proj(lyr.xattn, x_enc, cfg, pos_e, use_rope=False,
+                             ctx=ctx)
+            hx, _ = attention(lyr.xattn,
+                              _sp_hint(lyr.ln_x(x, cfg.norm_eps), ctx), cfg,
+                              ctx=ctx, kv=(ck, cv, pos_e, None),
+                              positions=positions, causal=False, window=0,
+                              use_rope=False)
+            x, _ = _ffn(lyr, x + hx, cfg, ctx)
+            _write_slots(cache["ck"], i, None, ck, ctx)
+            _write_slots(cache["cv"], i, None, cv, ctx)
     else:
         for i, grp in enumerate(model.layers):
             for j, lyr in enumerate(_sublayers(cfg, grp)):
                 x = _prefill_attn(lyr, x, cfg, positions, cfg.sliding_window,
-                                  cache, _cache_index(cfg, i, j), slots, m)
-                x, _ = _ffn(lyr, x, cfg)
+                                  cache, _cache_index(cfg, i, j), slots, m,
+                                  ctx)
+                x, _ = _ffn(lyr, x, cfg, ctx)
     cache["pos"] = torch.tensor(S, dtype=torch.int32, device=dev)
+    if ctx.mesh is not None:
+        cache = _to_cache_layout(cache, cfg, ctx)
+        x = ctx.hint(x, ctx.batch, None, None)   # the last row, unsharded
     # the norm is per row, so the last row alone gives the reference's value
     x = model.final_norm(x[:, -1:, :], cfg.norm_eps)
-    return unembed(model.lm_head, x)[:, 0, :], cache
+    return unembed(model.lm_head, x, ctx)[:, 0, :], cache
 
 
 # =============================================================== decode
@@ -693,21 +832,46 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
     return cache
 
 
+def _write_ring(buf, slot, val, ctx: ShardCtx):
+    """``buf.index_copy_(1, slot, val)`` in place.  On a mesh ``buf`` (B,
+    W, Hkv, hd) has its length W over the model axis: ``val`` is gathered
+    over that axis and the rank holding the slot writes it, the others
+    write back what they hold (a masked write: no rank reads the slot on
+    the host)."""
+    if not is_dtensor(buf):
+        buf.index_copy_(1, slot, val)
+        return
+    from torch.distributed.tensor import Shard
+    mi = list(ctx.mesh.mesh_dim_names).index(ctx.model)
+    w_sharded = buf.placements[mi] == Shard(1)
+    val = ctx.hint(val, ctx.batch, None, None, None)
+
+    def write(b, v):
+        n = b.shape[1]
+        ls = slot - (ctx.model_index() * n if w_sharded else 0)
+        ok = (ls >= 0) & (ls < n)
+        idx = torch.clamp(ls, 0, n - 1)
+        b.index_copy_(1, idx, torch.where(ok, v, b.index_select(1, idx)))
+        return b
+
+    ctx.local(write, buf, val, out=buf.placements)
+
+
 def _decode_attn(lyr: DenseLayer, xn, cfg: ModelConfig, ck, cv, kpos, qpos,
-                 slot):
+                 slot, ctx: ShardCtx = NO_MESH):
     """One-token attention against a layer's ring-buffer slice (B, W, Hkv,
     hd): the new key and value are written at ``slot`` in place, then the
     query attends to every filled slot."""
-    k_new, v_new = kv_proj(lyr.attn, xn, cfg, qpos)
-    ck.index_copy_(1, slot, k_new)
-    cv.index_copy_(1, slot, v_new)
-    h, _ = attention(lyr.attn, xn, cfg, kv=(ck, cv, kpos, kpos >= 0),
+    k_new, v_new = kv_proj(lyr.attn, xn, cfg, qpos, ctx=ctx)
+    _write_ring(ck, slot, k_new, ctx)
+    _write_ring(cv, slot, v_new, ctx)
+    h, _ = attention(lyr.attn, xn, cfg, ctx=ctx, kv=(ck, cv, kpos, kpos >= 0),
                      positions=qpos, causal=True, window=cfg.sliding_window)
     return h
 
 
 def forward_decode(model: LMModel, cache: dict, tokens: torch.Tensor,
-                   cfg: ModelConfig):
+                   cfg: ModelConfig, ctx: ShardCtx = NO_MESH):
     """One decode step. tokens: (B, 1). Returns (logits (B,V), cache).
 
     An attention cache's keys and values are updated in place (the
@@ -717,21 +881,22 @@ def forward_decode(model: LMModel, cache: dict, tokens: torch.Tensor,
     tensors.  The rwkv6 and RG-LRU states are returned new, as in the
     reference; an encdec step reads ``ck`` / ``cv`` and leaves them."""
     model_class(cfg)
-    x = embed(model.embed.table, tokens)
+    x = ctx.residual(embed(model.embed.table, tokens, ctx))
     pos = cache["pos"]
     if cfg.family == "rwkv6":
         t1, t2, s = [], [], []
         for i, blk in enumerate(model.layers):
             x, st = rwkv_block(blk, x, cfg, state={"ts_t": cache["ts_t"][i],
                                                     "ts_c": cache["ts_c"][i],
-                                                    "s": cache["s"][i]})
+                                                    "s": cache["s"][i]},
+                               ctx=ctx)
             t1.append(st["ts_t"])
             t2.append(st["ts_c"])
             s.append(st["s"])
         cache = dict(cache, ts_t=torch.stack(t1), ts_c=torch.stack(t2),
                      s=torch.stack(s), pos=pos + 1)
         x = model.final_norm(x, cfg.norm_eps)
-        return unembed(model.lm_head, x)[:, 0, :], cache
+        return unembed(model.lm_head, x, ctx)[:, 0, :], cache
     qpos = pos.reshape(1).to(torch.int32)
     slot = (qpos % cache["kpos"].shape[0]).long()
     kpos = cache["kpos"].index_put((slot,), qpos)
@@ -742,16 +907,20 @@ def forward_decode(model: LMModel, cache: dict, tokens: torch.Tensor,
         for g, grp in enumerate(model.groups):
             for j, lyr in enumerate(grp.recs):
                 x, st = _rec_layer(lyr, x, cfg, {"h": cache["h"][g, j],
-                                                 "conv": cache["conv"][g, j]})
-                new["h"][g, j], new["conv"][g, j] = st["h"], st["conv"]
+                                                 "conv": cache["conv"][g, j]},
+                                   ctx)
+                _write_slots(new["h"], (g, j), None, st["h"], ctx)
+                _write_slots(new["conv"], (g, j), None, st["conv"], ctx)
             xn = grp.attn.ln1(x, cfg.norm_eps)
             x = x + _decode_attn(grp.attn, xn, dcfg, cache["k"][g],
-                                 cache["v"][g], kpos, qpos, slot)
-            x, _ = _ffn(grp.attn, x, cfg)
+                                 cache["v"][g], kpos, qpos, slot, ctx)
+            x, _ = _ffn(grp.attn, x, cfg, ctx)
         for i, lyr in enumerate(model.tail):
             x, st = _rec_layer(lyr, x, cfg, {"h": cache["tail_h"][i],
-                                             "conv": cache["tail_conv"][i]})
-            new["tail_h"][i], new["tail_conv"][i] = st["h"], st["conv"]
+                                             "conv": cache["tail_conv"][i]},
+                               ctx)
+            _write_slots(new["tail_h"], i, None, st["h"], ctx)
+            _write_slots(new["tail_conv"], i, None, st["conv"], ctx)
         cache = dict(cache, **new, kpos=kpos, pos=pos + 1)
     elif cfg.family == "encdec":
         S_enc = cache["ck"].shape[2]
@@ -759,12 +928,13 @@ def forward_decode(model: LMModel, cache: dict, tokens: torch.Tensor,
         for i, lyr in enumerate(model.dec_layers):
             xn = lyr.ln1(x, cfg.norm_eps)
             x = x + _decode_attn(lyr, xn, cfg, cache["k"][i], cache["v"][i],
-                                 kpos, qpos, slot)
+                                 kpos, qpos, slot, ctx)
             hx, _ = attention(lyr.xattn, lyr.ln_x(x, cfg.norm_eps), cfg,
+                              ctx=ctx,
                               kv=(cache["ck"][i], cache["cv"][i], epos, None),
                               positions=qpos, causal=False, window=0,
                               use_rope=False)
-            x, _ = _ffn(lyr, x + hx, cfg)
+            x, _ = _ffn(lyr, x + hx, cfg, ctx)
         cache = dict(cache, kpos=kpos, pos=pos + 1)
     else:
         for i, grp in enumerate(model.layers):
@@ -772,8 +942,8 @@ def forward_decode(model: LMModel, cache: dict, tokens: torch.Tensor,
                 at = _cache_index(cfg, i, j)
                 xn = lyr.ln1(x, cfg.norm_eps)
                 x = x + _decode_attn(lyr, xn, cfg, cache["k"][at],
-                                     cache["v"][at], kpos, qpos, slot)
-                x, _ = _ffn(lyr, x, cfg)
+                                     cache["v"][at], kpos, qpos, slot, ctx)
+                x, _ = _ffn(lyr, x, cfg, ctx)
         cache = dict(cache, kpos=kpos, pos=pos + 1)
     x = model.final_norm(x, cfg.norm_eps)
-    return unembed(model.lm_head, x)[:, 0, :], cache
+    return unembed(model.lm_head, x, ctx)[:, 0, :], cache

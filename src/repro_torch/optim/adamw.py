@@ -7,6 +7,12 @@ of ``model.named_parameters()``, such as ``layers.3.tmix.wr``).  ``m`` and
 back to the parameter's dtype, as in the reference.  :func:`apply` updates
 the parameters and the moments in place under ``torch.no_grad()`` and
 returns its metrics as 0-dim tensors, so a step needs no host sync.
+
+On a mesh the parameters and moments are DTensors (``models/sharding.py``).
+The update is elementwise, so each rank updates its own shards: the
+gradient is laid out as the moment is, a ZeRO-2 weight (TP-only, its
+moments FSDP-sharded) is updated on the moment's slice and gathered back
+to its own layout, and the clipping norm sums every rank's shards once.
 """
 from __future__ import annotations
 
@@ -18,6 +24,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.rwkv6 import torch_dtype
+from repro_torch.models.sharding import is_dtensor
 from repro_torch.models.transformer import (build_model, reference_key,
                                             stack_layers, tensor_from_numpy)
 
@@ -82,7 +89,34 @@ def init(params, c: AdamWConfig) -> AdamWState:
         v={n: torch.zeros_like(p, dtype=dt) for n, p in params.items()})
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    return t.to_local() if is_dtensor(t) else t
+
+
+def _sharded_sumsq(tree: Mapping) -> torch.Tensor:
+    """The sum of squares of DTensor leaves over the whole mesh, in one
+    all-reduce: each rank sums its shards, a shard held by r ranks (r the
+    product of the mesh dims it is replicated on) counted 1/r of the way
+    on each."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = None
+    total = None
+    for x in tree.values():
+        mesh = x.device_mesh
+        reps = 1
+        for size, pl in zip(mesh.shape, x.placements):
+            if isinstance(pl, Replicate):
+                reps *= size
+        s = torch.sum(torch.square(x.to_local().float())) / reps
+        total = s if total is None else total + s
+    return DTensor.from_local(total, mesh, [Partial()] * mesh.ndim,
+                              run_check=False) \
+        .redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+
+
 def global_norm(tree: Mapping) -> torch.Tensor:
+    if any(is_dtensor(x) for x in tree.values()):
+        return torch.sqrt(_sharded_sumsq(tree))
     leaves = [torch.sum(torch.square(x.float())) for x in tree.values()]
     return torch.sqrt(torch.sum(torch.stack(leaves)))
 
@@ -95,7 +129,8 @@ def clip_by_global_norm(grads: Mapping, max_norm: float):
     out = {}
     for n, g in grads.items():
         out[n] = torch.empty_like(g, memory_format=torch.contiguous_format)
-        for gs, os_ in zip(_pieces(g.contiguous()), _pieces(out[n])):
+        for gs, os_ in zip(_pieces(_local(g).contiguous()),
+                           _pieces(_local(out[n]))):
             os_.copy_((gs.float() * scale).to(g.dtype))
     return out, norm
 
@@ -121,6 +156,8 @@ def apply(params, grads: Mapping, state: AdamWState, c: AdamWConfig):
     parameters and the moments are updated in place."""
     named = _named(params)
     with torch.no_grad():
+        grads = {n: g.redistribute(g.device_mesh, state.m[n].placements)
+                 if is_dtensor(g) else g for n, g in grads.items()}
         grads, gnorm = clip_by_global_norm(grads, c.clip_norm)
         step = state.step + 1
         lr = lr_schedule(c, step)
@@ -131,9 +168,17 @@ def apply(params, grads: Mapping, state: AdamWState, c: AdamWConfig):
         sdt = torch_dtype(c.state_dtype)
         for name, p in named.items():
             decay = _decay_mask(name)
-            for ps, m, v, g in zip(_pieces(p), _pieces(state.m[name]),
-                                   _pieces(state.v[name]),
-                                   _pieces(grads[name])):
+            # the moment's layout: a ZeRO-2 weight's slice of it
+            target = p
+            if is_dtensor(p) and p.placements != state.m[name].placements:
+                target = p.redistribute(p.device_mesh,
+                                        state.m[name].placements)
+            loc = _local(target)
+            work = loc if loc.is_contiguous() else loc.contiguous()
+            for ps, m, v, g in zip(_pieces(work),
+                                   _pieces(_local(state.m[name])),
+                                   _pieces(_local(state.v[name])),
+                                   _pieces(_local(grads[name]))):
                 gf = g.float()
                 mf = m.float() * b1 + gf * (1 - b1)
                 vf = v.float() * b2 + gf * gf * (1 - b2)
@@ -145,6 +190,11 @@ def apply(params, grads: Mapping, state: AdamWState, c: AdamWConfig):
                 ps.copy_((ps.float() - lr * delta).to(ps.dtype))
                 m.copy_(mf.to(sdt))
                 v.copy_(vf.to(sdt))
+            if work is not loc:
+                loc.copy_(work)
+            if target is not p:
+                _local(p).copy_(_local(target.redistribute(p.device_mesh,
+                                                           p.placements)))
     return params, AdamWState(step=step, m=state.m, v=state.v), {
         "grad_norm": gnorm, "lr": lr}
 

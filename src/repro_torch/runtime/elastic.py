@@ -10,11 +10,14 @@ it (checkpoint/manager stores leaves unsharded), and (4) replays the data
 cursor — the pipeline is stateless-addressable so `step` is the only
 cursor (data/tokens.py).
 
-In the reference a mesh is a ``jax.sharding.Mesh`` over ``jax.devices()``;
-the port has no mesh, so a mesh is the list of ``torch.device``s the step
-runs on (one card may stand for several logical replicas), and
-``state_shardings(mesh, state_like)`` names the device the checkpoint is
-restored onto.  This module is hardware-agnostic: `DeviceFailure` is
+In the reference a mesh is a ``jax.sharding.Mesh`` over ``jax.devices()``.
+Here a mesh stays the list of ``torch.device``s the step runs on (one card
+may stand for several logical replicas), and ``state_shardings(mesh,
+state_like)`` names the device the checkpoint is restored onto.  It is not
+a ``DeviceMesh`` (``launch/mesh.py``): a ``DeviceMesh`` spans the ranks of
+a process group, which is fixed when the group starts, so a runner inside
+one process cannot shrink or grow it; the re-meshes it simulates are of
+the replicas it runs itself.  This module is hardware-agnostic: `DeviceFailure` is
 raised by the fault injector in tests, and by a heartbeat watchdog in a
 real deployment.  Global batch is preserved across re-meshes (per-device
 batch rescales), so the training trajectory stays comparable.

@@ -229,7 +229,7 @@ def test_launch_train_main_cpu_and_resume(tmp_path):
     second = _run(train.main, argv + ["--steps", "5"])
     assert second[1] == "resumed from step 1"
     assert second[-1] == "done; checkpoints at [1, 3]"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="needs 256 ranks"):
         train.main(argv + ["--mesh", "single"])
     # the rglru_hybrid family trains and resumes; the encdec arch, whose
     # audio frontend the token pipeline cannot feed, is refused as the

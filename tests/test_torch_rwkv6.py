@@ -279,5 +279,5 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch, smoke):
     encdec = get_config("seamless-m4t-medium", smoke=True)
     with pytest.raises(RuntimeError, match="cuda"):
         make_prefill_step(encdec)
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         make_serve_step(cfg, mesh=object(), device="cpu")
