@@ -7,6 +7,7 @@
     python3 chip_smoke.py --measure lm_mutations
     python3 chip_smoke.py --measure robust
     python3 chip_smoke.py --measure mesh
+    python3 chip_smoke.py --measure pdist_split,pdist_plans,route_ladder
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX, and:
@@ -20,6 +21,12 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    threshold, with m off its tile, ties across tiles and threads, 1e30 rows,
    bf16 and l1, each bit for bit against the rowscan route and the fused
    score kernel, and at the kdd reassignment shape and gauss's site calls;
+   its small-m (rowscan) route at its edges (n = 1, 31, 33 and one row past
+   a bulk call's tile, m = 1, 3 and one below the tiled threshold, d = 1,
+   5, 8, 32, 34 and 64, every metric, f32 and bf16, x off 16-byte
+   alignment, many tiles a CTA, 1e30 center rows, all-+inf rows) against
+   its plain version and bit for bit the tiled route and the score's
+   (dist, idx), and d = 65 and 300 against the plain version;
    the fused score at the edges of its CTA split (n = 1 to 33,793 at
    k x d = 3 x 34, 100 x 5, 2,048 x 130 and 64 x 64, every metric, f32
    and bf16, 1e30 center rows, tied centers), each bit for bit min_argmin
@@ -212,7 +219,10 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    and checks prefill(S) + decode(token S) against prefill(S + 1);
 5. times each kernel at the main path's shapes beside its plain version,
    a PyTorch yardstick and its roofline bound (min_argmin's calls of both
-   fits and the baselines' assignment on both of its routes; WKV also its
+   fits and the baselines' assignment on both of its routes, its small-m
+   calls, the stream's and cluster_dryrun's among them, also beside the
+   instruction floor and split into device us per launch, host us per call
+   and a host breakdown; WKV also its
    first pass alone, and at B = 1; the three clustering kernels at the
    stream's shapes), both min_argmin routes over a ladder of m at d = 5, 16, 34 and
    64 (the routing threshold), the serving score at 256 x 3 x 34 and
@@ -234,7 +244,11 @@ and (c)'s checks at 4 layers clean and under three mutations
 monkeypatched for a run each, bf16 scores, a ring slot off by one and a
 dropped window mask, each of which must fail them), ``robust`` (the
 robust phase alone, after the build), ``mesh`` (the mesh phase alone,
-after the build).  One process per reading, in turns with another tree's, compares two trees; ``serve`` and
+after the build), ``pdist_split`` (min_argmin's small-m edge checks, then
+its small-m calls' timings and time split, after only the data),
+``pdist_plans`` (the small-m route's launch plan against other rows per
+tile, buffers and grids there) and ``route_ladder`` (both min_argmin
+routes over m).  One process per reading, in turns with another tree's, compares two trees; ``serve`` and
 ``stream`` run on any tree of the port from the stream slice on.
 
 It prints the card (``nvidia-smi``), one ``{"kernels": [...]}`` line and, as
@@ -667,6 +681,114 @@ def score_edge_checks(dev, rnd, fail):
     return recs
 
 
+SMALL_M_D = (1, 5, 8, 32, 34, 64)
+# rows of a persistent CTA's several tiles: kdd's and gauss's widths
+SMALL_M_BULK = ((300_000, 34), (300_000, 5), (300_000, 32))
+
+
+def _small_m_bitwise(dev, name, x, c, metric, fail):
+    """The small-m route against its plain version, the tiled route and
+    ``score``'s (dist, idx), the last two bit for bit."""
+    thr = torch.tensor(0.7, device=dev)
+    return [check_pdist(dev, name, x, c, metric, fail),
+            route_bitwise(dev, name, x, c, metric, fail),
+            check_score(dev, name, x, c, thr, metric, fail)]
+
+
+def small_m_checks(dev, rnd, fail):
+    """min_argmin's small-m route (``launch_plan``'s persistent CTAs) at its
+    edges: n = 1, 31, 33 and one row past a bulk call's tile, m = 1, 3 and
+    ``tiled_min_m(d) - 1``, d = 1, 5, 8, 32, 34 and 64, every metric, f32
+    (bf16 at n = 33 and past the tile), each against its plain version and,
+    bit for bit, the tiled route and ``score``'s (dist, idx); then x one
+    word off 16-byte alignment (the bulk copy's ragged head and tail), many
+    tiles per CTA, 1e30 center rows, rows whose every distance is +inf
+    (index 0), the plan's residency against the occupancy calculator's, and
+    d = 65 and 300 against the plain version."""
+    from repro_torch.kernels.pdist import kernel as pk
+    from repro_torch.kernels.pdist.kernel import (launch_plan,
+                                                  min_argmin_cuda,
+                                                  padded_width, tiled_min_m)
+    recs = []
+    for d in SMALL_M_D:
+        for m in sorted({1, 3, tiled_min_m(d) - 1}):
+            c32 = rnd(m, d)
+            past = launch_plan(10**6, m, d).rows + 1
+            for n in (1, 31, 33, past):
+                x32 = rnd(n, d)
+                for dt in ((torch.float32, torch.bfloat16) if n in (33, past)
+                           else (torch.float32,)):
+                    x, c = x32.to(dt), c32.to(dt)
+                    for metric in ("l2sq", "l2", "l1"):
+                        recs += _small_m_bitwise(
+                            dev, f"small_m_n{n}_m{m}_d{d}", x, c, metric,
+                            fail)
+    # x at a 4-byte offset from 16-byte alignment (d = 32: rows by block,
+    # not by row), so every tile's block has ragged ends, in calls of one
+    # tile a CTA and of many (one and two row buffers: the main path's site
+    # rounds are slices of the data at such offsets), and n, d such that
+    # the last tile's bytes are ragged
+    for n, d, m in ((5_001, 5, None), (4_099, 32, None), (3_001, 34, None),
+                    (300_000, 34, 26), (300_000, 5, 3), (300_000, 32, 200)):
+        flat = rnd(n * d + 1)
+        x = flat[1:].view(n, d)
+        c = rnd(m or tiled_min_m(d) - 1, d)
+        for metric in ("l2sq", "l1"):
+            recs += _small_m_bitwise(dev, f"small_m_offset_n{n}_d{d}_m{m}",
+                                     x, c, metric, fail)
+    # several tiles per CTA (the row buffers' phases), f32 and bf16
+    for n, d in SMALL_M_BULK:
+        x, c = rnd(n, d), rnd(tiled_min_m(d) - 1, d)
+        for dt in (torch.float32, torch.bfloat16):
+            recs += _small_m_bitwise(dev, f"small_m_bulk_n{n}_d{d}",
+                                     x.to(dt), c.to(dt), "l2sq", fail)
+    # 1e30 center rows never win; a row whose every distance is +inf keeps
+    # index 0 (l2: x = 1e30, so x2 overflows; l1: x = +inf, |x - c| = inf)
+    for d in (5, 34):
+        m = tiled_min_m(d) - 1
+        far = torch.cat([rnd(m - m // 3, d),
+                         torch.full((m // 3, d), 1e30, device=dev)])
+        far = far[torch.randperm(m).to(dev)].contiguous()
+        c = rnd(m, d)
+        for metric in ("l2sq", "l2", "l1"):
+            x = rnd(2_000, d)
+            recs_f = _small_m_bitwise(dev, f"small_m_far_rows_d{d}", x, far,
+                                      metric, fail)
+            _, a = min_argmin_cuda(x, far, metric=metric)
+            if metric != "l1" and not bool((far[a.long(), 0] < 1e29).all()):
+                fail.append(dict(recs_f[0], why="a 1e30 row won"))
+            x[7] = float("inf") if metric == "l1" else 1e30
+            recs_i = _small_m_bitwise(dev, f"small_m_inf_row_d{d}", x, c,
+                                      metric, fail)
+            dk, a = min_argmin_cuda(x, c, metric=metric)
+            if int(a[7]) != 0 or not bool(torch.isinf(dk[7])):
+                fail.append(dict(recs_i[0], why=f"all-inf row: idx "
+                                 f"{int(a[7])}, dist {float(dk[7])}"))
+            recs += recs_f + recs_i
+    # the plan's residency (kernel.py: REGISTERS) is what the occupancy
+    # calculator gives, or less: a persistent grid never waits for a wave
+    for n, m, d in ((1_048_576, 20, 5), (50_000, 200, 5), (244_922, 26, 34),
+                    (4_898_431, 3, 34), (65_536, 200, 32), (10**6, 3, 16),
+                    (10**6, 100, 24), (10**6, 3, 48), (10**6, 63, 64),
+                    (10**6, 3, 130), (10**6, 3, 256)):
+        plan = launch_plan(n, m, d)
+        planned = pk._resident(plan.rows, plan.smem_bytes, padded_width(d))
+        real = _blocks_per_sm("pdist_rows", d, plan.rows, plan.smem_bytes)
+        rec = dict(kernel="min_argmin", case=f"resident_n{n}_m{m}_d{d}",
+                   planned=planned, occupancy=real, max_abs_err=0.0,
+                   max_rel_err=0.0)
+        if real < planned:
+            fail.append(rec)
+        recs.append(rec)
+    # widths past the tiled route: d = 65 (padded to 96) and the generic 300
+    for n, m, d in ((1_000, 3, 65), (1_000, 200, 65), (517, 65, 300)):
+        x, c = rnd(n, d), rnd(m, d)
+        for metric in ("l2sq", "l2", "l1"):
+            recs.append(check_pdist(dev, f"small_m_d{d}_m{m}", x, c, metric,
+                                    fail))
+    return recs
+
+
 def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
     """Every kernel x metric x dtype against its plain version on the card
     (tolerances: see TOL)."""
@@ -724,6 +846,7 @@ def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
             c = torch.cat([rnd(5, 34), torch.full((7, 34), 1e30, device=dev)])
             recs.append(check_pdist(dev, "far_rows", x, c, metric, fail))
     recs += large_m_checks(dev, rnd, site, c_re, fail)
+    recs += small_m_checks(dev, rnd, fail)
     recs += score_edge_checks(dev, rnd, fail)
     # serving shape: a micro-batch against kdd's and gauss's centers
     thr = torch.tensor(3.5, device=dev)
@@ -5166,7 +5289,7 @@ def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
     from repro_torch.kernels.score.ops import score_blocked
 
     g = torch.Generator(device="cpu").manual_seed(1)
-    n_site, cap, m, d = ks["n_site"], ks["center_cap"], ks["m"], kdd_x.shape[1]
+    n_site, cap, d = ks["n_site"], ks["center_cap"], kdd_x.shape[1]
     site = kdd_x[:n_site]
     pick = torch.randperm(n_site, generator=g)[:cap].to(dev)
     rows = []
@@ -5194,7 +5317,6 @@ def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
     c = site[pick].contiguous()
     pdist_row("kdd_alg2_reassign", site, c, "l2sq", 5)
     rows[-1]["blocks_per_sm"] = _blocks_per_sm("pdist", d)
-    pdist_row("kdd_alg1_round", site, site[pick[:m]].contiguous(), "l2sq", 50)
     # the baselines' assignment: a site against b of its rows (rand, uniform
     # and k-means||'s last call)
     b = h2h_budget(kdd_res)
@@ -5202,16 +5324,16 @@ def kernel_timings(dev, kdd_x, kdd_res, kdd_model, gauss_x, ks, gs):
               site[torch.randperm(n_site, generator=g)[:b].to(dev)]
               .contiguous(), "l2sq", 5)
     cen = kdd_model.centers
-    k = cen.shape[0]
-    pdist_row("kdd_losses_l2", kdd_x, cen, "l2", 20, 1 << 20)
-    # gauss-0.1's site calls: Alg. 2 reassignment and Alg. 1 round (d = 5)
+    # gauss-0.1's Alg. 2 reassignment (d = 5)
     gsite = gauss_x[:gs["n_site"]]
     gpick = torch.randperm(gsite.shape[0], generator=g)[:gs["center_cap"]]
     gpick = gpick.to(dev)
     pdist_row("gauss_alg2_reassign", gsite, gsite[gpick].contiguous(),
               "l2sq", 20)
-    pdist_row("gauss_alg1_round", gsite, gsite[gpick[:gs["m"]]].contiguous(),
-              "l2sq", 50)
+    # the small-m calls: kdd's and gauss's Alg. 1 rounds, kdd's losses, the
+    # stream's refit assignment and merge round, cluster_dryrun's site round
+    rows += pdist_small_m(dev, small_m_shapes(dev, kdd_x, gauss_x, ks, gs,
+                                              cen))
     blocked = KernelPolicy(backend="blocked")
     for name, (lx, lw, lc) in lloyd_inputs(dev, kdd_x, kdd_res, kdd_model,
                                            gauss_x, gs).items():
@@ -5379,6 +5501,212 @@ def score_split(dev, x, c, thr, metric="l2sq"):
     return out
 
 
+# The H100's issue rate: 132 SMs x 4 schedulers x one warp instruction (32
+# threads) a clock at the 1.98 GHz that PEAK_FP32_FLOPS assumes (67 TFLOP/s
+# = 132 x 128 lanes x 2 x 1.98 GHz).
+INSTR_RATE = 132 * 128 * 1.98e9          # thread instructions per second
+
+
+def pair_instructions(d, metric, m=None):
+    """Instructions a thread issues per (row, center) pair in the small-m
+    route's scan (``pdist.cu``: scan_centers), counted from its code: one
+    fused multiply-add a coordinate (l1: a subtract and an add with the
+    absolute value folded in) over the chain's length DX (d at d = 5 and
+    34, else the padded DP), a 16-byte broadcast load per four coordinates
+    of a center shared by the R rows a thread holds, a quarter of the
+    16-byte load of four norms, the bit-exact epilogue (add, multiply,
+    subtract, max; l2 adds a correctly rounded square root, ~8), the
+    strict-``<`` compare with its two selects, and (given m) the row's own
+    norm spread over its m centers."""
+    from repro_torch.kernels.pdist import kernel as pk
+    dp = pk.padded_width(d) or d
+    dx = d if (dp, d) in ((8, 5), (40, 34)) else dp
+    r = pk.rows_per_thread(dp) if pk.padded_width(d) else 1
+    per = (2 * dx if metric == "l1" else dx) + math.ceil(dx / 4) / r + 3
+    if metric != "l1":
+        per += 0.25 / r + 4 + (8 if metric == "l2" else 0)
+        if m:
+            per += dx / m
+    return per
+
+
+def instr_floor_ms(n, m, d, metric):
+    """The least time the scan's instructions allow: instructions per pair
+    x pairs / the card's issue rate (``INSTR_RATE``)."""
+    return pair_instructions(d, metric, m) * n * m / INSTR_RATE * 1e3
+
+
+def pdist_split(dev, x, c, metric="l2sq", reps=2000):
+    """min_argmin's time split at one small-m shape: device us per launch
+    (200 calls in one CUDA graph), host us per call through ``min_argmin``
+    (the op the main path calls) and through the wrapper
+    ``min_argmin_cuda``, and a host breakdown, each step its own loop of
+    ``reps`` calls (fewer for a call the device cannot keep up with)."""
+    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels.pdist import kernel as pk
+    from repro_torch.kernels.pdist.ops import min_argmin, min_argmin_cuda
+    n, d = x.shape
+    m = c.shape[0]
+    kw = dict(metric=metric, n=n, m=m, d=d, dtype=x.dtype)
+    call = lambda: min_argmin_cuda(x, c, metric=metric)      # noqa: E731
+    fn, args, _keep = _spy_launch(call)
+    dev_us, method = _graph_device_us(call, kernel="min_argmin")
+    short = reps if dev_us < 15.0 else max(20, reps // 20)
+    steps = {
+        "min_argmin_op": (lambda: min_argmin(x, c, metric=metric), short),
+        "wrapper": (call, short),
+        "resolve": (lambda: dispatch.resolve(
+            "min_argmin", None, platform=dispatch.platform_of(x), **kw),
+            reps),
+        "contiguous_x_c": (lambda: (x.contiguous(), c.contiguous()), reps),
+        "check_operands": (lambda: pk.check_operands(x, c, metric,
+                                                     "min_argmin_cuda"),
+                           reps),
+        "empty_2n": (lambda: torch.empty((2, n), dtype=torch.float32,
+                                         device=x.device), reps),
+        "data_ptr": (lambda: x.data_ptr(), reps),
+        "stream_ptr": (lambda: _build.stream_ptr(x), reps),
+        "ctypes_launch": (lambda: fn(*args), short),
+    }
+    if hasattr(pk, "launch_plan"):
+        buf = torch.empty((2, n), dtype=torch.float32, device=x.device)
+        plan = pk.launch_plan(n, m, d)
+        steps["plan"] = (lambda: pk.launch_plan(n, m, d), reps)
+        steps["launch_args"] = (lambda: pk._rowscan_args(
+            n, m, d, metric, x.dtype, plan), reps)
+        steps["split_outputs"] = (lambda: pk.split_outputs(buf, n), reps)
+    host = {name: _host_us(f, r) for name, (f, r) in steps.items()}
+    torch.cuda.synchronize()
+    out = {"shape": [n, m, d], "device_us_per_launch": dev_us,
+           "device_method": method, "host_us_per_call": host["min_argmin_op"],
+           "host_us_per_wrapper_call": host["wrapper"],
+           "host_breakdown_us": host}
+    if hasattr(pk, "launch_plan"):
+        plan = pk.launch_plan(n, m, d)
+        out["plan"] = plan._asdict()
+        if plan.route == "rowscan" and plan.smem_bytes:
+            out["blocks_per_sm"] = _blocks_per_sm(
+                "pdist_rows", d, plan.rows, plan.smem_bytes)
+    log(f"pdist_split {[n, m, d]}: device {dev_us:.3f} us/launch ({method}),"
+        f" host {host['min_argmin_op']:.3f} us/call (wrapper "
+        f"{host['wrapper']:.3f}); plan {out.get('plan')}, CTAs/SM "
+        f"{out.get('blocks_per_sm')}; breakdown "
+        + json.dumps({k: round(v, 3) for k, v in host.items()}))
+    return out
+
+
+def small_m_shapes(dev, kdd_x, gauss_x, ks, gs, kdd_centers=None):
+    """min_argmin's small-m calls on the main path, as (x, c, metric):
+    kdd's Alg. 1 round and losses and gauss's Alg. 1 round on the data's own
+    site rows (the losses against ``kdd_centers``, the fit's model, or 3 of
+    the rows), the stream refit's last assignment (1,048,576 x 20 x 5), the
+    stream's merge round (two level-2 nodes' 16,384 records x 40 x 5) and
+    ``cluster_dryrun``'s site round (65,536 x 200 x 32), these three on
+    normal rows from a seed (the kernel's time does not depend on the
+    values)."""
+    g = torch.Generator(device="cpu").manual_seed(8)
+    site, gsite = kdd_x[:ks["n_site"]], gauss_x[:gs["n_site"]]
+    pick = lambda rows, k: rows[torch.randperm(                 # noqa: E731
+        rows.shape[0], generator=g)[:k].to(dev)].contiguous()
+    if kdd_centers is None:
+        kdd_centers = pick(site, KDD["k"])
+    stream = torch.randn((1_048_576, STREAM["d"]), generator=g).to(dev)
+    merged = torch.randn((4 * 2 * STREAM["leaf_size"], STREAM["d"]),
+                         generator=g).to(dev)
+    dry = torch.randn((MESH["n_per_site"], MESH["d"]), generator=g).to(dev)
+    return {
+        "kdd_alg1_round": (site, pick(site, ks["m"]), "l2sq"),
+        "kdd_losses_l2": (kdd_x, kdd_centers.contiguous(), "l2"),
+        "gauss_alg1_round": (gsite, pick(gsite, gs["m"]), "l2sq"),
+        "stream_refresh_assign": (stream, pick(stream, STREAM["k"]), "l2sq"),
+        "stream_merge_round": (merged, pick(merged, merge_round_m(
+            merged.shape[0])), "l2sq"),
+        "cluster_dryrun_site_round": (dry, pick(dry, 200), "l2sq"),
+    }
+
+
+def pdist_small_m(dev, shapes, reps=50):
+    """The small-m shapes' timing rows (kernel, plain, library, bound, the
+    instruction floor, both routes) with their time split."""
+    from repro_torch.kernels.pdist import kernel as pk
+    from repro_torch.kernels.pdist.kernel import (_launch_route,
+                                                  min_argmin_cuda, route)
+    from repro_torch.kernels.pdist.ops import min_argmin_blocked
+    rows = []
+    for name, (x, c, metric) in shapes.items():
+        (n, d), m = x.shape, c.shape[0]
+        timing_row(rows, "min_argmin", name, [n, m, d],
+                   pdist_work(n, m, d, metric),
+                   lambda: min_argmin_cuda(x, c, metric=metric),
+                   lambda: min_argmin_blocked(x, c, metric=metric),
+                   lambda: cdist_min(x, c, 1 << 20), reps)
+        r = rows[-1]
+        r["route"] = route(n, m, d, metric)
+        if hasattr(pk, "rows_per_thread"):      # the small-m route's scan
+            r["floor_ms"] = instr_floor_ms(n, m, d, metric)
+            r["instructions_per_pair"] = pair_instructions(d, metric, m)
+        for how in ("rowscan", "tiled"):
+            r[f"{how}_ms"] = time_ms(
+                lambda: _launch_route(how, x, c, metric=metric), reps)
+        r.update(pdist_split(dev, x, c, metric))
+        log(f"timing min_argmin {name}: floor {r.get('floor_ms')} ms "
+            f"({r.get('instructions_per_pair')} instructions a pair); "
+            f"rowscan {r['rowscan_ms']:.4f} ms, tiled {r['tiled_ms']:.4f} ms")
+    return rows
+
+
+def pdist_plan_ladder(dev, shapes):
+    """The small-m route's launch plan against others, the measurement
+    behind ``launch_plan``'s choices: at each small-m shape, rows per tile
+    from 64 to 512 (R = 2 rows a thread), one and two row buffers, and a
+    grid of as many CTAs as the SMs hold (persistent) or one CTA per tile,
+    each the device us of one call (a CUDA graph of 200) through the C
+    entry, its result bit for bit the routed call's."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pdist import kernel as pk
+    fn = _build.bind("pdist", "rt_min_argmin", 4, 0)
+    out = []
+    for name, (x, c, metric) in shapes.items():
+        (n, d), m = x.shape, c.shape[0]
+        dp = pk.padded_width(d)
+        want = pk.min_argmin_cuda(x, c, metric=metric)
+        chosen = pk.launch_plan(n, m, d)
+        for rows in range(32 * pk.rows_per_thread(dp), 513, 64):
+            for nbuf in (1, 2):
+                smem = pk._rowscan_smem(rows, m, d, dp, nbuf)
+                if smem > pk.SMEM_MAX or rows // pk.rows_per_thread(dp) > 256:
+                    continue
+                tiles = -(-n // rows)
+                res = _blocks_per_sm("pdist_rows", d, rows, smem)
+                if res < 1:
+                    continue
+                for grid in sorted({min(tiles, pk.SMS * res), tiles}):
+                    plan = pk.LaunchPlan("rowscan", rows, grid, smem, m, nbuf)
+                    args = pk._rowscan_args(n, m, d, metric, x.dtype, plan)
+                    buf = torch.empty((2, n), dtype=torch.float32,
+                                      device=x.device)
+                    call = lambda: fn(x.data_ptr(), c.data_ptr(),  # noqa
+                                      buf.data_ptr(), args,
+                                      _build.stream_ptr(x))
+                    _build.check(call(), "pdist_plan_ladder")
+                    sync(dev)
+                    dist, idx = pk.split_outputs(buf, n)
+                    same = bool(torch.equal(dist, want[0])
+                                and torch.equal(idx, want[1]))
+                    us = _graph_device_us(call, reps=50 if n > 10**6
+                                          else 200, kernel="min_argmin")[0]
+                    rec = {"shape": name, "n": n, "m": m, "d": d,
+                           "rows": rows, "buffers": nbuf, "grid": grid,
+                           "persistent": grid < tiles, "us": us,
+                           "chosen": plan == chosen, "bitwise": same}
+                    out.append(rec)
+                    log("pdist_plan", json.dumps(rec))
+                    if not same:
+                        raise AssertionError(f"plan {plan} changed the "
+                                             f"result at {name}")
+    return out
+
+
 def lloyd_inputs(dev, kdd_x, kdd_res, kdd_model, gauss_x, gs):
     """The Lloyd step's two timed calls, as (x, w, c): the kdd fit's
     gathered summary records with their weights against its model's centers
@@ -5455,13 +5783,17 @@ def lloyd_split(dev, x, w, c, metric="l2sq"):
 
 def _blocks_per_sm(lib, *args):
     """Resident CTAs per SM of a new kernel (the occupancy calculator's
-    answer): pdist's tiled route at width d (l2sq, f32), or the WKV chunk
-    sweep at (K, c, dtype code)."""
+    answer): pdist's tiled route at width d (l2sq, f32), its small-m route
+    at (d, rows, smem bytes) (l2sq, f32), or the WKV chunk sweep at (K, c,
+    dtype code)."""
     import ctypes
     from repro_torch.kernels import _build
     if lib == "pdist":
         fn = _build.load("pdist").rt_min_argmin_tiled_blocks_per_sm
         fn.argtypes, call = [ctypes.c_int] * 3, (args[0], 0, 0)
+    elif lib == "pdist_rows":
+        fn = _build.load("pdist").rt_min_argmin_rows_blocks_per_sm
+        fn.argtypes, call = [ctypes.c_int] * 5, (args[0], 0, 0, *args[1:])
     else:
         fn = _build.load("wkv").rt_wkv_blocks_per_sm
         fn.argtypes, call = [ctypes.c_int] * 3, args
@@ -5469,10 +5801,17 @@ def _blocks_per_sm(lib, *args):
     return fn(*call)
 
 
+LADDER_M = (26, 48, 64, 96, 112, 128, 144, 160, 192, 224, 256, 320, 384,
+            512, 1024, 2048, 5001)
+
+
 def route_ladder(dev, kdd_x, gauss_x, ks, gs):
     """Both min_argmin routes over a ladder of m, the measurement behind
     kernel.py's route: at the kdd site's rows (n = 244,922, d = 34), the
-    gauss site's (n = 50,250, d = 5), and normal rows at d = 16 and 64."""
+    gauss site's (n = 50,250, d = 5), and normal rows at d = 16 and 64;
+    per rung the CUDA-event ms of 30 back-to-back calls (what a caller
+    waits, the host's share included) and the device us of one call (a
+    CUDA graph of 200)."""
     from repro_torch.kernels.pdist.kernel import _launch_route
     g = torch.Generator(device="cpu").manual_seed(4)
     wide = torch.randn((ks["n_site"], 64), generator=g).to(dev)
@@ -5480,17 +5819,21 @@ def route_ladder(dev, kdd_x, gauss_x, ks, gs):
              ("normal16", wide[:, :16].contiguous()), ("normal64", wide))
     out = []
     for label, site in sites:
-        for m in (26, 48, 64, 96, 128, 200, 256, 512, 1024, 1536, 2048,
-                  5001):
+        for m in LADDER_M:
             c = site[torch.randperm(site.shape[0], generator=g)[:m].to(dev)]
             rec = {"site": label, "n": site.shape[0], "m": m,
                    "d": site.shape[1]}
             for how in ("rowscan", "tiled"):
-                rec[f"{how}_ms"] = time_ms(
-                    lambda: _launch_route(how, site, c), 30)
+                call = lambda: _launch_route(how, site, c)     # noqa: E731
+                rec[f"{how}_ms"] = time_ms(call, 30)
+                rec[f"{how}_device_us"] = _graph_device_us(
+                    call, reps=20 if m > 1024 else 200,
+                    kernel="min_argmin")[0]
             out.append(rec)
             log(f"route_ladder {label} d={rec['d']} m={m}: rowscan "
-                f"{rec['rowscan_ms']:.4f} ms, tiled {rec['tiled_ms']:.4f} ms")
+                f"{rec['rowscan_ms']:.4f} ms ({rec['rowscan_device_us']:.2f}"
+                f" us device), tiled {rec['tiled_ms']:.4f} ms "
+                f"({rec['tiled_device_us']:.2f} us device)")
     return out
 
 
@@ -5653,7 +5996,8 @@ def make_data(dev):
 
 
 MEASURES = ("serve", "lloyd_split", "lloyd_ladder", "stream", "train", "lm",
-            "lm_mutations", "robust", "mesh")
+            "lm_mutations", "robust", "mesh", "pdist_split", "pdist_plans",
+            "route_ladder")
 
 
 def counted_runs(kernels, per_run):
@@ -5695,6 +6039,12 @@ def run_measure(dev: torch.device, card: str, phases) -> dict:
         counted = counted_runs(_kernel_objects(), per_run)
         return {"card": card, "lm": lm_phase(dev, counted),
                 "launches_per_run": per_run}
+    pdist_measures = {"pdist_split", "pdist_plans", "route_ladder"}
+    if pdist_measures & set(phases):
+        if not set(phases) <= pdist_measures:
+            raise ValueError(f"--measure {sorted(pdist_measures)} run "
+                             f"without the others")
+        return {"card": card, **pdist_measure(dev, phases)}
     _build.build_all()
     if "mesh" in phases:
         if len(phases) > 1:
@@ -5755,6 +6105,39 @@ def run_measure(dev: torch.device, card: str, phases) -> dict:
     if "stream" in phases:
         out["stream"] = stream_measure(dev)
         log("stream", json.dumps(out["stream"]))
+    return out
+
+
+def pdist_measure(dev, phases) -> dict:
+    """``pdist_split``: the small-m route's edge checks (on a tree whose
+    wrapper has ``launch_plan``), then its timing rows and time split at the
+    small-call shapes; ``pdist_plans``: its plan ladder there;
+    ``route_ladder``: both routes over m.  Only the pdist and score kernels
+    are built, at their first call."""
+    from repro_torch.kernels.pdist import kernel as pk
+    _, _, kdd_x, _, _, gauss_x, ks, gs = make_data(dev)
+    out = {}
+    if "pdist_split" in phases:
+        if hasattr(pk, "launch_plan"):
+            g = torch.Generator(device="cpu").manual_seed(0)
+            rnd = lambda *s: torch.randn(*s, generator=g).to(dev)  # noqa
+            fail = []
+            t0 = time.perf_counter()
+            recs = small_m_checks(dev, rnd, fail)
+            log(f"small_m_checks_s {time.perf_counter() - t0:.2f}: "
+                f"{len(recs)} checks, {len(fail)} failed")
+            for r in fail:
+                log("FAILED CHECK", json.dumps(r))
+            if fail:
+                raise AssertionError(f"{len(fail)} small-m checks failed")
+            out["checks"] = len(recs)
+        out["pdist_split"] = pdist_small_m(
+            dev, small_m_shapes(dev, kdd_x, gauss_x, ks, gs))
+    if "pdist_plans" in phases:
+        out["pdist_plans"] = pdist_plan_ladder(
+            dev, small_m_shapes(dev, kdd_x, gauss_x, ks, gs))
+    if "route_ladder" in phases:
+        out["route_ladder"] = route_ladder(dev, kdd_x, gauss_x, ks, gs)
     return out
 
 

@@ -3,9 +3,22 @@
 Counterpart of ``repro.kernels.pdist.kernel.min_argmin_pallas``.  On a
 CUDA tensor it launches the kernel on the current stream (or raises); on a
 CPU tensor it runs the plain torch version, since there is no kernel to
-launch.  ``min_argmin_cuda.launches`` counts kernel launches.
+launch.  ``min_argmin_cuda.launches`` counts wrapper calls on CUDA.
+
+Most calls on the main path are small (Alg. 1's rounds, the stream's
+merges: a few to a few tens of device us), so a call does the least host
+work that still checks what the kernel takes, as ``score``'s and
+``lloyd_step``'s do: the operands checked once each, the launch shape
+from :func:`launch_plan` and its C arguments from :func:`_rowscan_args`,
+both cached per call shape, one output buffer whose rows are ``dist`` and
+``idx`` (an int32 view), fresh on every call (a caller may keep the
+previous results), and the stream as a raw handle (``_build.stream_ptr``).
 """
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -19,15 +32,30 @@ ROUTES = ("rowscan", "tiled")
 PADDED_WIDTHS = (8, 16, 24, 32, 40, 48, 64, 96, 128, 160, 256)
 # The least m of the tiled route, as (least d, least m) bands, for d up to
 # TILED_MAX_D (its shared-memory tiles hold d padded to a multiple of 4).
-# On an H100 (chip_smoke.py's route ladder, PERF.md) the routes cross
-# between m = 48 and 64 at d = 34 and between 200 and 256 at d = 16
-# (n = 244,922), and between 512 and 1,536 at d = 5 (n = 50,000; where
-# in that span depends on the host's cost of a small call): below that, the
-# tiled route's fixed cost (a second launch for the center norms) outweighs
-# its cheaper pairs, and the fewer the coordinates, the less a pair saves.
-# Each band takes the threshold of its smallest measured d.
-TILED_MIN_M = ((34, 64), (16, 256), (1, 1536))
+# On an H100 (chip_smoke.py's route ladder, device us per call from a CUDA
+# graph, PERF.md) the small-m route, which scans with two rows a thread and
+# every center staged once, beat the tiled route up to m = 160 and lost from
+# 192 at d = 34 and at d = 64 (n = 244,922), up to 224 and from 256 at
+# d = 16, and up to 384 and from 512 at d = 5 (n = 50,000): below, the
+# tiled route's fixed cost (a second launch for the center norms, whole
+# 64-center tiles) outweighs its cheaper pairs.  Each band takes its
+# smallest measured d's crossing, by linear interpolation between those two
+# rungs (m = 169, 233 and 399), rounded up to a multiple of 8.
+TILED_MIN_M = ((34, 176), (16, 240), (1, 400))
 TILED_MAX_D = 64
+# pdist.cu's tiled route: rows per CTA and centers per tile
+TL_BM, TL_BN = 128, 64
+
+SMS = 132                     # streaming multiprocessors of an H100
+SMEM_MAX = 232_448            # dynamic shared memory a CTA may opt in to
+SMEM_PER_SM = 233_472         # shared memory an SM splits among its CTAs
+MAX_THREADS_PER_SM = 2_048
+MAX_CTAS_PER_SM = 32
+ROW_BUFS_MAX = 98_304         # the small-m route's row buffers, bytes
+# At most this many centers, a tile's scan is too short to hide the next
+# tile's copy: two row buffers, else one (more CTAs an SM).
+FEW_CENTERS = 8
+BALANCE = 1.04                # rows per tile: busiest SM within 4% of best
 
 
 def padded_width(d: int) -> int:
@@ -57,25 +85,142 @@ def route(n: int, m: int, d: int, metric: str = "l2sq"):
 
 def check_operands(x: torch.Tensor, c: torch.Tensor, metric: str,
                    what: str) -> None:
-    """Raise unless (x, c) is a pair the CUDA kernels take as they are."""
+    """Raise unless (x, c) is a pair the CUDA kernels take as they are (each
+    attribute read once: this runs on every call)."""
     if metric not in METRIC_CODES:
         raise ValueError(f"{what}: metric {metric!r} has no CUDA kernel; "
                          f"expected one of {tuple(METRIC_CODES)}")
-    if x.dim() != 2 or c.dim() != 2 or x.shape[1] != c.shape[1]:
+    xs, cs = x.shape, c.shape
+    if len(xs) != 2 or len(cs) != 2 or xs[1] != cs[1]:
         raise ValueError(f"{what}: expected x (n, d) and c (m, d), got "
-                         f"{tuple(x.shape)} and {tuple(c.shape)}")
-    if x.device.type != "cuda" or c.device != x.device:
+                         f"{tuple(xs)} and {tuple(cs)}")
+    dev = x.device
+    if dev.type != "cuda" or c.device != dev:
         raise ValueError(f"{what}: x and c must lie on one CUDA device, got "
-                         f"{x.device} and {c.device}")
-    if x.dtype not in DTYPE_CODES or c.dtype != x.dtype:
+                         f"{dev} and {c.device}")
+    dt = x.dtype
+    if dt not in DTYPE_CODES or c.dtype != dt:
         raise TypeError(f"{what}: x and c must share a dtype in "
-                        f"(float32, bfloat16), got {x.dtype} and {c.dtype}")
+                        f"(float32, bfloat16), got {dt} and {c.dtype}")
     if not (x.is_contiguous() and c.is_contiguous()):
         raise ValueError(f"{what}: x and c must be contiguous")
-    if c.shape[0] < 1:
+    if cs[0] < 1:
         raise ValueError(f"{what}: need at least one center")
-    if max(x.numel(), c.numel()) > _INT_MAX:
+    if max(xs[0] * xs[1], cs[0] * cs[1]) > _INT_MAX:
         raise ValueError(f"{what}: more than 2**31 - 1 elements")
+
+
+class LaunchPlan(NamedTuple):
+    route: str         # one of ROUTES
+    rows: int          # rows of x per tile (rowscan: R a thread)
+    grid: int          # CTAs (rowscan: each walks tiles blockIdx.x, + grid)
+    smem_bytes: int    # dynamic shared memory per CTA (rowscan)
+    centers: int       # centers staged at once (rowscan: m when all fit)
+    buffers: int       # row buffers a CTA cycles through (rowscan: 1, 2)
+
+
+def rows_per_thread(dp: int) -> int:
+    """pdist.cu: RowsPerThread, the small-m route's rows a thread at padded
+    width DP (each center word it reads feeds that many rows' FMAs)."""
+    return 2 if dp <= 64 else 1
+
+
+# The small-m kernel's registers a thread at each padded width on sm_90a:
+# nvcc -Xptxas -v's count, the most over the metrics and input types,
+# rounded up to the 8 a thread is allocated in.  chip_smoke.py holds the
+# residency they give to the occupancy calculator's.
+REGISTERS = {8: 64, 16: 80, 24: 104, 32: 128, 40: 128, 48: 168, 64: 200,
+             96: 128, 128: 184, 160: 240, 256: 256}
+
+
+def _resident(rows: int, smem: int, dp: int) -> int:
+    """CTAs of the small-m kernel an SM holds at once: by threads, by shared
+    memory (an SM's 228 KB, 1 KB of it reserved per CTA) and by registers
+    (REGISTERS)."""
+    threads = rows // rows_per_thread(dp)
+    return max(1, min(MAX_THREADS_PER_SM // threads, MAX_CTAS_PER_SM,
+                      SMEM_PER_SM // (smem + 1024),
+                      65_536 // (threads * REGISTERS[dp])))
+
+
+def _row_buf_bytes(rows: int, d: int, dp: int) -> int:
+    """pdist.cu: rs_buf_bytes, one tile of rows at pitch DP + 4 words where
+    they may come by row (d % 4 == 0), else at pitch d plus 16 bytes."""
+    return 4 * rows * (dp + 4) if d % 4 == 0 else 4 * rows * d + 16
+
+
+def _rowscan_smem(rows: int, mc: int, d: int, dp: int, nbuf: int) -> int:
+    """pdist.cu: rs_smem_bytes, two mbarriers, mc centers and their norms at
+    pitch DP + 4, nbuf row buffers."""
+    return (16 + 4 * mc * (dp + 4) + 4 * (-(-mc // 4) * 4)
+            + nbuf * _row_buf_bytes(rows, d, dp))
+
+
+@functools.lru_cache(maxsize=1024)
+def launch_plan(n: int, m: int, d: int, how=None) -> LaunchPlan:
+    """The kernels' launch shape for an (n, m, d) call on route ``how``
+    (None: :func:`route`'s choice; a named route is taken as it is, to
+    measure the routes against each other).
+
+    The small-m route (``pdist.cu``: min_argmin_rows_kernel): rows per tile
+    follow n, multiples of 32 R (R rows a thread, :func:`rows_per_thread`)
+    up to a cap of 256 (128 above d = 128; less where the row buffers would
+    pass ROW_BUFS_MAX): the cap once n gives every SM a tile, else the
+    largest whose busiest SM holds at most 4% more rows than the best
+    split's (tiles handed to SMs in turn); one row buffer, two for
+    FEW_CENTERS or fewer; every center and its norm staged once per CTA
+    where they fit beside the row buffers (all of them below the tiled
+    route's threshold), else in chunks; a persistent grid of as many CTAs
+    as the SMs hold at once, up to one per tile (chip_smoke.py's plan
+    ladder measures these choices against the others).  The tiled route
+    keeps its fixed shape (128-row CTAs, 64-center tiles; ``pdist.cu``
+    sizes its shared memory); the generic width (d > 256) its 256-row
+    CTAs."""
+    way = how or route(n, m, d)
+    dp = padded_width(d)
+    if way == "tiled":
+        return LaunchPlan("tiled", TL_BM, -(-n // TL_BM), 0, TL_BN, 0)
+    if dp == 0:
+        return LaunchPlan("rowscan", 256, -(-n // 256), 0, m, 0)
+    nt = 128 if dp > 128 else 256
+    nbuf = 2 if m <= FEW_CENTERS else 1
+    step = 32 * rows_per_thread(dp)
+    cap = min(nt, step * max(1, ROW_BUFS_MAX
+                             // (nbuf * _row_buf_bytes(step, d, dp))))
+    if n >= SMS * cap:
+        rows = cap
+    else:
+        costs = {r: -(-(-(-n // r)) // SMS) * r
+                 for r in range(cap, 0, -step)}
+        low = min(costs.values())
+        rows = next(r for r, cost in costs.items() if cost <= BALANCE * low)
+    left = SMEM_MAX - _rowscan_smem(rows, 0, d, dp, nbuf) - 12
+    mc = max(1, min(m, left // (4 * (dp + 5))))
+    smem = _rowscan_smem(rows, mc, d, dp, nbuf)
+    tiles = -(-n // rows)
+    grid = min(tiles, SMS * _resident(rows, smem, dp))
+    return LaunchPlan("rowscan", rows, grid, smem, mc, nbuf)
+
+
+@functools.lru_cache(maxsize=1024)
+def _rowscan_args(n: int, m: int, d: int, metric: str, dtype,
+                  plan: LaunchPlan):
+    """The small-m C entry's ten ints for one call (``pdist.cu``:
+    rt_min_argmin): n, m, d, the metric and dtype codes and ``plan``'s
+    rows, grid, shared memory, centers and buffers, as one ctypes array
+    made once per call shape, so a launch hands ctypes five arguments, not
+    fourteen."""
+    return (ctypes.c_int * 10)(n, m, d, METRIC_CODES[metric],
+                               DTYPE_CODES[dtype], plan.rows, plan.grid,
+                               plan.smem_bytes, plan.centers, plan.buffers)
+
+
+def split_outputs(buf: torch.Tensor, n: int):
+    """(dist, idx) views of a call's one float32 buffer, (2, n) or flat with
+    scratch past 2n words: its first n words, and the next n as int32."""
+    rows = buf if buf.dim() == 2 else buf[:2 * n].view(2, n)
+    dist, idx = rows.unbind(0)
+    return dist, idx.view(torch.int32)
 
 
 def _launch(kern, x: torch.Tensor, c: torch.Tensor, *, metric: str = "l2sq"):
@@ -87,36 +232,40 @@ def _launch(kern, x: torch.Tensor, c: torch.Tensor, *, metric: str = "l2sq"):
 
 def _launch_route(how, x: torch.Tensor, c: torch.Tensor, *,
                   metric: str = "l2sq"):
-    """The kernel of route ``how`` (``"rowscan"`` or ``"tiled"``; None for
-    :func:`route`'s choice), with no launch counted: :func:`min_argmin_cuda`
-    calls it with None, and a measurement of the routes against each other
-    names the route.  On a CPU tensor it is the plain version."""
+    """The kernel on route ``how``: None for :func:`route`'s choice,
+    ``"rowscan"`` or ``"tiled"`` (a measurement of the routes against each
+    other), with no launch counted: :func:`min_argmin_cuda` calls it with
+    None.  On a CPU tensor it is the plain version.
+
+    One float32 buffer per call, fresh on every call (a caller may keep the
+    previous results): ``dist``, ``idx`` (an int32 view) and, on the tiled
+    route, its m words of center norms."""
     if x.device.type == "cpu":
         from repro_torch.kernels.pdist.ops import min_argmin_blocked
         return min_argmin_blocked(x, c, metric=metric)
     check_operands(x, c, metric, "min_argmin_cuda")
     n, d = x.shape
     m = c.shape[0]
-    how = how or route(n, m, d, metric)
-    if how not in ROUTES or (how == "tiled" and d > TILED_MAX_D):
+    if how not in (None, *ROUTES) or (how == "tiled" and d > TILED_MAX_D):
         raise ValueError(f"min_argmin_cuda: route {how!r} does not take "
                          f"d = {d}; routes {ROUTES}, tiled for d <= "
                          f"{TILED_MAX_D}")
-    dist = torch.empty((n,), dtype=torch.float32, device=x.device)
-    idx = torch.empty((n,), dtype=torch.int32, device=x.device)
-    codes = (n, m, d, METRIC_CODES[metric], DTYPE_CODES[x.dtype],
-             _build.stream_ptr(x))
-    if how == "tiled":
-        c2 = torch.empty((m,), dtype=torch.float32, device=x.device)
+    plan = launch_plan(n, m, d, how)
+    if plan.route == "tiled":
+        buf = torch.empty((2 * n + m,), dtype=torch.float32, device=x.device)
+        ptr = buf.data_ptr()
         fn = _build.bind("pdist", "rt_min_argmin_tiled", 5, 5)
-        err = fn(x.data_ptr(), c.data_ptr(), c2.data_ptr(), dist.data_ptr(),
-                 idx.data_ptr(), *codes)
+        err = fn(x.data_ptr(), c.data_ptr(), ptr + 8 * n, ptr, ptr + 4 * n,
+                 n, m, d, METRIC_CODES[metric], DTYPE_CODES[x.dtype],
+                 _build.stream_ptr(x))
     else:
-        fn = _build.bind("pdist", "rt_min_argmin", 4, 5)
-        err = fn(x.data_ptr(), c.data_ptr(), dist.data_ptr(),
-                 idx.data_ptr(), *codes)
+        buf = torch.empty((2, n), dtype=torch.float32, device=x.device)
+        fn = _build.bind("pdist", "rt_min_argmin", 4, 0)
+        err = fn(x.data_ptr(), c.data_ptr(), buf.data_ptr(),
+                 _rowscan_args(n, m, d, metric, x.dtype, plan),
+                 _build.stream_ptr(x))
     _build.check(err, "min_argmin_cuda")
-    return dist, idx
+    return split_outputs(buf, n)
 
 
 def _flops(x, c, **_) -> float:

@@ -44,15 +44,15 @@ torch.set_num_threads(1)
     (244_922, 26, 34, "l2sq", "rowscan"),       # Alg. 1 round
     (4_898_431, 3, 34, "l2", "rowscan"),        # losses
     (256, 3, 34, "l2sq", "rowscan"),            # serving micro-batch
-    (10, 64, 34, "l1", "tiled"),
-    (10, 63, 34, "l2", "rowscan"),
+    (10, 176, 34, "l1", "tiled"),
+    (10, 175, 34, "l2", "rowscan"),
     (50_000, 5001, 5, "l2sq", "tiled"),         # gauss-0.1 reassignment
     (50_000, 200, 5, "l2sq", "rowscan"),        # gauss-0.1 Alg. 1 round
-    (10, 256, 16, "l2sq", "tiled"),
-    (10, 255, 33, "l2sq", "rowscan"),
-    (10, 64, 64, "l2sq", "tiled"),
-    (10, 1536, 1, "l2sq", "tiled"),
-    (10, 1535, 15, "l1", "rowscan"),
+    (10, 240, 16, "l2sq", "tiled"),
+    (10, 239, 33, "l2sq", "rowscan"),
+    (10, 176, 64, "l2sq", "tiled"),
+    (10, 400, 1, "l2sq", "tiled"),
+    (10, 399, 15, "l1", "rowscan"),
     (10, 5000, TILED_MAX_D, "l2sq", "tiled"),
     (10, 5000, TILED_MAX_D + 1, "l2sq", "rowscan"),
     (10, 5000, 130, "l1", "rowscan"),
