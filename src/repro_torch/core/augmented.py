@@ -13,6 +13,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.sampler import Sampler
 from repro_torch.core.summary import (Summary, _plan, nonzero_fixed,
                                       summary_outliers,
@@ -59,19 +60,22 @@ def augmented_summary_compact(
     center_ids = sel[~base.is_candidate]
     extra = max(int(cand_ids.numel()) - int(center_ids.numel()), 0)
     if extra:
-        free = torch.ones((n,), dtype=torch.bool, device=dev)
-        free[sel] = False
-        eligible = torch.nonzero(free).flatten()       # sorted setdiff
-        if eligible.numel() == 0:
-            eligible = torch.arange(n, device=dev)
-        pick = k2.randint(eligible.numel(), (extra,), device=dev)
-        center_ids = torch.cat([center_ids, eligible[pick]])
+        with obs.span("alg2.extra"):
+            free = torch.ones((n,), dtype=torch.bool, device=dev)
+            free[sel] = False
+            eligible = torch.nonzero(free).flatten()       # sorted setdiff
+            if eligible.numel() == 0:
+                eligible = torch.arange(n, device=dev)
+            pick = k2.randint(eligible.numel(), (extra,), device=dev,
+                              caller="alg2.extra")
+            center_ids = torch.cat([center_ids, eligible[pick]])
     # Line 3: reassign everything outside X_r to nearest center in S u S'
-    _, amin = min_argmin(x, x[center_ids], metric=metric, policy=policy)
-    pi = center_ids[amin.long()]
-    pi[cand_ids] = cand_ids
-    w = torch.zeros((n,), dtype=torch.float32, device=dev).index_add_(
-        0, pi, _ones(n, dev))
+    with obs.span("alg2.reassign"):
+        _, amin = min_argmin(x, x[center_ids], metric=metric, policy=policy)
+        pi = center_ids[amin.long()]
+        pi[cand_ids] = cand_ids
+        w = torch.zeros((n,), dtype=torch.float32, device=dev).index_add_(
+            0, pi, _ones(n, dev))
     uc = torch.unique(center_ids)
     all_ids = torch.cat([uc, cand_ids])
     is_cand = torch.cat([torch.zeros((uc.numel(),), dtype=torch.bool,
@@ -124,28 +128,32 @@ def augmented_summary_outliers(
 
     # Line 2: sample |X_r| - |S| extra centers from X \ (X_r u S).
     extra_cap = 8 * t + 1  # |X_r| <= 8t, so never need more than this
-    eligible = ~(cand_mask | center_mask)
-    if bool(eligible.any()):
-        logits = torch.where(eligible, 0.0, float("-inf"))
-    else:   # nothing eligible: sample anywhere
-        logits = torch.zeros((n,), dtype=torch.float32, device=dev)
-    extra_idx = k2.categorical(logits, (extra_cap,))
-    extra_valid = torch.arange(extra_cap, device=dev) < max(n_cand - n_centers, 0)
-    all_center_mask = center_mask | _mask_of(extra_idx, extra_valid, n)
+    with obs.span("alg2.extra"):
+        eligible = ~(cand_mask | center_mask)
+        if bool(eligible.any()):
+            logits = torch.where(eligible, 0.0, float("-inf"))
+        else:   # nothing eligible: sample anywhere
+            logits = torch.zeros((n,), dtype=torch.float32, device=dev)
+        extra_idx = k2.categorical(logits, (extra_cap,), caller="alg2.extra")
+        extra_valid = (torch.arange(extra_cap, device=dev)
+                       < max(n_cand - n_centers, 0))
+        all_center_mask = center_mask | _mask_of(extra_idx, extra_valid, n)
 
-    center_cap = rounds * m + extra_cap
-    c_idx = nonzero_fixed(all_center_mask, center_cap, n)
-    xp = torch.cat([x, torch.full((1, d), _FAR, dtype=x.dtype, device=dev)])
-    c_pts = xp[c_idx]  # invalid slots sit at _FAR -> never nearest
+    with obs.span("alg2.reassign"):
+        center_cap = rounds * m + extra_cap
+        c_idx = nonzero_fixed(all_center_mask, center_cap, n)
+        xp = torch.cat([x, torch.full((1, d), _FAR, dtype=x.dtype,
+                                      device=dev)])
+        c_pts = xp[c_idx]  # invalid slots sit at _FAR -> never nearest
 
-    # Line 3: reassign every x in X \ X_r to its nearest center in S u S'.
-    _, amin = min_argmin(x, c_pts, metric=metric, policy=policy)
-    pi = torch.where(cand_mask, torch.arange(n, device=dev),
-                     c_idx[amin.long()])
+        # Line 3: reassign every x in X \ X_r to its nearest center in S u S'.
+        _, amin = min_argmin(x, c_pts, metric=metric, policy=policy)
+        pi = torch.where(cand_mask, torch.arange(n, device=dev),
+                         c_idx[amin.long()])
 
-    # Line 4: weights under the new mapping.
-    w = torch.zeros((n,), dtype=torch.float32, device=dev).index_add_(
-        0, pi, _ones(n, dev))
+        # Line 4: weights under the new mapping.
+        w = torch.zeros((n,), dtype=torch.float32, device=dev).index_add_(
+            0, pi, _ones(n, dev))
 
     cap = center_cap + 8 * t + 1
     idx_q = nonzero_fixed(all_center_mask | cand_mask, cap, n)

@@ -25,7 +25,11 @@ in ``simulate_coordinator``.
 Both paths report their one round through ``obs.record_comm`` (valid
 records and padded bytes per site; ``path="host-sim"`` or
 ``"shard_map"``), and ``simulate_coordinator`` traces its site summaries
-and second level (``oneshot.site_summary``, ``oneshot.second_level``).
+and second level (``oneshot.site_summary``, ``oneshot.second_level``
+histograms).  Both open the fit's ``obs`` span tree (the ``obs`` package
+docstring): ``oneshot.fit`` (``rank`` on each rank of
+``distributed_cluster``), its site summaries, ``distributed_cluster``'s
+``oneshot.gather``, and the second level.
 """
 from __future__ import annotations
 
@@ -159,22 +163,25 @@ def distributed_cluster(
     def per_site(xp, sampler):
         t0 = time.perf_counter()
         site = dist.get_rank(group)
-        summ = summarize_site(_site_block(xp, dev), sampler.fold_in(site),
-                              policy=policy)
-        gids = torch.where(summ.valid, summ.indices + site * n_per, -1)
-        _sync(dev)
+        with obs.span("oneshot.site_summary", site=site):
+            summ = summarize_site(_site_block(xp, dev),
+                                  sampler.fold_in(site), policy=policy)
+            gids = torch.where(summ.valid, summ.indices + site * n_per, -1)
+            _sync(dev)
         t1 = time.perf_counter()
         # --- the one round of communication ---
-        pts, wts, val, gid = gather_sites(
-            (summ.points, summ.weights, summ.valid, gids), group)
-        _sync(dev)
+        with obs.span("oneshot.gather"):
+            pts, wts, val, gid = gather_sites(
+                (summ.points, summ.weights, summ.valid, gids), group)
+            _sync(dev)
         t2 = time.perf_counter()
         # --- replicated second level at the "coordinator" ---
-        sol, out_ids_sorted, _ = _second_level(
-            pts, wts, val, gid, sampler.fold_in(2**31 - 1), k=k, t=t,
-            iters=second_iters, metric=metric, policy=policy)
-        comm = val.sum().to(torch.float32)
-        _sync(dev)
+        with obs.span("oneshot.second_level"):
+            sol, out_ids_sorted, _ = _second_level(
+                pts, wts, val, gid, sampler.fold_in(2**31 - 1), k=k, t=t,
+                iters=second_iters, metric=metric, policy=policy)
+            comm = val.sum().to(torch.float32)
+            _sync(dev)
         t3 = time.perf_counter()
         return DistClusterResult(
             centers=sol.centers, outlier_ids=out_ids_sorted,
@@ -183,15 +190,17 @@ def distributed_cluster(
             phase_s={"site_summary": t1 - t0, "gather": t2 - t1,
                      "second_level": t3 - t2})
 
-    res = replicated_coordinator(per_site, group, n_sharded=1)(x_parts,
-                                                                sampler)
-    # comm accounting happens post-hoc on the host (the gather itself ran
-    # inside the collective): valid records per site from the id blocks,
-    # padded bytes from the per-site slice of the gathered payload
+    with obs.span("oneshot.fit", root=True, rank=dist.get_rank(group)):
+        res = replicated_coordinator(per_site, group, n_sharded=1)(x_parts,
+                                                                    sampler)
+    # comm accounting happens post-hoc (the gather itself ran inside the
+    # collective): valid records per site counted on the card from the id
+    # blocks (s ints back), padded bytes from the per-site slice of the
+    # gathered payload
     if obs.get_default_registry().enabled:
-        gids_h = res.summary_ids.cpu().numpy().reshape(s, -1)
-        cap = gids_h.shape[1]
-        per_rec = [int((gids_h[i] >= 0).sum()) for i in range(s)]
+        gids = res.summary_ids.view(s, -1)
+        cap = gids.shape[1]
+        per_rec = (gids >= 0).sum(dim=1).tolist()
         site_bytes = cap * (4 * d + 4 + 1 + 4)   # pts + w + valid + gid
         obs.record_comm(per_rec, [site_bytes] * s, path="shard_map")
     return res
@@ -235,52 +244,56 @@ def simulate_coordinator(
     t_i = local_budget(t, s, partition)
     offs = np.cumsum([0] + [p.shape[0] for p in parts])
 
-    all_pts, all_w, all_gid, all_cand, rounds = [], [], [], [], []
-    t0 = time.perf_counter()
-    for i, part in enumerate(parts):
-        x = torch.as_tensor(part, dtype=torch.float32, device=dev)
-        skey = sampler.fold_in(i)
-        with obs.trace("oneshot.site_summary", site=i):
-            if summarizer is not None:
-                ws = summarize(x, torch.ones((x.shape[0],), device=dev), skey,
-                               k=k, t=t_i, metric=metric, policy=summarizer,
-                               kernel_policy=policy)
-                all_pts.append(ws.points)
-                all_w.append(ws.weights)
-                all_gid.append(ws.indices + int(offs[i]))
-                all_cand.append(ws.is_candidate)
-                rounds.append(ws.n_rounds)
-                continue
-            if summary_alg == "augmented":
-                summ = augmented_summary_outliers(x, skey, k=k, t=t_i,
-                                                  metric=metric, policy=policy)
-            elif compact:
-                summ = summary_outliers_compact(x, skey, k=k, t=t_i,
-                                                metric=metric, policy=policy)
-            else:
-                summ = summary_outliers(x, skey, k=k, t=t_i, metric=metric,
-                                        policy=policy)
-            valid = summ.valid
-            all_pts.append(summ.points[valid])
-            all_w.append(summ.weights[valid])
-            all_gid.append(summ.indices[valid].long() + int(offs[i]))
-            all_cand.append(summ.is_candidate[valid])
-            rounds.append(int(summ.n_rounds))
-    _sync(dev)
-    t1 = time.perf_counter()
-    # each site "sends" exactly its live summary records to the coordinator
-    obs.record_comm(
-        [p.shape[0] for p in all_pts],
-        [sum(a.numel() * a.element_size() for a in arrs)
-         for arrs in zip(all_pts, all_w, all_gid, all_cand)],
-        path="host-sim")
-    with obs.trace("oneshot.second_level"):
-        res = coordinator_fit(all_pts, all_w, all_gid, all_cand, rounds,
-                              sampler, k=k, t=t, second_iters=second_iters,
-                              metric=metric, policy=policy)
-    t2 = time.perf_counter()
-    res["phase_s"] = {"site_summaries": t1 - t0, "second_level": t2 - t1}
-    return res
+    with obs.span("oneshot.fit", root=True):
+        all_pts, all_w, all_gid, all_cand, rounds = [], [], [], [], []
+        t0 = time.perf_counter()
+        for i, part in enumerate(parts):
+            x = torch.as_tensor(part, dtype=torch.float32, device=dev)
+            skey = sampler.fold_in(i)
+            with obs.trace("oneshot.site_summary", site=i):
+                if summarizer is not None:
+                    ws = summarize(x, torch.ones((x.shape[0],), device=dev),
+                                   skey, k=k, t=t_i, metric=metric,
+                                   policy=summarizer, kernel_policy=policy)
+                    all_pts.append(ws.points)
+                    all_w.append(ws.weights)
+                    all_gid.append(ws.indices + int(offs[i]))
+                    all_cand.append(ws.is_candidate)
+                    rounds.append(ws.n_rounds)
+                    continue
+                if summary_alg == "augmented":
+                    summ = augmented_summary_outliers(
+                        x, skey, k=k, t=t_i, metric=metric, policy=policy)
+                elif compact:
+                    summ = summary_outliers_compact(
+                        x, skey, k=k, t=t_i, metric=metric, policy=policy)
+                else:
+                    summ = summary_outliers(x, skey, k=k, t=t_i,
+                                            metric=metric, policy=policy)
+                valid = summ.valid
+                all_pts.append(summ.points[valid])
+                all_w.append(summ.weights[valid])
+                all_gid.append(summ.indices[valid].long() + int(offs[i]))
+                all_cand.append(summ.is_candidate[valid])
+                rounds.append(int(summ.n_rounds))
+        _sync(dev)
+        t1 = time.perf_counter()
+        # each site "sends" exactly its live summary records to the
+        # coordinator
+        obs.record_comm(
+            [p.shape[0] for p in all_pts],
+            [sum(a.numel() * a.element_size() for a in arrs)
+             for arrs in zip(all_pts, all_w, all_gid, all_cand)],
+            path="host-sim")
+        with obs.trace("oneshot.second_level"):
+            res = coordinator_fit(all_pts, all_w, all_gid, all_cand,
+                                  rounds, sampler, k=k, t=t,
+                                  second_iters=second_iters, metric=metric,
+                                  policy=policy)
+        t2 = time.perf_counter()
+        res["phase_s"] = {"site_summaries": t1 - t0,
+                          "second_level": t2 - t1}
+        return res
 
 
 def coordinator_fit(points, weights, gids, candidates, rounds,

@@ -12,6 +12,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.kmeans_pp import kmeanspp_seed
 from repro_torch.core.sampler import Sampler
 from repro_torch.kernels.dispatch import KernelPolicy, resolve_policy
@@ -74,27 +75,29 @@ def kmeans_minus_minus(
 def _lloyd_outlier_loop(points, w, valid, centers0, *, k, t, iters, metric,
                         policy) -> OutlierClustering:
     """The alternation after seeding, shared by the cold and warm paths."""
-    centers = centers0
-    for _ in range(iters):
-        # One registry-dispatched fused Lloyd step (assign + accumulate);
-        # the outlier mask then corrects the accumulators with a one-hot
-        # matmul over the inlier weights — no second distance pass.
-        _, _, amin, dist = lloyd_step(points, w, centers, metric=metric,
-                                      policy=policy)
-        dist = torch.where(valid, dist, float("-inf"))  # padding: never out
+    with obs.span("kmeans_mm.lloyd", iters=iters):
+        centers = centers0
+        for _ in range(iters):
+            # One registry-dispatched fused Lloyd step (assign + accumulate);
+            # the outlier mask then corrects the accumulators with a one-hot
+            # matmul over the inlier weights — no second distance pass.
+            _, _, amin, dist = lloyd_step(points, w, centers, metric=metric,
+                                          policy=policy)
+            # padding: never out
+            dist = torch.where(valid, dist, float("-inf"))
+            out = _mark_outliers(dist, w, t)
+            sums, cnts = accumulate_by_assignment(points, w * ~out, amin, k)
+            centers = torch.where(cnts[:, None] > 0,
+                                  sums / torch.clamp(cnts, min=1e-9)[:, None],
+                                  centers)
+        dist, amin = min_argmin(points, centers, metric=metric, policy=policy)
+        dist = torch.where(valid, dist, float("-inf"))
         out = _mark_outliers(dist, w, t)
-        sums, cnts = accumulate_by_assignment(points, w * ~out, amin, k)
-        centers = torch.where(cnts[:, None] > 0,
-                              sums / torch.clamp(cnts, min=1e-9)[:, None],
-                              centers)
-    dist, amin = min_argmin(points, centers, metric=metric, policy=policy)
-    dist = torch.where(valid, dist, float("-inf"))
-    out = _mark_outliers(dist, w, t)
-    cost = torch.sum(torch.where(valid & ~out, dist, 0.0) * w)
-    return OutlierClustering(
-        centers=centers,
-        assignment=amin.to(torch.int32),
-        outlier=out & valid,
-        cost=cost,
-        distances=torch.where(valid, dist, float("inf")),
-    )
+        cost = torch.sum(torch.where(valid & ~out, dist, 0.0) * w)
+        return OutlierClustering(
+            centers=centers,
+            assignment=amin.to(torch.int32),
+            outlier=out & valid,
+            cost=cost,
+            distances=torch.where(valid, dist, float("inf")),
+        )

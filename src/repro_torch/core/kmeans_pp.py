@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.core.sampler import Sampler
 from repro_torch.core.summary import Summary
 from repro_torch.kernels.dispatch import KernelPolicy, resolve_policy
@@ -43,17 +44,18 @@ def kmeanspp_seed(x: torch.Tensor, w: torch.Tensor, sampler: Sampler, *,
     mind = torch.full((n,), float("inf"), dtype=torch.float32, device=x.device)
     key = sampler
     picks = []
-    for _ in range(budget):
-        key, sk = key.split(2)
-        score = w * mind
-        # first pick: plain weighted sampling (mind starts at +inf -> use w)
-        score = torch.where(torch.isinf(mind), w, score)
-        score = torch.where(score.sum() > 0, score, w)
-        logits = torch.log(torch.clamp(score, min=1e-30))
-        logits = torch.where(w > 0, logits, float("-inf"))
-        idx = sk.categorical(logits)
-        mind = torch.minimum(mind, _dist_to(x, x[idx], metric))
-        picks.append(idx)
+    with obs.span("kmeans_pp.seed", picks=budget):
+        for _ in range(budget):
+            key, sk = key.split(2)
+            score = w * mind
+            # first pick: plain weighted sampling (mind starts at +inf -> w)
+            score = torch.where(torch.isinf(mind), w, score)
+            score = torch.where(score.sum() > 0, score, w)
+            logits = torch.log(torch.clamp(score, min=1e-30))
+            logits = torch.where(w > 0, logits, float("-inf"))
+            idx = sk.categorical(logits, caller="kmeans_pp.pick")
+            mind = torch.minimum(mind, _dist_to(x, x[idx], metric))
+            picks.append(idx)
     ids = (torch.stack(picks) if picks
            else torch.empty((0,), dtype=torch.int64, device=x.device))
     return ids.to(torch.int32), mind

@@ -18,6 +18,16 @@ therefore replays the reference's draws exactly; production uses
 :class:`TorchSampler`.  A sampler is a value, like a key: drawing from the
 same sampler twice gives the same numbers.
 
+Every ``categorical`` and ``randint`` draw, whatever the sampler, goes
+through :class:`Sampler`'s own methods, which call the subclass's
+``_categorical`` / ``_randint`` (:class:`TorchSampler`'s ``choice`` with
+replacement is such a ``randint``).  While
+a ``torch.profiler`` records (``obs.detail_on()``) the draw is an ``obs``
+span ``sampler.draw`` (``caller``: the call site's name; ``rows``: the
+logits' length, or ``high`` for ``randint``, the rows the draw chooses
+among) and adds to the ``sampler.draws{caller}`` and
+``sampler.rows{caller}`` counters; otherwise it costs that one check.
+
 A sampler packs into two uint32 words (``key_data``), the shape of the
 reference's ``jax.random.key_data`` leaf, so the stream tree and service
 checkpoint it as a fixed-shape leaf; the restore paths take a
@@ -28,10 +38,23 @@ from __future__ import annotations
 
 import abc
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch import obs
+
+
+def _drawn(caller: Optional[str], rows: int, draw, *args):
+    """``draw(*args)`` inside a ``sampler.draw`` span, counted."""
+    caller = caller or "other"
+    with obs.span("sampler.draw", caller=caller, rows=rows):
+        out = draw(*args)
+    reg = obs.get_default_registry()
+    reg.counter("sampler.draws", caller=caller).inc()
+    reg.counter("sampler.rows", caller=caller).inc(rows)
+    return out
 
 
 class Sampler(abc.ABC):
@@ -51,18 +74,35 @@ class Sampler(abc.ABC):
         """A child sampler derived from the integer ``i``
         (``jax.random.fold_in``)."""
 
-    @abc.abstractmethod
-    def categorical(self, logits: torch.Tensor,
-                    shape: Sequence[int] = ()) -> torch.Tensor:
+    def categorical(self, logits: torch.Tensor, shape: Sequence[int] = (),
+                    *, caller: Optional[str] = None) -> torch.Tensor:
         """int64 ids of ``shape`` drawn with replacement with probability
         ``softmax(logits)``; ``-inf`` entries are never drawn
-        (``jax.random.categorical``).  On ``logits``' device."""
+        (``jax.random.categorical``).  On ``logits``' device.  ``caller``
+        names the draw in its span and counters (module docstring)."""
+        if not obs.detail_on():
+            return self._categorical(logits, shape)
+        return _drawn(caller, int(logits.shape[-1]), self._categorical,
+                      logits, shape)
+
+    def randint(self, high: int, shape: Sequence[int], device=None, *,
+                caller: Optional[str] = None) -> torch.Tensor:
+        """int64 ids of ``shape``, uniform in ``[0, high)``
+        (``jax.random.randint(key, shape, 0, high)``); ``caller`` as for
+        :meth:`categorical`."""
+        if not obs.detail_on():
+            return self._randint(high, shape, device)
+        return _drawn(caller, int(high), self._randint, high, shape, device)
 
     @abc.abstractmethod
-    def randint(self, high: int, shape: Sequence[int],
-                device=None) -> torch.Tensor:
-        """int64 ids of ``shape``, uniform in ``[0, high)``
-        (``jax.random.randint(key, shape, 0, high)``)."""
+    def _categorical(self, logits: torch.Tensor,
+                     shape: Sequence[int]) -> torch.Tensor:
+        """:meth:`categorical`'s draw."""
+
+    @abc.abstractmethod
+    def _randint(self, high: int, shape: Sequence[int],
+                 device=None) -> torch.Tensor:
+        """:meth:`randint`'s draw."""
 
     @abc.abstractmethod
     def uniform(self, shape: Sequence[int], minval: float, maxval: float,
@@ -129,7 +169,7 @@ class TorchSampler(Sampler):
         g.manual_seed((self._words[0] << 32) | self._words[1])
         return g
 
-    def categorical(self, logits, shape=()):
+    def _categorical(self, logits, shape):
         lg = logits.detach().to("cpu", torch.float64)
         probs = torch.softmax(lg, dim=0)
         count = math.prod(shape) if len(shape) else 1
@@ -137,7 +177,7 @@ class TorchSampler(Sampler):
                                 generator=self._generator())
         return ids.reshape(tuple(shape)).to(logits.device)
 
-    def randint(self, high, shape, device=None):
+    def _randint(self, high, shape, device=None):
         ids = torch.randint(0, int(high), tuple(shape),
                             generator=self._generator())
         return ids if device is None else ids.to(device)

@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.sampler import Sampler
 from repro_torch.kernels.dispatch import KernelPolicy, resolve_policy
 from repro_torch.kernels.pdist.ops import min_argmin
@@ -117,22 +118,28 @@ def summary_outliers(
     i = 0
     cnt = n
     while i < rounds and cnt > stop:
-        key, sk = key.split(2)
-        # Line 6: sample m points (with replacement) uniformly from X_i.
-        logits = torch.where(active, 0.0, float("-inf"))
-        idx = sk.categorical(logits, (m,))
-        # Line 7: nearest-sample distance for every remaining point.
-        mind, amin = min_argmin(x, x[idx], metric=metric, policy=policy)
-        masked = torch.where(active, mind, float("inf"))
-        # Line 8: smallest rho with |B(S_i, X_i, rho)| >= beta*|X_i|.
-        rho = torch.kthvalue(masked, _kth_rank(beta, cnt)).values
-        captured = active & (mind <= rho)
-        # Line 9: sigma(x) <- nearest sample, as a global index.
-        sigma = torch.where(captured, idx[amin.long()].to(torch.int32), sigma)
-        center_mask[idx] = True
-        active = active & ~captured
-        i += 1
-        cnt = int(active.sum())
+        with obs.span("alg1.round", round=i):
+            key, sk = key.split(2)
+            # Line 6: sample m points (with replacement) uniformly from X_i.
+            logits = torch.where(active, 0.0, float("-inf"))
+            idx = sk.categorical(logits, (m,), caller="alg1.sample")
+            # Line 7: nearest-sample distance for every remaining point.
+            with obs.span("alg1.distance"):
+                mind, amin = min_argmin(x, x[idx], metric=metric,
+                                        policy=policy)
+            with obs.span("alg1.radius"):
+                masked = torch.where(active, mind, float("inf"))
+                # Line 8: smallest rho with |B(S_i, X_i, rho)| >= beta*|X_i|.
+                rho = torch.kthvalue(masked, _kth_rank(beta, cnt)).values
+                captured = active & (mind <= rho)
+                # Line 9: sigma(x) <- nearest sample, as a global index.
+                sigma = torch.where(captured,
+                                    idx[amin.long()].to(torch.int32), sigma)
+                center_mask[idx] = True
+                active = active & ~captured
+            i += 1
+            with obs.span("alg1.readback"):
+                cnt = int(active.sum())
 
     # Line 13: survivors map to themselves.
     sigma = torch.where(active, arange, sigma)
@@ -184,18 +191,24 @@ def summary_outliers_compact(
     rounds = 0
     key = sampler
     while remaining.numel() > stop:
-        key, sk = key.split(2)
-        size = remaining.numel()
-        idx = remaining[sk.randint(size, (m,), device=dev)]
-        mind, amin = min_argmin(x[remaining], x[idx], metric=metric,
-                                policy=policy)
-        kth = int(np.clip(np.ceil(beta * size), 1, size))
-        rho = torch.kthvalue(mind, kth).values
-        captured = mind <= rho
-        sigma[remaining[captured]] = idx[amin[captured].long()]
-        center_ids.append(idx)
-        remaining = remaining[~captured]
-        rounds += 1
+        with obs.span("alg1.round", round=rounds):
+            key, sk = key.split(2)
+            size = remaining.numel()
+            idx = remaining[sk.randint(size, (m,), device=dev,
+                                       caller="alg1.sample")]
+            with obs.span("alg1.distance"):
+                mind, amin = min_argmin(x[remaining], x[idx], metric=metric,
+                                        policy=policy)
+            with obs.span("alg1.radius"):
+                kth = int(np.clip(np.ceil(beta * size), 1, size))
+                rho = torch.kthvalue(mind, kth).values
+                captured = mind <= rho
+            # the boolean indexing waits for the card
+            with obs.span("alg1.readback"):
+                sigma[remaining[captured]] = idx[amin[captured].long()]
+                center_ids.append(idx)
+                remaining = remaining[~captured]
+            rounds += 1
 
     sigma[remaining] = remaining
     w = torch.zeros((n,), dtype=torch.float32, device=dev).index_add_(

@@ -34,6 +34,21 @@ histogram-only span: it observes the same ``phase.*`` histogram *and*
 records a flight span when called under an active sampled trace, so
 every existing ``obs.trace(...)`` call site participates in structured
 tracing with no per-site changes.
+
+**One clock with torch's profiler.**  Spans are stamped by :func:`now`:
+``time.perf_counter()`` moved once, at import, onto Unix time, the origin
+``torch.profiler`` stamps its events on (kineto maps its own clock there
+too).  It is monotonic, so a duration never reads negative, and a
+flight-recorder export lies on a profiler export's time line
+(``export_chrome(base_ns=...)``), as do the spans of the other processes
+of one machine.
+
+**Detail spans.**  :func:`span` marks work below the phase level (an
+Algorithm 1 round, a draw): it feeds no histogram and, unless a
+``torch.profiler`` records, costs one check and returns a shared no-op.
+While a profiler records it joins the caller's sampled trace where one is
+open; ``span(..., root=True)`` (a fit) starts a trace of its own where
+none is, so the recorder holds the whole tree.
 """
 from __future__ import annotations
 
@@ -49,9 +64,16 @@ from collections import deque
 from pathlib import Path
 from typing import Any, Dict, Iterator, List, NamedTuple, Optional
 
+# ``_torch_profiler._is_profiler_enabled``: the flag torch sets while a
+# profiler records, read without a call into C
+from torch.autograd import profiler as _torch_profiler
+
 from repro_torch.obs import registry as _registry
 
 __all__ = [
+    "now",
+    "span",
+    "detail_on",
     "SpanContext",
     "FlightRecorder",
     "TraceSpec",
@@ -69,6 +91,15 @@ __all__ = [
 ]
 
 _DEFAULT_RING = 65536
+
+
+_UNIX_OFFSET = time.time() - time.perf_counter()
+
+
+def now() -> float:
+    """Seconds on a monotonic clock whose origin is Unix time's, the one
+    ``torch.profiler`` stamps its events on (module docstring)."""
+    return time.perf_counter() + _UNIX_OFFSET
 
 
 class SpanContext(NamedTuple):
@@ -115,9 +146,9 @@ class TraceSpec:
 class FlightRecorder:
     """Bounded in-memory ring of structured spans and instant events.
 
-    Thread-safe.  All timestamps are ``time.perf_counter()`` floats;
-    export maps them to microseconds relative to the recorder's epoch
-    (Chrome) or to wall-clock seconds (JSONL).
+    Thread-safe.  All timestamps are :func:`now` floats (Unix seconds,
+    the profiler's clock); export writes them as microseconds after
+    ``base_ns`` (Chrome) or as seconds (JSONL).
     """
 
     def __init__(self, enabled: Optional[bool] = None, *,
@@ -144,8 +175,6 @@ class FlightRecorder:
         self._traces = 0
         self._recorded = 0
         self._dropped = 0
-        self._t0 = time.perf_counter()
-        self._wall0 = time.time()
 
     # -- identity ----------------------------------------------------------
 
@@ -222,15 +251,15 @@ class FlightRecorder:
             return False
         if not (force or (ctx is not None and ctx.sampled)):
             return False
-        now = time.perf_counter()
+        t = now()
         rec = {
             "kind": "event",
             "name": name,
             "trace_id": ctx.trace_id if ctx is not None else 0,
             "span_id": self.alloc_id(),
             "parent_id": ctx.span_id if ctx is not None else None,
-            "t0": now,
-            "t1": now,
+            "t0": t,
+            "t1": t,
             "status": "ok",
             "attrs": dict(attrs) if attrs else {},
         }
@@ -317,12 +346,16 @@ class FlightRecorder:
 
         return [r for r in records if keep(r)]
 
-    def export_chrome(self) -> Dict[str, Any]:
+    def export_chrome(self, base_ns: int = 0) -> Dict[str, Any]:
         """Chrome trace-event JSON (``ph: "X"`` complete events).
 
         Each trace gets its own ``tid`` row so stitched requests read
-        as one lane in Perfetto / ``chrome://tracing``.
+        as one lane in Perfetto / ``chrome://tracing``.  ``ts`` is in
+        microseconds after ``base_ns`` on the profiler's clock: pass a
+        ``torch.profiler`` export's ``baseTimeNanoseconds`` and the events
+        fall where that export's do (``obs`` package docstring).
         """
+        base = base_ns * 1e-9
         records = self.records()
         kept = self._kept(records)
         events: List[Dict[str, Any]] = []
@@ -336,7 +369,7 @@ class FlightRecorder:
             args.update(r["attrs"])
             ev: Dict[str, Any] = {
                 "name": r["name"],
-                "ts": round(max(r["t0"] - self._t0, 0.0) * 1e6, 3),
+                "ts": round(max(r["t0"] - base, 0.0) * 1e6, 3),
                 "pid": 0,
                 "tid": r["trace_id"],
                 "args": args,
@@ -354,6 +387,7 @@ class FlightRecorder:
         return {
             "traceEvents": events,
             "displayTimeUnit": "ms",
+            "baseTimeNanoseconds": int(base_ns),
             "otherData": {
                 "dropped_spans": dropped,
                 "orphaned_spans": len(records) - len(kept),
@@ -361,21 +395,22 @@ class FlightRecorder:
         }
 
     def export_jsonl(self) -> str:
-        """One JSON object per record, wall-clock timestamps."""
+        """One JSON object per record, Unix-time timestamps."""
         lines = []
         for r in self._kept(self.records()):
             out = dict(r)
             t0 = out.pop("t0")
             t1 = out.pop("t1")
-            out["ts"] = round(self._wall0 + (t0 - self._t0), 6)
+            out["ts"] = round(t0, 6)
             out["dur_s"] = round(max(t1 - t0, 0.0), 9)
             lines.append(json.dumps(out, sort_keys=True))
         return "\n".join(lines) + ("\n" if lines else "")
 
-    def dump(self, path: str | Path, fmt: str = "chrome") -> Path:
+    def dump(self, path: str | Path, fmt: str = "chrome",
+             base_ns: int = 0) -> Path:
         path = Path(path)
         if fmt == "chrome":
-            path.write_text(json.dumps(self.export_chrome()))
+            path.write_text(json.dumps(self.export_chrome(base_ns)))
         elif fmt == "jsonl":
             path.write_text(self.export_jsonl())
         else:
@@ -418,7 +453,7 @@ def root_trace(name: str, **attrs: Any) -> Iterator[Optional[SpanContext]]:
         yield None
         return
     token = _current.set(ctx)
-    t0 = time.perf_counter()
+    t0 = now()
     status = "ok"
     try:
         yield ctx
@@ -429,7 +464,7 @@ def root_trace(name: str, **attrs: Any) -> Iterator[Optional[SpanContext]]:
         raise
     finally:
         _current.reset(token)
-        rec.record_span(name, ctx, t0=t0, t1=time.perf_counter(),
+        rec.record_span(name, ctx, t0=t0, t1=now(),
                         span_id=ctx.span_id, parent_id=None,
                         status=status, force=status == "error",
                         attrs=attrs)
@@ -458,11 +493,11 @@ class _DualSpan:
         self._ctx = SpanContext(self._outer.trace_id, self._rec.alloc_id(),
                                 True)
         self._token = _current.set(self._ctx)
-        self._t0 = time.perf_counter()
+        self._t0 = now()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
-        t1 = time.perf_counter()
+        t1 = now()
         _current.reset(self._token)
         if self._reg.enabled:
             self._reg.histogram(f"phase.{self._name}",
@@ -492,6 +527,82 @@ def trace(phase: str, **labels: Any):
     if ctx is not None and ctx.sampled and reg.recorder.enabled:
         return _DualSpan(reg, reg.recorder, ctx, phase, labels)
     return reg.trace(phase, **labels)
+
+
+class _Off:
+    """What :func:`span` returns when it is not live: ``with`` binds None."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+def detail_on() -> bool:
+    """True where :func:`span` is live: while a ``torch.profiler``
+    records.  Instrumented code asks it before work that only a live span
+    needs (a counter's labels)."""
+    return _torch_profiler._is_profiler_enabled
+
+
+class _Span:
+    """A live :func:`span`: a flight-recorder span where a sampled trace
+    is open (or ``root`` starts one); installs its context so nested
+    spans parent under it."""
+
+    __slots__ = ("_name", "_attrs", "_root", "_rec", "_outer", "_ctx",
+                 "_token", "_t0")
+
+    def __init__(self, name: str, attrs: Dict[str, Any], root: bool) -> None:
+        self._name = name
+        self._attrs = attrs
+        self._root = root
+
+    def __enter__(self) -> "_Span":
+        rec = self._rec = get_default_recorder()
+        outer = self._outer = _current.get()
+        ctx = None
+        if outer is not None:
+            if outer.sampled and rec.enabled:
+                ctx = SpanContext(outer.trace_id, rec.alloc_id(), True)
+        elif self._root:
+            ctx = rec.new_trace()
+        self._ctx = ctx
+        self._token = _current.set(ctx) if ctx is not None else None
+        self._t0 = now()
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        t1 = now()
+        if self._token is not None:
+            _current.reset(self._token)
+        ctx = self._ctx
+        if ctx is not None and ctx.sampled:
+            attrs, status = self._attrs, "ok"
+            if exc_type is not None:
+                attrs, status = dict(attrs), "error"
+                attrs["error"] = exc_type.__name__
+            self._rec.record_span(
+                self._name, ctx, t0=self._t0, t1=t1, span_id=ctx.span_id,
+                parent_id=None if self._outer is None else self._outer.span_id,
+                status=status, attrs=attrs)
+        return False
+
+
+def span(name: str, *, root: bool = False, **attrs: Any):
+    """A detail span (module docstring): no histogram; ``attrs`` land on
+    the flight-recorder record.  Where :func:`detail_on` is False it costs
+    that check and returns a no-op (``with`` binds None).  ``root=True``
+    starts a trace of its own where no trace is open."""
+    if not _torch_profiler._is_profiler_enabled:
+        return _OFF
+    return _Span(name, attrs, root)
 
 
 # -- default-recorder front door --------------------------------------------
@@ -529,13 +640,14 @@ def tracing_enabled() -> bool:
     return get_default_recorder().enabled
 
 
-def export_chrome() -> Dict[str, Any]:
-    return get_default_recorder().export_chrome()
+def export_chrome(base_ns: int = 0) -> Dict[str, Any]:
+    return get_default_recorder().export_chrome(base_ns)
 
 
 def export_jsonl() -> str:
     return get_default_recorder().export_jsonl()
 
 
-def dump_trace(path: str | Path, fmt: str = "chrome") -> Path:
-    return get_default_recorder().dump(path, fmt)
+def dump_trace(path: str | Path, fmt: str = "chrome",
+               base_ns: int = 0) -> Path:
+    return get_default_recorder().dump(path, fmt, base_ns)

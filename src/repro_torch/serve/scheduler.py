@@ -110,7 +110,7 @@ class ScoreTicket:
     def __init__(self, request_id: int, tenant: str):
         self.request_id = request_id
         self.tenant = tenant
-        self.t_submit = time.perf_counter()
+        self.t_submit = obs.now()   # the flight recorder's clock
         self.t_admit: Optional[float] = None    # stamped at enqueue
         self.t_dequeue: Optional[float] = None  # stamped when a tick pops it
         self.t_done: Optional[float] = None
@@ -120,12 +120,12 @@ class ScoreTicket:
         self._trace = None                      # SpanContext or None
 
     def _resolve(self, value) -> None:
-        self.t_done = time.perf_counter()
+        self.t_done = obs.now()
         self._value = value
         self._event.set()
 
     def _fail(self, error: BaseException) -> None:
-        self.t_done = time.perf_counter()
+        self.t_done = obs.now()
         self._error = error
         self._event.set()
 
@@ -308,7 +308,7 @@ class ServingScheduler:
                     self._record_shed(ticket, reason, depth)
                     n_shed += 1
                     continue
-                ticket.t_admit = time.perf_counter()
+                ticket.t_admit = obs.now()
                 self._queue.append((ticket, row))
                 self._pending[tenant] = self._pending.get(tenant, 0) + 1
                 n_admitted += 1
@@ -365,7 +365,7 @@ class ServingScheduler:
                         self._cond.wait(remaining)
                 take = min(self.max_batch, len(self._queue))
                 batch = [self._queue.popleft() for _ in range(take)]
-                t_pop = time.perf_counter()
+                t_pop = obs.now()
                 for ticket, _ in batch:
                     ticket.t_dequeue = t_pop
                     self._pending[ticket.tenant] -= 1

@@ -389,7 +389,7 @@ class ServingFrontEnd:
         attrs: dict = {"topology": self._topology}
         if error is not None:
             attrs["error"] = type(error).__name__
-        rec.record_span("refresh", tctx, t0=t_start, t1=time.perf_counter(),
+        rec.record_span("refresh", tctx, t0=t_start, t1=obs.now(),
                         span_id=tctx.span_id, parent_id=None, status=status,
                         force=status == "error", attrs=attrs)
 
@@ -408,7 +408,7 @@ class ServingFrontEnd:
         # worker, install + root span back on the polling thread)
         rec = obs.get_default_recorder()
         tctx = rec.new_trace()
-        self._refresh_trace = (rec, tctx, time.perf_counter())
+        self._refresh_trace = (rec, tctx, obs.now())
         with obs.use_context(tctx):
             with obs.trace("refresh.gather", topology=self._topology):
                 fit = self._fit_closure(self._next_version)

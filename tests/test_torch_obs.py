@@ -555,6 +555,39 @@ def test_oneshot_comm_and_phases_match_reference():
                             if k.startswith("phase.oneshot"))
 
 
+def test_shard_map_comm_counters_match_reference(tmp_path):
+    """``distributed_cluster`` (one gloo rank, the reference's one-device
+    mesh): the same ``comm.records``, ``comm.bytes`` and ``comm.rounds``
+    as the reference's shard_map path, the valid records counted on the
+    card."""
+    import jax.numpy as jnp
+    import torch.distributed as dist
+
+    import repro.core.collective as JC
+    from repro.core.distributed import distributed_cluster as j_dist
+    from repro_torch.core.collective import init_sites
+    from repro_torch.core.distributed import distributed_cluster
+    x = grid(2400, seed=23)
+    key = jax.random.key(24)
+    kw = dict(k=4, t=20, second_iters=10)
+    with jobs.using_registry(jobs.MetricsRegistry()) as jreg:
+        j_dist(jnp.asarray(x)[None], key, JC.sites_mesh(1), **kw)
+    init_sites(0, ["cpu"], init_method=f"file://{tmp_path}/store")
+    try:
+        with obs.using_registry(obs.MetricsRegistry()) as treg:
+            res = distributed_cluster(x[None], JaxReplaySampler(key), **kw,
+                                      device="cpu")
+    finally:
+        dist.destroy_process_group()
+    want = {k: v for k, v in jreg.snapshot()["counters"].items()
+            if k.startswith("comm.")}
+    got = {k: v for k, v in treg.snapshot()["counters"].items()
+           if k.startswith("comm.")}
+    assert len(want) == 3 and got == want
+    assert got["comm.records{path=shard_map,site=0}"] == \
+        int((res.summary_ids >= 0).sum())
+
+
 def test_observe_count_is_count_observes():
     """``Histogram.observe(v, n)`` (one per drained block) leaves the state
     ``n`` single observes leave, its sum added in the same order."""

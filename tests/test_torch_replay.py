@@ -2,7 +2,8 @@
 
 ``JaxReplaySampler`` maps ``split`` / ``fold_in`` / ``categorical`` /
 ``randint`` / ``uniform`` / ``choice`` / ``key_data`` onto the reference's
-``jax.random`` calls, so a port function
+``jax.random`` calls (``categorical`` and ``randint`` through the seam's
+own methods, as every sampler's draws go), so a port function
 given it draws exactly the numbers the reference draws from the same key.
 The sibling ``test_torch_*`` files import it from here
 (``from test_torch_replay import JaxReplaySampler``).
@@ -39,13 +40,13 @@ class JaxReplaySampler(Sampler):
     def fold_in(self, i: int):
         return JaxReplaySampler(jax.random.fold_in(self.key, i))
 
-    def categorical(self, logits, shape=()):
+    def _categorical(self, logits, shape):
         lg = jnp.asarray(logits.detach().cpu().float().numpy())
         ids = jax.random.categorical(self.key, lg,
                                      shape=tuple(shape) if shape else None)
         return torch.as_tensor(np.asarray(ids, np.int64)).to(logits.device)
 
-    def randint(self, high, shape, device=None):
+    def _randint(self, high, shape, device=None):
         ids = jax.random.randint(self.key, tuple(shape), 0, int(high))
         out = torch.as_tensor(np.asarray(ids, np.int64))
         return out if device is None else out.to(device)
