@@ -26,7 +26,14 @@ a ``torch.profiler`` records (``obs.detail_on()``) the draw is an ``obs``
 span ``sampler.draw`` (``caller``: the call site's name; ``rows``: the
 logits' length, or ``high`` for ``randint``, the rows the draw chooses
 among) and adds to the ``sampler.draws{caller}`` and
-``sampler.rows{caller}`` counters; otherwise it costs that one check.
+``sampler.rows{caller}`` counters, and a ``categorical`` whose ids were
+made on a CUDA device (:attr:`Sampler.draws_on_device`) to
+``sampler.card_draws{caller}``; otherwise it costs that one check.
+
+:class:`TorchSampler` draws ``categorical`` ids on the logits' device by
+inverse CDF, with uniforms from its own CPU generator (its docstring says
+how far the ids depend on the device); ``randint``, ``uniform`` and
+``choice`` are drawn on the CPU and moved.
 
 A sampler packs into two uint32 words (``key_data``), the shape of the
 reference's ``jax.random.key_data`` leaf, so the stream tree and service
@@ -46,19 +53,27 @@ import torch
 from repro_torch import obs
 
 
-def _drawn(caller: Optional[str], rows: int, draw, *args):
-    """``draw(*args)`` inside a ``sampler.draw`` span, counted."""
+def _drawn(caller: Optional[str], rows: int, draw, *args,
+           card: bool = False):
+    """``draw(*args)`` inside a ``sampler.draw`` span, counted; ``card``:
+    the draw makes its ids on a CUDA device."""
     caller = caller or "other"
     with obs.span("sampler.draw", caller=caller, rows=rows):
         out = draw(*args)
     reg = obs.get_default_registry()
     reg.counter("sampler.draws", caller=caller).inc()
     reg.counter("sampler.rows", caller=caller).inc(rows)
+    if card:
+        reg.counter("sampler.card_draws", caller=caller).inc()
     return out
 
 
 class Sampler(abc.ABC):
     """Key-like source of random draws (see module docstring)."""
+
+    #: ``_categorical`` makes its ids on the logits' device (else it draws
+    #: elsewhere and moves them there)
+    draws_on_device = False
 
     @abc.abstractmethod
     def key_data(self) -> np.ndarray:
@@ -83,7 +98,8 @@ class Sampler(abc.ABC):
         if not obs.detail_on():
             return self._categorical(logits, shape)
         return _drawn(caller, int(logits.shape[-1]), self._categorical,
-                      logits, shape)
+                      logits, shape,
+                      card=self.draws_on_device and logits.is_cuda)
 
     def randint(self, high: int, shape: Sequence[int], device=None, *,
                 caller: Optional[str] = None) -> torch.Tensor:
@@ -125,12 +141,31 @@ class TorchSampler(Sampler):
     words from the parent's words and (tag, index) through numpy's
     ``SeedSequence``, so the state stays two words however long the chain
     of splits: ``TorchSampler.from_key_data(s.key_data())`` draws what
-    ``s`` draws.  A draw's generator is seeded from the words.  Draws are
-    made by a CPU generator and the ids moved to the logits' device, so a
-    run's draws do not depend on whether it ran on the card.
+    ``s`` draws.  A draw's generator is a CPU generator seeded from the
+    words.
+
+    ``categorical`` draws by inverse CDF on the logits' device:
+    ``p = exp(logits - max)`` and its prefix sums in float64 there, ``count``
+    uniforms in [0, 1) of 53 bits from the CPU generator (copied from
+    pinned memory, without waiting, on a card), and each id found by
+    ``searchsorted`` of its uniform times the total.  An entry of zero
+    probability (``-inf``) has an interval of no width, so it is never
+    drawn; nothing waits for the device.  The uniforms are the same on every
+    device, so:
+
+    * for logits of 0 and ``-inf`` (Algorithm 1's rounds, Algorithm 2's
+      extra centers) the prefix sums are whole numbers below 2**53, exact,
+      and the CPU and a card draw identical ids;
+    * for weighted logits (the k-means++ picks, k-means||, the stream's
+      weighted rounds) they draw the same ids except where a uniform falls
+      within float64 rounding of an interval's end.
+
+    ``randint``, ``uniform`` and ``choice`` are drawn by the CPU generator
+    and moved to ``device``, so they do not depend on it at all.
     """
 
     _SPLIT, _FOLD = 1, 2
+    draws_on_device = True
 
     def __init__(self, seed: int):
         words = np.random.SeedSequence(int(seed)).generate_state(2, np.uint32)
@@ -170,12 +205,31 @@ class TorchSampler(Sampler):
         return g
 
     def _categorical(self, logits, shape):
-        lg = logits.detach().to("cpu", torch.float64)
-        probs = torch.softmax(lg, dim=0)
+        lg = logits.detach().to(torch.float64)
+        p = torch.exp(lg - lg.max())
+        n = p.numel()
+        # Each entry takes the prefix sum of the last entry of nonzero
+        # probability up to it: positive entries scatter their sums to their
+        # rank and every entry reads its rank's, so a zero entry's interval
+        # has no width whatever order the scan adds in (a card's is not
+        # sequential).
+        pos = p > 0
+        rank = torch.cumsum(pos, 0)
+        at = torch.zeros((n + 2,), dtype=torch.float64, device=lg.device)
+        at.scatter_(0, torch.where(pos, rank, n + 1), torch.cumsum(p, 0))
+        cdf = at[rank]
+        # a uniform in [0, 1) an id, as 53 random bits from the CPU generator
+        # (times 2**-53), copied over without waiting
         count = math.prod(shape) if len(shape) else 1
-        ids = torch.multinomial(probs, count, replacement=True,
-                                generator=self._generator())
-        return ids.reshape(tuple(shape)).to(logits.device)
+        bits = torch.empty((count,), dtype=torch.int64, pin_memory=lg.is_cuda)
+        bits = bits.random_(0, 2 ** 53, generator=self._generator())
+        bits = bits.to(lg.device, non_blocking=True)
+        ids = torch.searchsorted(cdf, bits * (cdf[-1] * 2.0 ** -53),
+                                 right=True)
+        # the last entry of nonzero probability: where every entry is -inf
+        # (the caller's error) the total is 0 and the search finds no entry
+        last = torch.searchsorted(cdf, cdf[-1:])
+        return torch.minimum(ids, last).reshape(tuple(shape))
 
     def _randint(self, high, shape, device=None):
         ids = torch.randint(0, int(high), tuple(shape),

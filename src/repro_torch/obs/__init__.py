@@ -38,7 +38,7 @@ the rest are detail spans (:func:`span`), recorded while a
     |  |                      in the gather for the slowest site
     |  |- alg1.round          round=; how many rounds a site took, and
     |  |  |                   which round was slow
-    |  |  |- sampler.draw     caller="alg1.sample", rows=: the host draw
+    |  |  |- sampler.draw     caller="alg1.sample", rows=: the draw
     |  |  |- alg1.distance    min_argmin's launch (its kernel, in the
     |  |  |                   profiler's rows, falls inside)
     |  |  |- alg1.radius      kthvalue and the capture: the radius
@@ -57,7 +57,10 @@ the rest are detail spans (:func:`span`), recorded while a
 
 Every ``sampler.draw`` also adds to the ``sampler.draws{caller}`` and
 ``sampler.rows{caller}`` counters (rows: the logits' length, what the draw
-reads; draws: how often each caller drew).  No span synchronises with the
+reads; draws: how often each caller drew), and a categorical draw made on
+a CUDA device to ``sampler.card_draws{caller}``: does every caller's draw
+stay on the card, or does one (a sampler that draws on the host, logits
+left on the CPU) copy its ids over?  No span synchronises with the
 device: a span around asynchronous work times the host's side, and the
 device's side is read from the kernels that fall inside it on the
 profiler's device rows.  Spans are stamped with :func:`now`, a monotonic

@@ -7,7 +7,9 @@ the CPU.
   annotation of its own.
 * Counts: ``alg1.round`` spans a site equal the site's ``site_rounds``;
   ``sampler.rows`` equals the lengths of the logits drawn, reckoned from
-  the rounds and the second level's records.
+  the rounds and the second level's records; ``sampler.card_draws``
+  equals ``sampler.draws`` for every caller on a CUDA card (marked
+  ``chip``: it skips without one) and is absent on the CPU.
 * The clock: a flight-recorder span and a profiler annotation around it
   start and end within 1 ms of each other, and
   ``export_chrome(base_ns=...)`` puts the span where the profiler's export
@@ -16,7 +18,9 @@ the CPU.
   and under the profiler (inside a sampled root, whose trace id the fit's
   spans then carry, and alone).
 
-No assertion on wall time.
+No assertion on wall time.  The module imports no JAX (the helpers of the
+JAX-comparing test files are imported where they are used), so the card's
+case runs where JAX is not installed.
 """
 from collections import Counter
 
@@ -28,8 +32,6 @@ from repro_torch import obs
 from repro_torch.core.distributed import (distributed_cluster,
                                           simulate_coordinator)
 from repro_torch.core.sampler import TorchSampler
-from test_torch_collective import spawn_ranks
-from test_torch_stream import grid
 
 torch.set_num_threads(1)
 
@@ -39,6 +41,7 @@ ANSWER = ("centers", "outlier_ids", "summary_ids", "summary_weights",
 
 
 def _parts():
+    from test_torch_stream import grid
     return np.array_split(grid(3600, seed=31), 3)
 
 
@@ -140,6 +143,32 @@ def test_draw_rows_count_the_logits_drawn():
     assert dict(by_caller) == want
 
 
+def _by_caller(counters, name) -> dict:
+    prefix = f"{name}{{caller="
+    return {k[len(prefix):-1]: v for k, v in counters.items()
+            if k.startswith(prefix)}
+
+
+@pytest.mark.parametrize(
+    "where", ["cpu", pytest.param("cuda", marks=pytest.mark.chip)])
+def test_card_draws_count_the_draws_made_on_a_card(where):
+    if where == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    dev = torch.device(where)
+    rows = np.random.default_rng(35).normal(size=(3600, 4))
+    parts = np.array_split(rows.astype(np.float32), 3)
+    with obs.using_registry(obs.MetricsRegistry()) as reg:
+        _profiled(lambda: simulate_coordinator(
+            parts, TorchSampler(5), k=K, t=T, second_iters=ITERS,
+            device=dev))
+        counters = _sampler_counters(reg)
+    draws = _by_caller(counters, "sampler.draws")
+    assert set(draws) == {"alg1.sample", "alg2.extra", "kmeans_pp.pick"}
+    assert draws["alg2.extra"] == 3 and draws["kmeans_pp.pick"] == K
+    card = _by_caller(counters, "sampler.card_draws")
+    assert card == (draws if dev.type == "cuda" else {})
+
+
 def test_span_and_a_profiler_annotation_share_one_clock():
     def pair(name):
         with torch.profiler.record_function(name):
@@ -191,6 +220,7 @@ def test_answers_bit_identical_off_sampled_and_profiled():
 
 
 def _rank_fit(rank, n, workdir):
+    from test_torch_stream import grid
     x = grid(2400, seed=33).reshape(2, 1200, 4)
     with obs.using_registry(obs.MetricsRegistry()) as reg:
         res, anns = _profiled(lambda: distributed_cluster(
@@ -203,6 +233,7 @@ def _rank_fit(rank, n, workdir):
 
 @pytest.fixture(scope="module")
 def two_ranks(tmp_path_factory):
+    from test_torch_collective import spawn_ranks
     return spawn_ranks(_rank_fit, 2, tmp_path_factory.mktemp("spans2"))
 
 
