@@ -1,5 +1,6 @@
-"""The readings that the limits of ``bench/reference/limits.json`` are set
-from, at a cell's own size, on the card.
+"""The readings that a configuration's limits,
+``bench/reference/limits/<config>.json``, are set from, at a cell's own
+size, on the card.
 
     python3 bench/calibrate.py --workload kdd.fit --seeds 11-22 \
         --control-seeds 31-33 --out cal_kdd.json
@@ -14,7 +15,8 @@ with TF32 matrix products, the nearest precision below the configuration's
 float32.  ``--reference-seeds`` adds the reference at float32 (TF32 off),
 a second witness that sound answers read low.  Prints, per number, the
 lower reading (largest over the program's seeds) and the upper (smallest
-over the control's), and writes every reading to ``--out``.
+over the control's), writes every reading to ``--out``, and names the
+configuration's limits file.
 """
 import argparse
 import json
@@ -124,6 +126,8 @@ def main(argv=None) -> int:
                       "program_median": float(np.median(lo)) if lo else None}
         print(f"number {k} lower {summary[k]['lower']} upper "
               f"{summary[k]['upper']}", flush=True)
+    print(f"limits set from these readings go to "
+          f"{judge.LIMITS / (cell.config_name + '.json')}", flush=True)
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     with open(args.out, "w") as f:
         json.dump({"workload": args.workload, "device":

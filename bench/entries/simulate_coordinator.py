@@ -3,11 +3,25 @@
 paper's Tables 3 and 4 run Algorithm 3."""
 import torch
 
+from bench.harness.program import algorithm3_kwargs
 
-def make_fit(cfg: dict, x: torch.Tensor, device, kwargs: dict):
+LIBRARIES = ("pdist", "lloyd")      # kernels/csrc sources a fit launches
+
+
+def warm(device, d: int) -> None:
+    """One call of each op a fit launches, on a row of width ``d``."""
+    from repro_torch.kernels.lloyd.ops import lloyd_step
+    from repro_torch.kernels.pdist.ops import min_argmin
+    x = torch.zeros((1, d), device=device)
+    min_argmin(x, x)
+    lloyd_step(x, torch.ones((1,), device=device), x)
+
+
+def make_fit(cfg: dict, x: torch.Tensor, device):
     from repro_torch.core import simulate_coordinator
     from repro_torch.core.sampler import TorchSampler
     parts = torch.tensor_split(x, int(cfg["sites"]))
+    kwargs = algorithm3_kwargs(cfg, device)
 
     def fit(seed: int) -> dict:
         res = simulate_coordinator(parts, TorchSampler(seed), **kwargs)

@@ -80,31 +80,28 @@ def sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
-FIT_LIBRARIES = ("pdist", "lloyd")    # kernels/csrc sources a fit launches
-
-
-def build_kernels(device, d: int) -> float:
-    """Seconds to make the kernels of a fit ready.  Where the checkout's
-    build directory lacks a library of ``FIT_LIBRARIES``, one process per
-    library builds it, all at once (the program builds a library at its
-    first use, one at a time); then one call of each op the fit launches
-    (min_argmin, lloyd_step) on a row at the cell's width loads them."""
+def build_kernels(device, cfg: dict) -> float:
+    """Seconds to make the kernels of the configuration's fit ready.  Where
+    the checkout's build directory lacks a library of its entry's
+    ``LIBRARIES``, one process per library builds it, all at once (the
+    program builds a library at its first use, one at a time); then the
+    entry's ``warm(device, d)`` calls each op the fit launches on a row at
+    the cell's width, which loads them.  An entry that declares neither
+    leaves both to its warm fits."""
     from repro_torch.kernels import _build
-    from repro_torch.kernels.lloyd.ops import lloyd_step
-    from repro_torch.kernels.pdist.ops import min_argmin
+    entry = program.entry(cfg)
     t0 = time.perf_counter()
     if device.type == "cuda":
         code = ("import sys; sys.path.insert(0, %r); from repro_torch."
                 "kernels import _build; _build.load(sys.argv[1])"
                 % str(ROOT / "src"))
         builds = [subprocess.Popen([sys.executable, "-c", code, name])
-                  for name in FIT_LIBRARIES
+                  for name in getattr(entry, "LIBRARIES", ())
                   if not _build.library_path(name).exists()]
         if any(p.wait() for p in builds):
             raise RuntimeError("building the fit's CUDA kernels failed")
-    x = torch.zeros((1, d), device=device)
-    min_argmin(x, x)
-    lloyd_step(x, torch.ones((1,), device=device), x)
+    if hasattr(entry, "warm"):
+        entry.warm(device, int(cfg["d"]))
     sync(device)
     return time.perf_counter() - t0
 
@@ -231,7 +228,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     ``ForbiddenModules`` where a rank held a module of the JAX side once
     the window had closed."""
     device = torch.device(device)
-    build_s = build_kernels(device, int(cell.config["d"]))
+    build_s = build_kernels(device, cell.config)
     args = (cell, seed, seconds, trace)
     with ranks(cell.chips, device.type, run_rank, args, rank_setup) as dev:
         rep = run_rank(0, cell.chips, dev, *args, t_start=t_start)

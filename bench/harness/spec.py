@@ -7,6 +7,7 @@ metrics a run reports are the manifest's, selected by the cell's name.
 """
 from __future__ import annotations
 
+import functools
 import importlib.util
 import json
 from dataclasses import dataclass
@@ -59,9 +60,12 @@ def load_cell(workload: str, manifest: Path = MANIFEST) -> Cell:
     )
 
 
+@functools.cache
 def load_named(kind: str, name: str):
-    """The module ``bench/<kind>/<name>.py`` (a metric reader, an entry):
-    found by its name, so a later cell adds a file and edits none."""
+    """The module ``bench/<kind>/<name>.py`` (a metric reader, an entry, a
+    dataset, an op's work count): found by its name, so a later cell adds a
+    file and edits none.  Loaded once a process; raises KeyError naming the
+    missing file."""
     path = BENCH / kind / f"{name}.py"
     if not path.exists():
         raise KeyError(f"no {kind} {name!r}: {path} is missing")

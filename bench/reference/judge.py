@@ -53,7 +53,7 @@ from bench.reference.algorithm import (greedy_outliers, nearest,
                                        site_budget, site_sizes)
 
 NUMBERS = ("broken", "moved_share", "cost_gap", "center_step")
-LIMITS = Path(__file__).resolve().parent / "limits.json"
+LIMITS = Path(__file__).resolve().parent / "limits"
 # Least share of a site's candidates that its centers make up.  Drawn with
 # replacement, |X_r| - |S| draws from the ~n_i - 2|X_r| free rows repeat a
 # share of about |X_r| / (2 (n_i - 2 |X_r|)): 5% at kddFull's sites (22.4k
@@ -63,8 +63,14 @@ F64 = torch.float64
 
 
 def load_limits(config_name: str) -> dict:
-    with open(LIMITS) as f:
-        return json.load(f)[config_name]
+    """The limits of configuration ``config_name``:
+    ``bench/reference/limits/<config_name>.json``, a file of its own, so a
+    new configuration adds its limits and edits none."""
+    path = LIMITS / f"{config_name}.json"
+    if not path.exists():
+        raise KeyError(f"no limits for {config_name!r}: {path} is missing")
+    with open(path) as f:
+        return json.load(f)
 
 
 def _valid(a) -> np.ndarray:

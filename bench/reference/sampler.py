@@ -1,5 +1,13 @@
-"""A frozen copy of the port's production sampler (``TorchSampler``), so the
-reference draws as the port does without importing it.
+"""The reference's sampler: the draw the port made on the CPU before its
+categorical draws moved to the card, written apart from the port.
+
+It is not the port's sampler.  The port's ``TorchSampler`` now
+draws a categorical on the logits' device by inverse CDF; this one still
+copies the logits to the host and draws there with ``softmax`` and
+``multinomial``.  It stays because the judge replays no draw: the
+reference's own fits (``algorithm.fit``: the control, and the plain
+reference of ``calibrate.py``) need draws with the right distribution from
+the seed, not the port's draws.
 
 A sampler is a value identified by two uint32 words; ``split`` and
 ``fold_in`` derive a child's words through numpy's ``SeedSequence``; a

@@ -5,8 +5,12 @@ import numpy as np
 import pytest
 import torch
 
-from bench.harness.data import kdd_like, make_data, susy_like
+from bench.harness.data import make_data
+from bench.harness.spec import load_named
 from repro_torch.data import synthetic
+
+kdd_like = load_named("datasets", "kdd_like").make
+susy_like = load_named("datasets", "susy_like").make
 
 
 def _gen(seed):
@@ -17,7 +21,7 @@ def _gen(seed):
 
 @pytest.mark.parametrize("n", [20_000, 4_898_431 // 64])
 def test_kdd_like_counts_and_moments_match_numpy(n):
-    x, truth = kdd_like(n, 34, 0.0093, _gen(3), "cpu")
+    x, truth = kdd_like(n, 34, _gen(3), "cpu", t_frac=0.0093)
     xn, out_np = synthetic.kdd_like(n=n, d=34, seed=3)
     assert x.shape == xn.shape and x.dtype == torch.float32
     assert int(truth.sum()) == out_np.size
@@ -33,7 +37,7 @@ def test_kdd_like_full_size_plants_the_configs_t():
 
 
 def test_susy_like_plants_t_far_rows():
-    x, truth = susy_like(50_000, 18, 500, 5.0, _gen(4), "cpu")
+    x, truth = susy_like(50_000, 18, _gen(4), "cpu", t=500, delta=5.0)
     xn, out_np = synthetic.susy_like(n=50_000, t=500, delta=5.0, seed=4)
     assert x.shape == xn.shape and int(truth.sum()) == out_np.size == 500
     far = x[truth].norm(dim=1).mean() / x[~truth].norm(dim=1).mean()

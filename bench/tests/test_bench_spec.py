@@ -51,6 +51,8 @@ def test_workload_resolves_to_its_files(w):
     for m in cell.per_layer + cell.end_to_end:
         assert hasattr(load_metric(m["name"]), "read")
     assert (BENCH / "entries" / f"{cell.config['entry']}.py").exists()
+    assert (BENCH / "datasets" / f"{cell.config['dataset']}.py").exists()
+    assert (BENCH / "reference" / "limits" / f"{w['config']}.json").exists()
     e2e = {m["name"] for m in cell.end_to_end}
     assert "setup_s" in e2e and len(e2e) >= 2 and cell.per_layer
 
