@@ -8,6 +8,7 @@
     python3 chip_smoke.py --measure robust
     python3 chip_smoke.py --measure mesh
     python3 chip_smoke.py --measure pdist_split,pdist_plans,route_ladder
+    python3 chip_smoke.py --measure wide_ladder
 
 Run from the root of a checkout on a machine with a CUDA card and nvcc.
 It imports the port (``src/repro_torch``) and nothing of JAX, and:
@@ -26,7 +27,12 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    5, 8, 32, 34 and 64, every metric, f32 and bf16, x off 16-byte
    alignment, many tiles a CTA, 1e30 center rows, all-+inf rows) against
    its plain version and bit for bit the tiled route and the score's
-   (dist, idx), and d = 65 and 300 against the plain version;
+   (dist, idx), and d = 65 and 300 against the plain version (d = 300
+   also on the small-m route's generic width, which only a named route
+   reaches); its chunked route (past d = 64) at the curate.fit cell's
+   shapes on unit rows of d = 768: an Algorithm 1 round (62,500 x 200) and
+   an Algorithm 2 reassignment (62,500 x 10,801, 5,100 slots invalid at
+   1e30);
    the fused score at the edges of its CTA split (n = 1 to 33,793 at
    k x d = 3 x 34, 100 x 5, 2,048 x 130 and 64 x 64, every metric, f32
    and bf16, 1e30 center rows, tied centers), each bit for bit min_argmin
@@ -34,8 +40,10 @@ It imports the port (``src/repro_torch``) and nothing of JAX, and:
    the fused Lloyd step's assignment and dist bit for bit min_argmin's and
    its sums and counts equal across two calls, at the second levels'
    shapes, the edges of its CTA split (n = 1, 257, a ragged last CTA),
-   k = 1, d = 130 and 300, k = 2,048, a warp of 32 centers, and on every
-   route whose blocks fit;
+   k = 1, d = 130 and 300, k = 2,048, a warp of 32 centers, the curate.fit
+   cell's second level (366,000 unit rows x 100 x 768, the chunked route),
+   and on every route whose blocks fit (at d = 300 the serial route's
+   generic width and the chunked route);
    the WKV6 kernel also against the step oracle in float64, at the rwkv6
    prefill's shape and at edge cases (c = 64, c = T = 7, one chunk, B = 1,
    BH = 1 and 3, strong decays, non-zero u in both layouts and s0), its
@@ -247,9 +255,11 @@ robust phase alone, after the build), ``mesh`` (the mesh phase alone,
 after the build), ``pdist_split`` (min_argmin's small-m edge checks, then
 its small-m calls' timings and time split, after only the data),
 ``pdist_plans`` (the small-m route's launch plan against other rows per
-tile, buffers and grids there) and ``route_ladder`` (both min_argmin
-routes over m).  One process per reading, in turns with another tree's, compares two trees; ``serve`` and
-``stream`` run on any tree of the port from the stream slice on.
+tile, buffers and grids there), ``route_ladder`` (both min_argmin
+routes over m) and ``wide_ladder`` (the small-m and chunked routes over m
+past d = 64, and the chunked route at the curation cell's reassignment).
+One process per reading, in turns with another tree's, compares two trees;
+``serve`` and ``stream`` run on any tree of the port from the stream slice on.
 
 It prints the card (``nvidia-smi``), one ``{"kernels": [...]}`` line and, as
 its last line, ``{"ok": true, "device": {...}}``.  Any failed phase raises:
@@ -424,10 +434,15 @@ def _rec(kernel, name, metric, x, c, **kw):
                 tol=tol_for(x.shape[1]), **kw)
 
 
-def check_pdist(dev, name, x, c, metric, fail):
-    from repro_torch.kernels.pdist.kernel import min_argmin_cuda
+def check_pdist(dev, name, x, c, metric, fail, route=None):
+    """min_argmin (on ``route``, or routed) against its plain version."""
+    from repro_torch.kernels.pdist import kernel as pk
     from repro_torch.kernels.pdist.ops import min_argmin_blocked
-    dk, ak = min_argmin_cuda(x, c, metric=metric)
+    if route is None:
+        dk, ak = pk.min_argmin_cuda(x, c, metric=metric)
+    else:
+        dk, ak = pk._launch_route(route, x, c, metric=metric)
+        name = f"{name}_{route}"
     dp, ap = min_argmin_blocked(x, c, metric=metric)
     sync(dev)
     fin = torch.isfinite(dp)
@@ -828,9 +843,12 @@ def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
             for name, (n, m, d) in (("ragged", (1000, 37, 18)),
                                     ("d130", (1025, 200, 130)),
                                     ("m2048_d130", (3001, 2048, 130)),
-                                    ("d300_generic", (517, 65, 300))):
+                                    ("d300", (517, 65, 300))):
                 x, c = rnd(n, d).to(dt), rnd(m, d).to(dt)
                 recs.append(check_pdist(dev, name, x, c, metric, fail))
+                if d > 256:     # the generic width, by its named route
+                    recs.append(check_pdist(dev, name, x, c, metric, fail,
+                                            "rowscan"))
                 recs.append(check_score(dev, name, x[:300].contiguous(), c,
                                         torch.tensor(0.7, device=dev),
                                         metric, fail))
@@ -847,6 +865,7 @@ def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
             recs.append(check_pdist(dev, "far_rows", x, c, metric, fail))
     recs += large_m_checks(dev, rnd, site, c_re, fail)
     recs += small_m_checks(dev, rnd, fail)
+    recs += curate_cell_checks(dev, g, fail)
     recs += score_edge_checks(dev, rnd, fail)
     # serving shape: a micro-batch against kdd's and gauss's centers
     thr = torch.tensor(3.5, device=dev)
@@ -860,13 +879,50 @@ def kernel_checks(dev, kdd_x, gauss_x, ks, gs):
     return recs, fail
 
 
+# The curate.fit cell's distance calls (bench/configs/curate-d768.json: a
+# site of 62,500 of 2,000,000 unit rows at d = 768, t_i = 1,250): an
+# Algorithm 1 round against m = 200 sampled rows; Algorithm 2's
+# reassignment against its 10,801 planned slots, ~5,100 of them invalid
+# (1e30); a second-level Lloyd step over ~366,000 records and k = 100.
+CURATE_CELL = dict(n_site=62_500, m=200, slots=10_801, invalid=5_100,
+                   n_rec=366_000, k=100, d=768)
+
+
+def curate_cell_checks(dev, g, fail):
+    """min_argmin's chunked route and the Lloyd step's, at CURATE_CELL's
+    shapes on unit rows with centers drawn from the rows (weights whole,
+    1 to 255, as a summary's), against their plain versions."""
+    cc = CURATE_CELL
+    d = cc["d"]
+    unit = lambda n: torch.nn.functional.normalize(       # noqa: E731
+        torch.randn((n, d), generator=g), dim=1).to(dev)
+    x = unit(cc["n_site"])
+    pick = torch.randperm(cc["n_site"], generator=g).to(dev)
+    live = cc["slots"] - cc["invalid"]
+    far = torch.full((cc["invalid"], d), 1e30, device=dev)
+    slots = torch.cat([x[pick[:live]], far])[
+        torch.randperm(cc["slots"], generator=g).to(dev)].contiguous()
+    recs = [check_pdist(dev, "curate_alg1_round", x,
+                        x[pick[:cc["m"]]].contiguous(), "l2sq", fail),
+            check_pdist(dev, "curate_alg2_reassign", x, slots, "l2sq", fail)]
+    del x, slots, far
+    x = unit(cc["n_rec"])
+    w = torch.randint(1, 256, (cc["n_rec"],), generator=g).float().to(dev)
+    c = x[torch.randperm(cc["n_rec"], generator=g)[:cc["k"]].to(dev)]
+    recs.append(check_lloyd(dev, "curate_second_level", x, w,
+                            c.contiguous(), "l2sq", fail))
+    return recs
+
+
 def lloyd_edge_checks(dev, rnd, g, ks, gs, fail):
     """The Lloyd step at the second levels' shapes and at the edges of its
     launch plan (``lloyd_plan``): one row, NT + 1 rows, k = 1, a ragged
     last CTA, d = 130 on 128-row CTAs, the serial route (k = 2048 x
-    d = 130, whose partials live in global memory, and the generic width
-    d = 300), and a warp whose 32 rows hold 32 different centers; both
-    metrics, f32 and bf16 (bf16 up to 10,000 rows)."""
+    d = 130, whose partials live in global memory), the chunked route
+    (d = 300), and a warp whose 32 rows hold 32 different centers; both
+    metrics, f32 and bf16 (bf16 up to 10,000 rows); then each route where
+    its blocks fit, the serial route's generic width at d = 300 among
+    them."""
     from repro_torch.kernels.lloyd.kernel import lloyd_step_cuda
     recs = []
     for name, (n, k, d) in (("kdd_second_level",
@@ -882,7 +938,7 @@ def lloyd_edge_checks(dev, rnd, g, ks, gs, fail):
                             ("ragged_last_cta", (1_049_576, 3, 34)),
                             ("d130", (1025, 3, 130)),
                             ("k2048_d130", (3001, 2048, 130)),
-                            ("d300_generic", (517, 65, 300))):
+                            ("d300", (517, 65, 300))):
         for metric in ("l2sq", "l2"):
             for dt in (torch.float32, torch.bfloat16):
                 if dt == torch.bfloat16 and n > 10_000:
@@ -913,7 +969,9 @@ def lloyd_edge_checks(dev, rnd, g, ks, gs, fail):
             ("d5_k100", (rnd(5000, 5), torch.rand(5000, generator=g).to(dev),
                          rnd(100, 5))),
             ("d130_k3", (rnd(1025, 130), torch.rand(1025, generator=g)
-                         .to(dev), rnd(3, 130)))):
+                         .to(dev), rnd(3, 130))),
+            ("d300_k65", (rnd(517, 300), torch.rand(517, generator=g)
+                          .to(dev), rnd(65, 300)))):
         for route in lk.ROUTES:
             try:
                 lk.lloyd_plan(xr.shape[0], cr.shape[0], xr.shape[1], route)
@@ -5837,6 +5895,61 @@ def route_ladder(dev, kdd_x, gauss_x, ks, gs):
     return out
 
 
+WIDE_LADDER_D = (65, 96, 128, 160, 200, 256)
+WIDE_LADDER_M = (8, 16, 32, 48, 64, 96, 128, 160, 192, 256, 512, 1024)
+WIDE_SHAPES = ((62_500, 6_000, 257), (62_500, 6_000, 384),
+               (62_500, 6_000, 768), (62_500, 6_000, 1024),
+               (366_000, 100, 768), (62_500, 200, 768))
+
+
+def wide_route_ladder(dev):
+    """The measurement behind kernel.py's CHUNKED_MIN_M: the small-m and
+    chunked min_argmin routes over a ladder of m at each d of
+    WIDE_LADDER_D (n = 62,500 unit rows, the curation cell's site), device
+    us of one call (a CUDA graph of 20-200); then the chunked route alone
+    at WIDE_SHAPES (the curation cell's reassignment, its second level's
+    assignment, an Alg. 1 round), its device us and its share of the fp32
+    roofline (2 n m d operations at 67 TFLOP/s), and its resident CTAs an
+    SM."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.pdist.kernel import _launch_route
+    g = torch.Generator(device="cpu").manual_seed(5)
+    out = {"ladder": [], "shapes": []}
+    fn = _build.load("pdist").rt_min_argmin_chunked_blocks_per_sm
+    fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_int
+    out["chunked_ctas_per_sm"] = fn(0, 0)
+    log(f"wide_ladder chunked CTAs an SM (l2sq, f32): "
+        f"{out['chunked_ctas_per_sm']}")
+    unit = lambda n, d: torch.nn.functional.normalize(      # noqa: E731
+        torch.randn((n, d), generator=g), dim=1).to(dev)
+    for d in WIDE_LADDER_D:
+        x = unit(62_500, d)
+        for m in WIDE_LADDER_M:
+            c = x[torch.randperm(x.shape[0], generator=g)[:m].to(dev)]
+            rec = {"n": x.shape[0], "m": m, "d": d}
+            for how in ("rowscan", "chunked"):
+                call = lambda: _launch_route(how, x, c)     # noqa: E731
+                rec[f"{how}_device_us"] = _graph_device_us(
+                    call, reps=20 if m > 256 else 100,
+                    kernel="min_argmin")[0]
+            out["ladder"].append(rec)
+            log(f"wide_ladder d={d} m={m}: rowscan "
+                f"{rec['rowscan_device_us']:.2f} us, chunked "
+                f"{rec['chunked_device_us']:.2f} us")
+    for n, m, d in WIDE_SHAPES:
+        x = unit(n, d)
+        c = x[torch.randperm(n, generator=g)[:m].to(dev)]
+        us = _graph_device_us(lambda: _launch_route("chunked", x, c),
+                              reps=10, kernel="min_argmin")[0]
+        share = 100.0 * (2.0 * n * m * d / 67e12) / (us * 1e-6)
+        out["shapes"].append({"n": n, "m": m, "d": d, "device_us": us,
+                              "roofline_pct": share})
+        log(f"wide_ladder chunked {n} x {m} x {d}: {us:.1f} us, "
+            f"{share:.2f}% of the fp32 roofline")
+    return out
+
+
 def lloyd_ladder(dev, inputs):
     """The Lloyd step's routes over a ladder of k, the measurement behind
     ``lloyd_plan``'s choice: at the two timed calls' rows and weights (kdd's
@@ -5997,7 +6110,7 @@ def make_data(dev):
 
 MEASURES = ("serve", "lloyd_split", "lloyd_ladder", "stream", "train", "lm",
             "lm_mutations", "robust", "mesh", "pdist_split", "pdist_plans",
-            "route_ladder")
+            "route_ladder", "wide_ladder")
 
 
 def counted_runs(kernels, per_run):
@@ -6039,7 +6152,8 @@ def run_measure(dev: torch.device, card: str, phases) -> dict:
         counted = counted_runs(_kernel_objects(), per_run)
         return {"card": card, "lm": lm_phase(dev, counted),
                 "launches_per_run": per_run}
-    pdist_measures = {"pdist_split", "pdist_plans", "route_ladder"}
+    pdist_measures = {"pdist_split", "pdist_plans", "route_ladder",
+                      "wide_ladder"}
     if pdist_measures & set(phases):
         if not set(phases) <= pdist_measures:
             raise ValueError(f"--measure {sorted(pdist_measures)} run "
@@ -6112,11 +6226,16 @@ def pdist_measure(dev, phases) -> dict:
     """``pdist_split``: the small-m route's edge checks (on a tree whose
     wrapper has ``launch_plan``), then its timing rows and time split at the
     small-call shapes; ``pdist_plans``: its plan ladder there;
-    ``route_ladder``: both routes over m.  Only the pdist and score kernels
-    are built, at their first call."""
+    ``route_ladder``: both routes over m; ``wide_ladder``: the small-m
+    and chunked routes past d = 64 (on rows of its own).  Only the pdist and
+    score kernels are built, at their first call."""
     from repro_torch.kernels.pdist import kernel as pk
-    _, _, kdd_x, _, _, gauss_x, ks, gs = make_data(dev)
     out = {}
+    if "wide_ladder" in phases:
+        out["wide_ladder"] = wide_route_ladder(dev)
+        if set(phases) == {"wide_ladder"}:
+            return out
+    _, _, kdd_x, _, _, gauss_x, ks, gs = make_data(dev)
     if "pdist_split" in phases:
         if hasattr(pk, "launch_plan"):
             g = torch.Generator(device="cpu").manual_seed(0)

@@ -43,20 +43,28 @@
 //     then a fixed butterfly.
 // The same inputs give the same sums bit for bit on every run.
 //
-// The serial route (the first design) keeps the rest: the generic width
-// (d > 256, no row in registers) and blocks that do not fit in shared
-// memory (two tiles of rows plus the partials: d > 160, or k (d + 1) large,
-// e.g. k = 2048 x d = 130 or k = 100 x d = 34, where chip_smoke.py's Lloyd
-// ladder read the serial route faster than by center); there the d + 1 threads
-// f <= d accumulate a tile's rows in row order into the CTA's partial, in
-// shared memory when it fits in 96 KB, else in global memory.
+// The serial route (the first design) keeps blocks that do not fit in
+// shared memory at d <= 160 (two tiles of rows plus the partials: k (d + 1)
+// large, e.g. k = 2048 x d = 130 or k = 100 x d = 34, where chip_smoke.py's
+// Lloyd ladder read the serial route faster than by center); there the d + 1
+// threads f <= d accumulate a tile's rows in row order into the CTA's
+// partial, in shared memory when it fits in 96 KB, else in global memory.
+//
+// The chunked route, d > 160 (kernel.py: lloyd_plan): the assignment is
+// pdist.cu's chunked tile (pdist_common.cuh: chunked_tile; a row per thread
+// held in registers, as the serial route's RowScan does, does not fit past
+// these widths, and the generic width re-read each row from global memory
+// for every center), 128 rows at a time, after center_norms_kernel; then the
+// serial route's accumulation of those rows, in row order (SerialAcc, one
+// body for both routes).  Its split of rows over CTAs is the serial route's,
+// so its sums are the serial route's bit for bit.
 #include "pdist_common.cuh"
 
 namespace rt {
 
 // kernel.py: ROUTES.  CENTERS and ROWS are the warp route's two ways to
 // accumulate (lloyd_warp_kernel).
-enum LloydRoute { CENTERS = 0, ROWS = 1, SERIAL = 2 };
+enum LloydRoute { CENTERS = 0, ROWS = 1, SERIAL = 2, CHUNKED = 3 };
 
 constexpr int kSmemAccFloats = 24576;  // serial route: 96 KB partial block
 
@@ -282,6 +290,49 @@ lloyd_warp_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// The serial accumulation, one body for the serial and chunked routes: the
+// CTA's partial of K1 = k (d + 1) words [j * (d + 1) + f] (f == d holds the
+// count), summed in shared memory (smem) when acc_in_smem, else in place at
+// part + blockIdx.x * K1.  The threads f <= d add a tile's nr rows (their
+// centers a_s, weights w_s) in row order; finish() copies a shared partial
+// out.  So the same rows split over CTAs alike give the same sums bit for
+// bit, whichever route assigned them.
+template <int NT>
+struct SerialAcc {
+  float* part;  // the CTA's partial in global memory
+  float* acc;   // where it is summed: smem, or part itself
+  int K1, d;
+
+  __device__ SerialAcc(float* smem, float* part_all, int k, int d_,
+                       int acc_in_smem)
+      : K1(k * (d_ + 1)), d(d_) {
+    part = part_all + (long long)blockIdx.x * K1;
+    acc = acc_in_smem ? smem : part;
+    for (int e = threadIdx.x; e < K1; e += NT) acc[e] = 0.0f;
+    __syncthreads();
+  }
+
+  template <typename T>
+  __device__ __forceinline__ void add_rows(const T* __restrict__ x,
+                                           long long t0, int nr,
+                                           const int* a_s, const float* w_s) {
+    for (int f = threadIdx.x; f <= d; f += NT) {
+      for (int r = 0; r < nr; ++r) {
+        const float wr = w_s[r];
+        const float v =
+            f < d ? __fmul_rn(wr, load_f(x, (t0 + r) * d + f)) : wr;
+        float* p = acc + a_s[r] * (d + 1) + f;
+        *p = __fadd_rn(*p, v);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void finish() {
+    if (acc != part)
+      for (int e = threadIdx.x; e < K1; e += NT) part[e] = acc[e];
+  }
+};
+
 template <int DP, int METRIC, typename T>
 __global__ void __launch_bounds__(Tile<DP>::NT)
 lloyd_serial_kernel(const T* __restrict__ x, const float* __restrict__ w,
@@ -292,11 +343,7 @@ lloyd_serial_kernel(const T* __restrict__ x, const float* __restrict__ w,
   extern __shared__ float acc_smem[];
   __shared__ int a_s[NT];
   __shared__ float w_s[NT];
-
-  const int K1 = k * (d + 1);  // [j * (d + 1) + f]; f == d holds the count
-  float* acc = acc_in_smem ? acc_smem : part + (long long)blockIdx.x * K1;
-  for (int e = threadIdx.x; e < K1; e += NT) acc[e] = 0.0f;
-  __syncthreads();
+  SerialAcc<NT> acc(acc_smem, part, k, d, acc_in_smem);
 
   const long long r0 = (long long)blockIdx.x * rows_per_cta;
   const long long r_end = min((long long)n, r0 + rows_per_cta);
@@ -312,22 +359,54 @@ lloyd_serial_kernel(const T* __restrict__ x, const float* __restrict__ w,
     a_s[threadIdx.x] = rs.bidx;
     w_s[threadIdx.x] = live ? w[row] : 0.0f;
     __syncthreads();
-    const int nr = (int)min((long long)NT, r_end - t0);
-    for (int f = threadIdx.x; f <= d; f += NT) {
-      for (int r = 0; r < nr; ++r) {
-        const float wr = w_s[r];
-        const float v =
-            f < d ? __fmul_rn(wr, load_f(x, (t0 + r) * d + f)) : wr;
-        float* p = acc + a_s[r] * (d + 1) + f;
-        *p = __fadd_rn(*p, v);
+    acc.add_rows(x, t0, (int)min((long long)NT, r_end - t0), a_s, w_s);
+    __syncthreads();
+  }
+  acc.finish();
+}
+
+// The chunked route: each 128-row tile of the CTA's rows assigned by the
+// chunked tile (c2g: the centers' norms), then added by SerialAcc, as the
+// serial route adds its rows: the partial in shared memory past the tile's
+// buffers when acc_in_smem.
+template <int METRIC, typename T>
+__global__ void __launch_bounds__(ChunkTile::NT, 2)
+lloyd_chunked_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                     const T* __restrict__ c, const float* __restrict__ c2g,
+                     int* __restrict__ assign, float* __restrict__ dist,
+                     float* __restrict__ part, int n, int k, int d,
+                     int rows_per_cta, int acc_in_smem) {
+  using K = ChunkTile;
+  extern __shared__ __align__(16) float sm[];
+  __shared__ int a_s[K::BM];
+  __shared__ float w_s[K::BM];
+  SerialAcc<K::NT> acc(sm + K::FLOATS, part, k, d, acc_in_smem);
+
+  const long long r0 = (long long)blockIdx.x * rows_per_cta;
+  const long long r_end = min((long long)n, r0 + rows_per_cta);
+  for (long long t0 = r0; t0 < r_end; t0 += K::BM) {
+    const int nr = (int)min((long long)K::BM, r_end - t0);
+    float best[K::R];
+    int bidx[K::R];
+    chunked_tile<METRIC, T>(x, c, c2g, t0, nr, k, d, sm, best, bidx);
+    if (threadIdx.x % K::TX == 0) {
+      const int ty = threadIdx.x / K::TX;
+#pragma unroll
+      for (int r = 0; r < K::R; ++r) {
+        const int rr = ty * K::R + r;
+        if (rr < nr) {
+          assign[t0 + rr] = bidx[r];
+          dist[t0 + rr] = best[r];
+          a_s[rr] = bidx[r];
+          w_s[rr] = w[t0 + rr];
+        }
       }
     }
     __syncthreads();
+    acc.add_rows(x, t0, nr, a_s, w_s);
+    __syncthreads();
   }
-  if (acc_in_smem) {
-    for (int e = threadIdx.x; e < K1; e += NT)
-      part[(long long)blockIdx.x * K1 + e] = acc[e];
-  }
+  acc.finish();
 }
 
 // Each word's G partials (word e of CTA g at part[g * sg + e * se]) in a
@@ -362,15 +441,17 @@ __global__ void lloyd_reduce_kernel(const float* __restrict__ part,
 
 // One Lloyd step on `stream`.  route, rows_per_cta and smem come from
 // kernel.py: lloyd_plan; part holds ceil(n / rows_per_cta) * k * (d + 1)
-// floats of scratch.  Returns cudaGetLastError() (cudaErrorInvalidValue for
-// a plan the kernels do not take).
+// floats of scratch, and k more on the chunked route (the centers' norms).
+// Returns cudaGetLastError() (cudaErrorInvalidValue for a plan the kernels
+// do not take).
 extern "C" int rt_lloyd_step(const void* x, const void* w, const void* c,
                              void* sums, void* counts, void* assign,
                              void* dist, void* part, int n, int k, int d,
                              int metric, int dtype, int route,
                              int rows_per_cta, int smem, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  if (rows_per_cta < 1 || k < 1 || route < rt::CENTERS || route > rt::SERIAL)
+  if (rows_per_cta < 1 || k < 1 || route < rt::CENTERS ||
+      route > rt::CHUNKED)
     return (int)cudaErrorInvalidValue;
   const int G = (int)((n + (long long)rows_per_cta - 1) / rows_per_cta);
   const int K1 = k * (d + 1);
@@ -380,6 +461,31 @@ extern "C" int rt_lloyd_step(const void* x, const void* w, const void* c,
     using T = decltype(tv);
     auto go = [&](auto mv) {
       constexpr int METRIC = decltype(mv)::value;
+      if (route == rt::CHUNKED) {
+        using K = rt::ChunkTile;
+        const bool in_smem = smem > 4 * K::FLOATS;
+        if (rows_per_cta % K::BM != 0 || smem < 4 * K::FLOATS ||
+            (in_smem && (K1 > rt::kSmemAccFloats ||
+                         smem < 4LL * (K::FLOATS + K1)))) {
+          err = (int)cudaErrorInvalidValue;
+          return;
+        }
+        float* c2 = (float*)part + (long long)G * K1;
+        rt::center_norms_kernel<T><<<(k + 255) / 256, 256, 0, st>>>(
+            (const T*)c, c2, k, d);
+        auto kern = rt::lloyd_chunked_kernel<METRIC, T>;
+        static int opened = 48 * 1024;
+        if (smem > opened) {
+          const cudaError_t e = cudaFuncSetAttribute(
+              kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+          if (e != cudaSuccess) { err = (int)e; return; }
+          opened = smem;
+        }
+        kern<<<G, K::NT, smem, st>>>(
+            (const T*)x, (const float*)w, (const T*)c, c2, (int*)assign,
+            (float*)dist, (float*)part, n, k, d, rows_per_cta, in_smem);
+        return;
+      }
       rt::dispatch_dp(d, [&](auto dv) {
         constexpr int DP = decltype(dv)::value;
         constexpr int NT = rt::Tile<DP>::NT;
@@ -432,8 +538,9 @@ extern "C" int rt_lloyd_step(const void* x, const void* w, const void* c,
   if (err) return err;
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  const long long sg = route == rt::SERIAL ? K1 : 1;
-  const long long se = route == rt::SERIAL ? 1 : G;
+  const bool by_cta = route == rt::SERIAL || route == rt::CHUNKED;
+  const long long sg = by_cta ? K1 : 1;
+  const long long se = by_cta ? 1 : G;
   rt::lloyd_reduce_kernel<<<(K1 + 7) / 8, 256, 0, st>>>(
       (const float*)part, (float*)sums, (float*)counts, G, k, d, sg, se);
   return (int)cudaGetLastError();

@@ -14,8 +14,8 @@
 // do ~n*d*m FLOP on n*d*4 bytes: they are bound by reading x once, or by
 // launch latency at small n.
 //
-// Two routes, picked by the wrapper from (n, m, d) (kernel.py: route, with
-// TILED_MIN_M from chip_smoke.py's route ladder):
+// Three routes, picked by the wrapper from (n, m, d) (kernel.py: route, with
+// TILED_MIN_M and CHUNKED_MIN_M from chip_smoke.py's route ladders):
 //
 // * rt_min_argmin, few centers (min_argmin_rows_kernel): Alg. 1's rounds,
 //   the losses, the stream's assignments and merges.  A call is bound by
@@ -66,7 +66,19 @@
 //   (x2 + c2, 2 dot, subtract, max, compare, two selects) that the bitwise
 //   contract below fixes, and a few shared loads.
 //
-// Both routes do the same per-pair arithmetic, bit for bit: x2, c2 and the
+// * rt_min_argmin_chunked, d > 64 (every m past 256, many centers below):
+//   the tiled route's SIMT tile at 128 x 128 (8 x 8 a thread) and its
+//   epilogue, with d streamed through shared memory in chunks by 4-byte
+//   cp.async (pdist_common.cuh: chunked_tile), since the tiled route stages
+//   all of d (823 KB at the d = 768 of LM document embeddings).  Its bound
+//   at the curation cell's reassignment (62,500 rows x 10,801 center slots
+//   x 768 a site, 16.6 ms at 67 TFLOP/s) is the FMAs as well: a CTA reads
+//   its rows again for every 128 centers, 64 operations a byte, ~1 TB/s of
+//   HBM at the fp32 rate.  On the H100 it reached 49% of that rate (31.3
+//   ms), where an 8 x 4 tile reached 41% and the same with its chunks
+//   staged through registers (128 of them, spilled) 32% (PERF.md).
+//
+// All routes do the same per-pair arithmetic, bit for bit: x2, c2 and the
 // dot are each one __fmaf_rn chain over f = 0..d-1 from 0 (a zero pad past
 // d adds exact zeros), then max((x2 + c2) - 2 dot, 0) with the _rn
 // intrinsics (finish_l2), __fsqrt_rn for l2; l1 is the |x - c| chain.  So
@@ -425,7 +437,8 @@ void dispatch_dx(int d, F&& f) {
   f(std::integral_constant<int, DP>{});
 }
 
-// d > 256: RowScan's generic path, per-thread loads from global memory.
+// d > 256: RowScan's generic path, per-thread loads from global memory
+// (kernel.py takes it only when the small-m route is named).
 template <int METRIC, typename T>
 __global__ void __launch_bounds__(Tile<0>::NT)
 min_argmin_generic_kernel(const T* __restrict__ x, const T* __restrict__ c,
@@ -466,27 +479,6 @@ void dispatch_dq(int d, F&& f) {
   if (d <= 16) f(std::integral_constant<int, 4>{});
   else if (d <= 36) f(std::integral_constant<int, 9>{});
   else f(std::integral_constant<int, 16>{});
-}
-
-// c2[j] = one fma chain over f = 0..d-1 from 0: RowScan's c2 bits.
-template <typename T>
-__global__ void center_norms_kernel(const T* __restrict__ c,
-                                    float* __restrict__ c2, int m, int d) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= m) return;
-  float s = 0.0f;
-  for (int f = 0; f < d; ++f) {
-    const float v = load_f(c, (long long)j * d + f);
-    s = __fmaf_rn(v, v, s);
-  }
-  c2[j] = s;
-}
-
-// Lexicographic (dist, idx) minimum: the smaller distance, and on equal
-// distances the smaller index.  A NaN never compares below anything, so it
-// never wins, as under the sequential strict `<`.
-__device__ __forceinline__ void lex_min(float& b, int& i, float ob, int oi) {
-  if (ob < b || (ob == b && oi < i)) { b = ob; i = oi; }
 }
 
 // One CTA: TL_BM rows against all m centers.  Thread (ty, tx) owns rows
@@ -645,6 +637,35 @@ min_argmin_tiled_kernel(const T* __restrict__ x, const T* __restrict__ c,
   }
 }
 
+// ---- wide route: the d-chunked tile (pdist_common.cuh: chunked_tile) -----
+// One CTA a tile of ChunkTile::BM rows against all m centers.  Two CTAs fit
+// an SM (16 warps; 68,096 bytes of shared memory each).
+template <int METRIC, typename T>
+__global__ void __launch_bounds__(ChunkTile::NT, 2)
+min_argmin_chunked_kernel(const T* __restrict__ x, const T* __restrict__ c,
+                          const float* __restrict__ c2g,
+                          float* __restrict__ dist, int* __restrict__ idx,
+                          int n, int m, int d) {
+  using K = ChunkTile;
+  extern __shared__ __align__(16) float sm[];
+  const long long r0 = (long long)blockIdx.x * K::BM;
+  const int nr = (int)min((long long)K::BM, (long long)n - r0);
+  float best[K::R];
+  int bidx[K::R];
+  chunked_tile<METRIC, T>(x, c, c2g, r0, nr, m, d, sm, best, bidx);
+  if (threadIdx.x % K::TX == 0) {
+    const int ty = threadIdx.x / K::TX;
+#pragma unroll
+    for (int r = 0; r < K::R; ++r) {
+      const int rr = ty * K::R + r;
+      if (rr < nr) {
+        dist[r0 + rr] = best[r];
+        idx[r0 + rr] = bidx[r];
+      }
+    }
+  }
+}
+
 }  // namespace rt
 
 // The small-m route.  out: 2n words, dist (f32) | idx (int32).  a: ten
@@ -655,7 +676,9 @@ min_argmin_tiled_kernel(const T* __restrict__ x, const T* __restrict__ c,
 // CTAs each walking tiles blockIdx.x, + grid, ...; smem, dynamic
 // shared-memory bytes, at least rs_smem_bytes; mc, centers staged at once
 // (m: all of them); nbuf, the row buffers (1 or 2).  The generic width
-// (d > 256) ignores the plan: one row per thread, 256-row CTAs.
+// (d > 256: the wrapper sends such calls to the chunked route, and only a
+// named route reaches it) ignores the plan: one row per thread, 256-row
+// CTAs.
 extern "C" int rt_min_argmin(const void* x, const void* c, void* out,
                              const int* a, void* stream) {
   const int n = a[0], m = a[1], d = a[2], metric = a[3], dtype = a[4];
@@ -761,6 +784,60 @@ extern "C" int rt_min_argmin_tiled(const void* x, const void* c, void* c2,
   });
   if (err) return err;
   return (int)cudaGetLastError();
+}
+
+// The wide route (any d >= 1; kernel.py routes d > 64 to it).  Arguments and
+// launches as rt_min_argmin_tiled's: the center norms into the scratch c2
+// (not for l1), then the chunked tiles.
+extern "C" int rt_min_argmin_chunked(const void* x, const void* c, void* c2,
+                                     void* dist, void* idx, int n, int m,
+                                     int d, int metric, int dtype,
+                                     void* stream) {
+  if (d < 1 || m < 1) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  int err = 0;
+  rt::dispatch_dtype(dtype, [&](auto tv) {
+    using T = decltype(tv);
+    if (metric != rt::L1)
+      rt::center_norms_kernel<T><<<(m + 255) / 256, 256, 0, s>>>(
+          (const T*)c, (float*)c2, m, d);
+    rt::dispatch_metric(metric, [&](auto mv) {
+      auto kern = rt::min_argmin_chunked_kernel<decltype(mv)::value, T>;
+      constexpr int bytes = rt::ChunkTile::FLOATS * (int)sizeof(float);
+      static bool opened = false;
+      if (!opened) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        if (e != cudaSuccess) { err = (int)e; return; }
+        opened = true;
+      }
+      const int blocks = (int)((n + (long long)rt::ChunkTile::BM - 1) /
+                               rt::ChunkTile::BM);
+      kern<<<blocks, rt::ChunkTile::NT, bytes, s>>>(
+          (const T*)x, (const T*)c, (const float*)c2, (float*)dist,
+          (int*)idx, n, m, d);
+    });
+  });
+  if (err) return err;
+  return (int)cudaGetLastError();
+}
+
+// Resident CTAs per SM of the chunked kernel, for the reports.
+extern "C" int rt_min_argmin_chunked_blocks_per_sm(int metric, int dtype) {
+  int n = -1;
+  rt::dispatch_dtype(dtype, [&](auto tv) {
+    using T = decltype(tv);
+    rt::dispatch_metric(metric, [&](auto mv) {
+      auto kern = rt::min_argmin_chunked_kernel<decltype(mv)::value, T>;
+      constexpr int bytes = rt::ChunkTile::FLOATS * (int)sizeof(float);
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           bytes);
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kern,
+                                                    rt::ChunkTile::NT, bytes);
+    });
+  });
+  return n;
 }
 
 // Resident CTAs per SM of the tiled kernel at width d, for the reports.

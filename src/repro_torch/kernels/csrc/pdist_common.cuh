@@ -379,6 +379,256 @@ struct RowScan<0, METRIC, T> {
   }
 };
 
+// c2[j] = one fma chain over f = 0..d-1 from 0: RowScan's c2 bits.  The
+// tiled and chunked routes' first launch (pdist.cu, lloyd.cu).
+template <typename T>
+__global__ void center_norms_kernel(const T* __restrict__ c,
+                                    float* __restrict__ c2, int m, int d) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= m) return;
+  float s = 0.0f;
+  for (int f = 0; f < d; ++f) {
+    const float v = load_f(c, (long long)j * d + f);
+    s = __fmaf_rn(v, v, s);
+  }
+  c2[j] = s;
+}
+
+// Lexicographic (dist, idx) minimum: the smaller distance, and on equal
+// distances the smaller index.  A NaN never compares below anything, so it
+// never wins, as under the sequential strict `<`.
+__device__ __forceinline__ void lex_min(float& b, int& i, float ob, int oi) {
+  if (ob < b || (ob == b && oi < i)) { b = ob; i = oi; }
+}
+
+// ---- the d-chunked tile: pdist.cu's chunked route, lloyd.cu's chunked
+// assignment (d past the widths whose tiles hold all of d) ----------------
+//
+// A CTA of NT = 256 threads owns BM = 128 rows; thread (ty, tx) = (tid / 16,
+// tid % 16) owns rows ty * 8 .. + 7 and, of every tile of BN = 128 centers,
+// the columns tx * 4 .. + 3 and 64 + tx * 4 .. + 3: the tiled route's SIMT
+// tile with twice its columns, 8 x 8 a thread (on an H100, 49% of the fp32
+// roofline at the curation cell's reassignment against 41% for the tiled
+// route's 8 x 4: each 16-byte shared load feeds 16 FMAs, not 10.7, and a
+// CTA reads its rows half as often).  Where the tiled route stages all of d
+// (128 x 64 x d words: 823 KB at d = 768), this one streams d through
+// shared memory in chunks of KC coordinates, x's chunk and the centers'
+// both d-major, in two buffers: the next chunk travels while this one is
+// scored, one barrier a chunk.  f32 chunks come by 4-byte cp.async, each
+// word straight to its d-major place (no staging registers: staged through
+// registers, as the tiled route stages, the tile spilled and reached 32%);
+// bf16 ones through registers, upcast, stored after the scores.  The 64
+// dot products stay in registers across a tile's chunks, so each is
+// one fma chain over f = 0..d-1 in order, and each row's x2 too (summed by
+// one thread a row from the first tile's chunks into shared memory): the
+// bits of RowScan's and the tiled route's chains.  c2 comes from
+// center_norms_kernel.  The epilogue and the tie rule are the tiled
+// route's: max((x2 + c2) - 2 dot, 0), a strict `<` over a thread's columns
+// in index order, then the lexicographic (dist, idx) minimum over the 16
+// threads of a row; a tile's epilogue runs after the barrier that follows
+// its last chunk (where the first tile's x2 is complete).
+struct ChunkTile {
+  static constexpr int NT = 256;               // threads per CTA
+  static constexpr int R = 8;                  // rows per thread
+  static constexpr int C = 8;                  // centers per thread a tile
+  static constexpr int TX = 16;                // threads along centers
+  static constexpr int BM = R * (NT / TX);     // 128 rows per CTA
+  static constexpr int BN = C * TX;            // 128 centers per tile
+  static constexpr int KC = 32;                // coordinates per chunk
+  static constexpr int XP = BM + 4;            // pitches of the d-major
+  static constexpr int CP = BN + 4;            // chunks (16-byte aligned)
+  static constexpr int NW = NT / 32;           // warps
+  static constexpr int FB = KC / 8;            // 8-coordinate blocks a chunk
+  static constexpr int XL = BM * KC / NT;      // x words a thread stages
+  static constexpr int CL = BN * KC / NT;      // center words a thread stages
+  static constexpr int RS = 4 * NW / FB;       // rows between them
+  // dynamic shared memory: two buffers of both chunks, the rows' x2
+  static constexpr int FLOATS = 2 * KC * (XP + CP) + BM;
+};
+static_assert(ChunkTile::KC % 8 == 0 && ChunkTile::NW % ChunkTile::FB == 0 &&
+                  ChunkTile::RS * ChunkTile::XL == ChunkTile::BM &&
+                  ChunkTile::RS * ChunkTile::CL == ChunkTile::BN &&
+                  ChunkTile::R == 8 && ChunkTile::C % 4 == 0,
+              "8-coordinate staging blocks, whole rows a warp; float4 reads "
+              "of the rows and of each group of 4 columns");
+
+// Rows r0 .. r0 + nr - 1 of x against all m centers (c2g: their norms, unused
+// by l1; sm: ChunkTile::FLOATS floats of shared memory).  Every thread of the
+// CTA calls it; on return thread (ty, 0) holds in best / bidx the (min,
+// argmin) of rows ty * 8 .. + 7 (a row whose every distance is +inf or NaN
+// keeps index 0), and the shared memory is free again.  Centers past m read
+// +inf (c2 = +inf for l2, coordinates +inf for l1) and never win.
+template <int METRIC, typename T>
+__device__ __forceinline__ void chunked_tile(const T* __restrict__ x,
+                                             const T* __restrict__ c,
+                                             const float* __restrict__ c2g,
+                                             long long r0, int nr, int m,
+                                             int d, float* sm,
+                                             float (&best)[ChunkTile::R],
+                                             int (&bidx)[ChunkTile::R]) {
+  using K = ChunkTile;
+  constexpr bool ASYNC = std::is_same<T, float>::value;
+  float* xs0 = sm;                          // [2][KC][XP]
+  float* cs0 = sm + 2 * K::KC * K::XP;      // [2][KC][CP]
+  float* x2s = cs0 + 2 * K::KC * K::CP;     // [BM]
+  const int tid = threadIdx.x, tx = tid % K::TX, ty = tid / K::TX;
+  // staging: lane (fl, rl) of warp w stages coordinate f0 + fc, fc = (w %
+  // FB) * 8 + fl, of rows (or centers) (w / FB) * 4 + rl + RS i: a warp reads
+  // 32-byte runs of four rows, and its shared words fall in 32 distinct banks
+  // (both pitches are 4 mod 32)
+  const int warp = tid >> 5, fl = tid & 7, rl = (tid >> 3) & 3;
+  const int fc = (warp % K::FB) * 8 + fl, rc = (warp / K::FB) * 4 + rl;
+  const int nch = (d + K::KC - 1) / K::KC;
+  const int steps = ((m + K::BN - 1) / K::BN) * nch;
+  float px[ASYNC ? 1 : K::XL], pc[ASYNC ? 1 : K::CL];
+  // step s: center tile s / nch, coordinates (s % nch) * KC .. + KC - 1;
+  // ASYNC: its words start into buffer b; else into registers
+  auto fetch = [&](int s, int b) {
+    const int tile = s / nch, f = (s - tile * nch) * K::KC + fc;
+    const bool fin = f < d;
+    const T* xg = x + (r0 + rc) * d + f;
+    const T* cg = c + (long long)(tile * K::BN + rc) * d + f;
+    float* xs = xs0 + b * K::KC * K::XP + fc * K::XP + rc;
+    float* cs = cs0 + b * K::KC * K::CP + fc * K::CP + rc;
+    const int jn = m - tile * K::BN;   // centers left from this tile on
+#pragma unroll
+    for (int i = 0; i < K::XL; ++i) {
+      const bool in = fin && rc + K::RS * i < nr;
+      if constexpr (ASYNC) {
+        if (in)
+          cp_async<4>(xs + K::RS * i, xg + (long long)K::RS * i * d);
+        else
+          xs[K::RS * i] = 0.0f;
+      } else {
+        px[i] = in ? load_f(xg, (long long)K::RS * i * d) : 0.0f;
+      }
+    }
+    const float pad = fin && METRIC == L1 ? inf_f() : 0.0f;
+#pragma unroll
+    for (int i = 0; i < K::CL; ++i) {
+      const bool in = fin && rc + K::RS * i < jn;
+      if constexpr (ASYNC) {
+        if (in)
+          cp_async<4>(cs + K::RS * i, cg + (long long)K::RS * i * d);
+        else
+          cs[K::RS * i] = pad;
+      } else {
+        pc[i] = in ? load_f(cg, (long long)K::RS * i * d) : pad;
+      }
+    }
+    if constexpr (ASYNC) asm volatile("cp.async.commit_group;\n" ::);
+  };
+  auto store = [&](int b) {  // the register path's words into buffer b
+    if constexpr (!ASYNC) {
+      float* xs = xs0 + b * K::KC * K::XP + fc * K::XP + rc;
+      float* cs = cs0 + b * K::KC * K::CP + fc * K::CP + rc;
+#pragma unroll
+      for (int i = 0; i < K::XL; ++i) xs[K::RS * i] = px[i];
+#pragma unroll
+      for (int i = 0; i < K::CL; ++i) cs[K::RS * i] = pc[i];
+    }
+  };
+
+  float acc[K::R][K::C], c2v[K::C], x2 = 0.0f;
+#pragma unroll
+  for (int r = 0; r < K::R; ++r) {
+    best[r] = inf_f();
+    bidx[r] = 0x7fffffff;
+  }
+  // column q of the thread's C in a tile: groups of 4, TX * 4 apart, so
+  // that a warp's float4 reads of a group are 16 consecutive ones
+  auto col = [&](int q) { return (q / 4) * (K::TX * 4) + tx * 4 + q % 4; };
+  // the distances of tile `tile` from acc, folded into (best, bidx)
+  auto epilogue = [&](int tile) {
+#pragma unroll
+    for (int q = 0; q < K::C; ++q) {
+      const int j = tile * K::BN + col(q);
+#pragma unroll
+      for (int r = 0; r < K::R; ++r) {
+        float v = acc[r][q];
+        if (METRIC != L1) v = finish_l2<METRIC>(x2s[ty * K::R + r], c2v[q], v);
+        if (v < best[r]) { best[r] = v; bidx[r] = j; }
+      }
+    }
+  };
+  fetch(0, 0);
+  store(0);
+  if constexpr (ASYNC) asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+  int tile = 0, ch = 0;
+  for (int s = 0; s < steps; ++s) {
+    const int b = s & 1;
+    if (s + 1 < steps) fetch(s + 1, b ^ 1);
+    if (ch == 0) {
+      if (tile > 0) epilogue(tile - 1);
+#pragma unroll
+      for (int r = 0; r < K::R; ++r)
+#pragma unroll
+        for (int q = 0; q < K::C; ++q) acc[r][q] = 0.0f;
+#pragma unroll
+      for (int q = 0; q < K::C; ++q) {
+        const int j = tile * K::BN + col(q);
+        c2v[q] = METRIC == L1 ? 0.0f : (j < m ? c2g[j] : inf_f());
+      }
+    }
+    const float* xs = xs0 + b * K::KC * K::XP;
+    const float* cs = cs0 + b * K::KC * K::CP;
+    const int kn = min(K::KC, d - ch * K::KC);
+    if (METRIC != L1 && tile == 0 && tid < K::BM) {  // row tid's x2
+      for (int f = 0; f < kn; ++f)
+        x2 = __fmaf_rn(xs[f * K::XP + tid], xs[f * K::XP + tid], x2);
+      if (ch == nch - 1) x2s[tid] = x2;
+    }
+#pragma unroll 4
+    for (int f = 0; f < kn; ++f) {
+      const float4 a0 =
+          *reinterpret_cast<const float4*>(xs + f * K::XP + ty * K::R);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(xs + f * K::XP + ty * K::R + 4);
+      const float xa[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      float cb[K::C];
+#pragma unroll
+      for (int g = 0; g < K::C / 4; ++g) {
+        const float4 cv = *reinterpret_cast<const float4*>(
+            cs + f * K::CP + g * (K::TX * 4) + tx * 4);
+        cb[4 * g] = cv.x;
+        cb[4 * g + 1] = cv.y;
+        cb[4 * g + 2] = cv.z;
+        cb[4 * g + 3] = cv.w;
+      }
+#pragma unroll
+      for (int r = 0; r < K::R; ++r)
+#pragma unroll
+        for (int q = 0; q < K::C; ++q) {
+          if (METRIC == L1)
+            acc[r][q] = __fadd_rn(acc[r][q], fabsf(__fsub_rn(xa[r], cb[q])));
+          else
+            acc[r][q] = __fmaf_rn(xa[r], cb[q], acc[r][q]);
+        }
+    }
+    if (++ch == nch) {
+      ch = 0;
+      ++tile;
+    }
+    if (s + 1 < steps) store(b ^ 1);
+    if constexpr (ASYNC) asm volatile("cp.async.wait_group 0;\n" ::);
+    __syncthreads();
+  }
+  epilogue(tile - 1);
+  // the TX threads of a row group are TX consecutive lanes
+#pragma unroll
+  for (int r = 0; r < K::R; ++r) {
+#pragma unroll
+    for (int sh = K::TX / 2; sh > 0; sh >>= 1) {
+      const float ob = __shfl_xor_sync(0xffffffffu, best[r], sh);
+      const int oi = __shfl_xor_sync(0xffffffffu, bidx[r], sh);
+      lex_min(best[r], bidx[r], ob, oi);
+    }
+    if (bidx[r] == 0x7fffffff) bidx[r] = 0;
+  }
+  __syncthreads();  // x2s read by every row group: free for the next call
+}
+
 // Compile-time dispatch over the padded width, metric and input type.
 template <typename F>
 void dispatch_dp(int d, F&& f) {

@@ -41,7 +41,11 @@ metric, platform, dtype, n, m, d), so it counts on a memo miss: one per
 distinct resolution, the counterpart of one trace.  A per-call count would
 cost the serving read host time it cannot spare.  The memo is dropped when
 a new default metrics registry is installed, so each registry counts the
-resolutions made under it.
+resolutions made under it.  ``kernels.pairs{op=,route=}``
+(:func:`count_pairs`) adds up the (row, center) pairs each ``min_argmin``
+and ``lloyd_step`` call asks for, by the route that serves it, while a
+``torch.profiler`` records (``obs.detail_on()``); otherwise it costs that
+one check.
 
 The fourth kernel, the chunked WKV6 forward (``kernels/wkv``), is not an op
 of this registry, as in the reference: the RWKV6 block routes to it by
@@ -292,6 +296,14 @@ def resolve(op: str, policy: Optional[KernelPolicy] = None, *, metric: str,
     """Registry lookup: (registration, block_n) for one concrete call."""
     reg, bn, _ = _resolved(op, policy, metric, n, m, d, dtype, platform)
     return reg, bn
+
+
+def count_pairs(op: str, route: str, n: int, m: int) -> None:
+    """Add a call's n m (row, center) pairs to ``kernels.pairs{op=,
+    route=}``: the distance work it asks for (module docstring).  The
+    caller asks :func:`obs.detail_on` first."""
+    obs.get_default_registry().counter("kernels.pairs", op=op,
+                                       route=route).inc(n * m)
 
 
 def resolve_tiles(op: str, policy: Optional[KernelPolicy] = None, *,

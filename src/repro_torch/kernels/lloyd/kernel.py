@@ -3,9 +3,9 @@
 Counterpart of ``repro.kernels.lloyd.kernel.lloyd_step_pallas``: l2sq / l2
 assignment plus deterministic weighted accumulation.  On a CUDA tensor it
 launches the kernel pair (assign + per-CTA partials, then the in-order
-reduce) on the current stream, or raises; on a CPU tensor it runs the
-plain torch version.  ``lloyd_step_cuda.launches`` counts calls that
-launched the kernels.
+reduce; on the chunked route the centers' norms first) on the current
+stream, or raises; on a CPU tensor it runs the plain torch version.
+``lloyd_step_cuda.launches`` counts calls that launched the kernels.
 
 A call does the least host work that still checks what the kernels take:
 the launch shape from :func:`lloyd_plan`, cached per (n, k, d); one
@@ -20,8 +20,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.pdist.kernel import (DTYPE_CODES, METRIC_CODES,
-                                              check_operands, padded_width)
+from repro_torch.kernels.pdist.kernel import (CK_SMEM, DTYPE_CODES,
+                                              METRIC_CODES, check_operands,
+                                              padded_width)
 
 LLOYD_METRICS = ("l2sq", "l2")
 # lloyd.cu: LloydRoute.  "centers" and "rows" are the warp route's two ways
@@ -30,8 +31,13 @@ LLOYD_METRICS = ("l2sq", "l2")
 # order) above.  On an H100 (chip_smoke.py's Lloyd ladder, PERF.md) by
 # center won up to k = 6 at kdd's d = 34 and up to k = 3 at gauss's d = 5;
 # FEW_CENTERS = 4 takes each second level's faster way (k = 3 and 100).
-ROUTES = ("centers", "rows", "serial")
+ROUTES = ("centers", "rows", "serial", "chunked")
 FEW_CENTERS = 4
+# Past this width every call takes the chunked route: the assignment by
+# pdist.cu's chunked tile (a row a thread in registers does not fit), the
+# serial route's accumulation.
+CHUNKED_FROM_D = 161
+CHUNK_THREADS = 256             # pdist_common.cuh: ChunkTile::NT
 # At most this many CTAs: a CTA owns ceil(tiles / MAX_CTAS) whole tiles and
 # double-buffers them, and two such CTAs fit on each of an H100's 132 SMs.
 # So the kdd and gauss second levels run as one wave (263 and 235 CTAs of 13
@@ -47,7 +53,8 @@ class LloydPlan(NamedTuple):
     route: str         # one of ROUTES
     rows: int          # rows of x per CTA: whole tiles of `threads` rows
     grid: int          # CTAs, hence partials per word
-    threads: int       # threads per CTA (Tile<DP>::NT), one row each
+    threads: int       # threads per CTA (Tile<DP>::NT), one row each;
+                       # the chunked route's 256 take 128 rows at a time
     smem_bytes: int    # dynamic shared memory per CTA
 
 
@@ -61,17 +68,23 @@ def lloyd_plan(n: int, k: int, d: int, route=None) -> LloydPlan:
     shared memory: two buffers of the CTA's rows at a pitch of DP + 4 words
     and their weights, the k centers and their norms, and the partials:
     one (k, d + 1) block per warp ("centers", for k <= FEW_CENTERS), or
-    per half-warp ("rows", above).  Otherwise (d > 160, or k (d + 1) too
+    per half-warp ("rows", above).  Where they do not fit (k (d + 1) too
     large) the serial route, whose per-CTA partial lives in shared memory
-    up to SERIAL_ACC_WORDS words and in the scratch beyond.  A named
-    ``route`` (to measure the routes against each other) is taken as it
-    is, or raises where its blocks do not fit."""
+    up to SERIAL_ACC_WORDS words and in the scratch beyond.  From
+    CHUNKED_FROM_D the chunked route: CTAs of CHUNK_THREADS threads assign
+    128 rows at a time (the split's rows are a multiple of it) and keep
+    the partial as the serial route does, after the chunked tile's shared
+    memory.  A named ``route`` (to measure the routes against each other)
+    is taken as it is, or raises where its blocks do not fit."""
     dp = padded_width(d)
     nt = 128 if dp > 128 else 256
     tiles = -(-n // nt)
     rows = nt * max(1, -(-tiles // MAX_CTAS))
     grid = -(-n // rows)
     k1 = k * (d + 1)
+    acc = 4 * k1 if k1 <= SERIAL_ACC_WORDS else 0
+    if route == "chunked" or (route is None and d >= CHUNKED_FROM_D):
+        return LloydPlan("chunked", rows, grid, CHUNK_THREADS, CK_SMEM + acc)
     way = route or ("centers" if k <= FEW_CENTERS else "rows")
     if way != "serial" and dp:
         parts = nt // 32 * (2 if way == "rows" else 1)
@@ -81,8 +94,7 @@ def lloyd_plan(n: int, k: int, d: int, route=None) -> LloydPlan:
     if route not in (None, "serial"):
         raise ValueError(f"lloyd_plan: route {route!r} does not fit "
                          f"(n, k, d) = {(n, k, d)}; routes {ROUTES}")
-    smem = 4 * k1 if k1 <= SERIAL_ACC_WORDS else 0
-    return LloydPlan("serial", rows, grid, nt, smem)
+    return LloydPlan("serial", rows, grid, nt, acc)
 
 
 def split_outputs(buf: torch.Tensor, n: int, k: int, d: int):
@@ -133,8 +145,9 @@ def _launch_route(route, x: torch.Tensor, w: torch.Tensor, c: torch.Tensor,
         return out
     plan = (route if isinstance(route, LloydPlan)
             else lloyd_plan(n, k, d, route))
-    part = torch.empty((plan.grid * k * (d + 1),), dtype=torch.float32,
-                       device=x.device)
+    part = torch.empty((plan.grid * k * (d + 1)
+                        + (k if plan.route == "chunked" else 0),),
+                       dtype=torch.float32, device=x.device)
     sums, counts, assign, dist = out
     fn = _build.bind("lloyd", "rt_lloyd_step", 8, 8)
     err = fn(x.data_ptr(), w.data_ptr(), c.data_ptr(), sums.data_ptr(),

@@ -17,9 +17,11 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.dispatch import KernelPolicy
-from repro_torch.kernels.lloyd.kernel import LLOYD_METRICS, lloyd_step_cuda
+from repro_torch.kernels.lloyd.kernel import (LLOYD_METRICS, lloyd_plan,
+                                              lloyd_step_cuda)
 from repro_torch.kernels.lloyd.ref import lloyd_step_ref
 from repro_torch.kernels.pdist.kernel import DTYPE_CODES
 from repro_torch.kernels.pdist.ops import min_argmin, min_argmin_blocked
@@ -106,12 +108,20 @@ dispatch.register(
 
 def lloyd_step(x, w, c, *, metric: str = "l2sq",
                policy: Optional[KernelPolicy] = None):
-    """Returns (sums (k,d), counts (k,), assignment (n,) int32, dist (n,))."""
+    """Returns (sums (k,d), counts (k,), assignment (n,) int32, dist (n,)).
+    Counted in ``kernels.pairs`` (``dispatch.count_pairs``) under the CUDA
+    route or ``ref``; on the blocked path its assignment, a ``min_argmin``
+    call, counts its pairs."""
     n, d = x.shape
+    k = c.shape[0]
+    platform = dispatch.platform_of(x)
     policy = dispatch.resolve_policy(policy)
     reg, bn = dispatch.resolve("lloyd_step", policy, metric=metric, n=n,
-                               m=c.shape[0], d=d, dtype=x.dtype,
-                               platform=dispatch.platform_of(x))
+                               m=k, d=d, dtype=x.dtype, platform=platform)
+    if obs.detail_on() and reg.name != "blocked":
+        dispatch.count_pairs(
+            "lloyd_step", lloyd_plan(n, k, d).route
+            if reg.name == "cuda" and platform == "cuda" else reg.name, n, k)
     if reg.name == "blocked":
         # the assignment follows the same policy: kernel A for l1 on the
         # card, the blocked torch path on the CPU or under backend="blocked";

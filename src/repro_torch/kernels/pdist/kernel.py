@@ -27,7 +27,7 @@ from repro_torch.kernels import _build
 METRIC_CODES = {"l2sq": 0, "l2": 1, "l1": 2}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _INT_MAX = 2**31 - 1
-ROUTES = ("rowscan", "tiled")
+ROUTES = ("rowscan", "tiled", "chunked")
 # pdist_common.cuh: dispatch_dp's padded widths (0: the generic path, d > 256)
 PADDED_WIDTHS = (8, 16, 24, 32, 40, 48, 64, 96, 128, 160, 256)
 # The least m of the tiled route, as (least d, least m) bands, for d up to
@@ -45,6 +45,27 @@ TILED_MIN_M = ((34, 176), (16, 240), (1, 400))
 TILED_MAX_D = 64
 # pdist.cu's tiled route: rows per CTA and centers per tile
 TL_BM, TL_BN = 128, 64
+# The chunked route (pdist.cu: rt_min_argmin_chunked, the tiled route's
+# SIMT tile with d streamed in chunks) takes every call past CHUNKED_ALL_D,
+# whatever m: the small-m route's generic width reads each row from global
+# memory again for every center.  Between TILED_MAX_D and CHUNKED_ALL_D
+# its least m, as (least d, least m) bands.  On an H100 (chip_smoke.py's
+# wide route ladder, n = 62,500 unit rows, device us per call from a CUDA
+# graph, PERF.md) the small-m route won up to m = 64 and lost from 96 at
+# d = 65 (35.9 / 43.9 us, 51.3 / 44.7), up to 48 and from 64 at d = 96,
+# up to 32 and from 48 at d = 128, up to 64 and from 96 at d = 160 (and
+# again at m = 160, by 10%: 160 centers fill two 128-center tiles), up to
+# 8 and from 16 at d = 200 and up to 16 and from 32 at d = 256; at
+# m = 256 it took 1.6-4.6 ms past d = 160 (its widest padded width, 256,
+# holds one row a thread in 256 registers) against the chunked route's
+# 0.08-0.30 ms.  Each band takes the crossing of the d it starts at, by
+# linear interpolation between the two rungs, rounded up to a multiple of
+# 8; the last band, the larger of its two ends' (d = 256: 19, so 24).
+CHUNKED_MIN_M = ((200, 24), (160, 88), (128, 48), (96, 56), (65, 88))
+CHUNKED_ALL_D = 256
+# pdist_common.cuh: ChunkTile's rows per CTA, centers per tile and dynamic
+# shared memory
+CK_BM, CK_BN, CK_SMEM = 128, 128, 68_096
 
 SMS = 132                     # streaming multiprocessors of an H100
 SMEM_MAX = 232_448            # dynamic shared memory a CTA may opt in to
@@ -71,15 +92,27 @@ def tiled_min_m(d: int):
     return next(m for least_d, m in TILED_MIN_M if d >= least_d)
 
 
+def chunked_min_m(d: int):
+    """The least m of the chunked route at width d (1 past
+    CHUNKED_ALL_D); None where the tiled route takes d."""
+    if d <= TILED_MAX_D:
+        return None
+    if d > CHUNKED_ALL_D:
+        return 1
+    return next(m for least_d, m in CHUNKED_MIN_M if d >= least_d)
+
+
 def route(n: int, m: int, d: int, metric: str = "l2sq"):
     """The CUDA route for an (n, m, d) call: ``"tiled"`` for m >=
-    :func:`tiled_min_m` (d), else ``"rowscan"``; None for a metric with no
-    CUDA kernel (cosine stays on the plain path)."""
+    :func:`tiled_min_m` (d), ``"chunked"`` for m >= :func:`chunked_min_m`
+    (d), else ``"rowscan"``; None for a metric with no CUDA kernel (cosine
+    stays on the plain path)."""
     if metric not in METRIC_CODES:
         return None
-    least = tiled_min_m(d)
-    if n > 0 and least is not None and m >= least:
-        return "tiled"
+    if n > 0 and d >= 1:
+        least = tiled_min_m(d) or chunked_min_m(d)
+        if m >= least:
+            return "tiled" if d <= TILED_MAX_D else "chunked"
     return "rowscan"
 
 
@@ -174,12 +207,16 @@ def launch_plan(n: int, m: int, d: int, how=None) -> LaunchPlan:
     as the SMs hold at once, up to one per tile (chip_smoke.py's plan
     ladder measures these choices against the others).  The tiled route
     keeps its fixed shape (128-row CTAs, 64-center tiles; ``pdist.cu``
-    sizes its shared memory); the generic width (d > 256) its 256-row
-    CTAs."""
+    sizes its shared memory), the chunked route its own (128-row CTAs,
+    128-center tiles, fixed shared memory); the generic width (d > 256,
+    the small-m route named) its 256-row CTAs."""
     way = how or route(n, m, d)
     dp = padded_width(d)
     if way == "tiled":
         return LaunchPlan("tiled", TL_BM, -(-n // TL_BM), 0, TL_BN, 0)
+    if way == "chunked":
+        return LaunchPlan("chunked", CK_BM, -(-n // CK_BM), CK_SMEM, CK_BN,
+                          0)
     if dp == 0:
         return LaunchPlan("rowscan", 256, -(-n // 256), 0, m, 0)
     nt = 128 if dp > 128 else 256
@@ -232,14 +269,14 @@ def _launch(kern, x: torch.Tensor, c: torch.Tensor, *, metric: str = "l2sq"):
 
 def _launch_route(how, x: torch.Tensor, c: torch.Tensor, *,
                   metric: str = "l2sq"):
-    """The kernel on route ``how``: None for :func:`route`'s choice,
-    ``"rowscan"`` or ``"tiled"`` (a measurement of the routes against each
-    other), with no launch counted: :func:`min_argmin_cuda` calls it with
-    None.  On a CPU tensor it is the plain version.
+    """The kernel on route ``how``: None for :func:`route`'s choice, or
+    one of ROUTES (a measurement of the routes against each other), with
+    no launch counted: :func:`min_argmin_cuda` calls it with None.  On a
+    CPU tensor it is the plain version.
 
     One float32 buffer per call, fresh on every call (a caller may keep the
     previous results): ``dist``, ``idx`` (an int32 view) and, on the tiled
-    route, its m words of center norms."""
+    and chunked routes, their m words of center norms."""
     if x.device.type == "cpu":
         from repro_torch.kernels.pdist.ops import min_argmin_blocked
         return min_argmin_blocked(x, c, metric=metric)
@@ -251,10 +288,10 @@ def _launch_route(how, x: torch.Tensor, c: torch.Tensor, *,
                          f"d = {d}; routes {ROUTES}, tiled for d <= "
                          f"{TILED_MAX_D}")
     plan = launch_plan(n, m, d, how)
-    if plan.route == "tiled":
+    if plan.route != "rowscan":
         buf = torch.empty((2 * n + m,), dtype=torch.float32, device=x.device)
         ptr = buf.data_ptr()
-        fn = _build.bind("pdist", "rt_min_argmin_tiled", 5, 5)
+        fn = _build.bind("pdist", f"rt_min_argmin_{plan.route}", 5, 5)
         err = fn(x.data_ptr(), c.data_ptr(), ptr + 8 * n, ptr, ptr + 4 * n,
                  n, m, d, METRIC_CODES[metric], DTYPE_CODES[x.dtype],
                  _build.stream_ptr(x))

@@ -19,10 +19,11 @@ from typing import Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.dispatch import KernelPolicy
 from . import ref as _ref
-from .kernel import DTYPE_CODES, min_argmin_cuda
+from .kernel import DTYPE_CODES, min_argmin_cuda, route
 
 _DEFAULT_BLOCK_N = 16384
 # the reference's blocked candidates; the cuda kernel's tiles are fixed
@@ -101,9 +102,16 @@ dispatch.register(
 def min_argmin(x: torch.Tensor, c: torch.Tensor, *, metric: str = "l2sq",
                policy: Optional[KernelPolicy] = None):
     """For each row of ``x`` (n, d): distance to the nearest row of ``c``
-    (m, d) and its index. Returns (dist (n,) f32, idx (n,) int32)."""
+    (m, d) and its index. Returns (dist (n,) f32, idx (n,) int32).  Counted
+    in ``kernels.pairs`` (``dispatch.count_pairs``) under the CUDA route or
+    the backend's name."""
     n, d = x.shape
+    m = c.shape[0]
+    platform = dispatch.platform_of(x)
     reg, bn = dispatch.resolve("min_argmin", policy, metric=metric, n=n,
-                               m=c.shape[0], d=d, dtype=x.dtype,
-                               platform=dispatch.platform_of(x))
+                               m=m, d=d, dtype=x.dtype, platform=platform)
+    if obs.detail_on():
+        dispatch.count_pairs(
+            "min_argmin", route(n, m, d, metric)
+            if reg.name == "cuda" and platform == "cuda" else reg.name, n, m)
     return reg.impl(x, c, metric=metric, block_n=bn)

@@ -60,11 +60,20 @@ Every ``sampler.draw`` also adds to the ``sampler.draws{caller}`` and
 reads; draws: how often each caller drew), and a categorical draw made on
 a CUDA device to ``sampler.card_draws{caller}``: does every caller's draw
 stay on the card, or does one (a sampler that draws on the host, logits
-left on the CPU) copy its ids over?  No span synchronises with the
-device: a span around asynchronous work times the host's side, and the
-device's side is read from the kernels that fall inside it on the
-profiler's device rows.  Spans are stamped with :func:`now`, a monotonic
-clock on ``torch.profiler``'s time line.
+left on the CPU) copy its ids over?  The kernel ops add to
+``kernels.pairs{op, route}`` (``kernels/dispatch.py``: ``count_pairs``):
+the n m (row, center) pairs of each ``min_argmin`` and ``lloyd_step`` call,
+by the route that served it (``rowscan``, ``tiled``, ``chunked`` on the
+card, and the Lloyd step's ``centers``, ``rows``, ``serial``, ``chunked``;
+``blocked`` or ``ref`` off it, where a blocked Lloyd step counts as its
+assignment's ``min_argmin``): how much distance work a fit asks for, and
+on which route?  The generic width's per-thread scan (d > 256) is reached
+only by naming a route, as the route ladders do, so no counted call is
+its.  Like ``sampler.rows``, it counts only while a span is live.  No span
+synchronises with the device: a span around asynchronous work times the
+host's side, and the device's side is read from the kernels that fall
+inside it on the profiler's device rows.  Spans are stamped with
+:func:`now`, a monotonic clock on ``torch.profiler``'s time line.
 
 **Beside a profiler trace in Perfetto.**  Export the profiler's trace
 (``prof.export_chrome_trace("prof.json")``), read its

@@ -2,12 +2,17 @@
 large-m route, ``csrc/wkv.cu``'s V-sliced chunk sweep and first pass),
 against the reference where there is one.
 
-* ``route``: the plain Python choice between min_argmin's two CUDA routes.
+* ``route``: the plain Python choice among min_argmin's three CUDA routes
+  (the chunked one past d = 64).
 * The tiled route's tie rule: per-thread strict-``<`` scans over the
   thread's columns, then a lexicographic (dist, idx) minimum over the
   threads, is the sequential strict-``<`` scan (emulated here in numpy with
   the kernel's column partition; the kernel itself is held to the rowscan
-  route bit for bit on the card by ``chip_smoke.py``).
+  route bit for bit on the card by ``chip_smoke.py``).  The chunked route's
+  too, with d cut into its chunks: its partial sums carried across the
+  chunks are the unchunked chains (emulated in float32 numpy; on the card
+  ``tests/test_torch_chunked_chip.py`` holds the kernel to both routes bit
+  for bit).
 * The WKV grid's decomposition: the columns of S and o along V are
   independent, so the plain version on each V-slice of s0 and v (the other
   columns zero) gives that slice of the whole; held against
@@ -26,7 +31,10 @@ import pytest
 import torch
 
 from repro.kernels.wkv.kernel import wkv_forward_pallas
-from repro_torch.kernels.pdist.kernel import (TILED_MAX_D, _launch_route,
+from repro_torch.kernels.pdist.kernel import (CHUNKED_ALL_D, CK_BM, CK_BN,
+                                              CK_SMEM, TILED_MAX_D,
+                                              LaunchPlan, _launch_route,
+                                              chunked_min_m, launch_plan,
                                               min_argmin_cuda, route,
                                               tiled_min_m)
 from repro_torch.kernels.pdist.ops import min_argmin_blocked
@@ -54,9 +62,13 @@ torch.set_num_threads(1)
     (10, 400, 1, "l2sq", "tiled"),
     (10, 399, 15, "l1", "rowscan"),
     (10, 5000, TILED_MAX_D, "l2sq", "tiled"),
-    (10, 5000, TILED_MAX_D + 1, "l2sq", "rowscan"),
-    (10, 5000, 130, "l1", "rowscan"),
+    (10, 5000, TILED_MAX_D + 1, "l2sq", "chunked"),
+    (10, 5000, 130, "l1", "chunked"),
+    (62_500, 200, 768, "l2sq", "chunked"),     # curation's Alg. 1 round
+    (62_500, 10_801, 768, "l2sq", "chunked"),  # curation's reassignment
+    (10, 2, 300, "l2", "chunked"),
     (0, 5000, 34, "l2sq", "rowscan"),
+    (0, 5000, 768, "l2sq", "rowscan"),
     (10, 5000, 34, "cosine", None),             # no CUDA kernel at all
 ])
 def test_pdist_route_picks_tiled_only_above_threshold(n, m, d, metric, want):
@@ -71,13 +83,40 @@ def test_pdist_tiled_threshold_never_rises_with_d():
     assert tiled_min_m(0) is None and tiled_min_m(TILED_MAX_D + 1) is None
 
 
+@pytest.mark.parametrize("m", [1, 100, 10_000])
+@pytest.mark.parametrize("d", [257, 384, 768, 1024])
+def test_pdist_route_takes_chunked_past_256_whatever_m(d, m):
+    n = 62_500
+    assert chunked_min_m(d) == 1 and tiled_min_m(d) is None
+    assert route(n, m, d) == "chunked"
+    assert launch_plan(n, m, d) == LaunchPlan(
+        "chunked", CK_BM, -(-n // CK_BM), CK_SMEM, CK_BN, 0)
+
+
+def test_pdist_chunked_threshold_between_the_tiled_widths_and_256():
+    """Past d = 64 the small-m route keeps only small m, at no width more
+    of them than the tiled route keeps at d = 64 (the ladder's crossings:
+    PERF.md), the fewest at the widest band; past CHUNKED_ALL_D it keeps
+    none."""
+    least = [chunked_min_m(d) for d in range(TILED_MAX_D + 1,
+                                             CHUNKED_ALL_D + 1)]
+    assert all(1 <= m <= tiled_min_m(TILED_MAX_D) for m in least)
+    assert least[-1] == min(least)
+    assert [chunked_min_m(d) for d in (65, 95, 96, 128, 160, 199, 200)] == [
+        88, 88, 56, 48, 88, 88, 24]
+    for d in (TILED_MAX_D + 1, 130, CHUNKED_ALL_D):
+        m = chunked_min_m(d)
+        assert route(10, m - 1, d) == "rowscan"
+        assert route(10, m, d) == "chunked"
+
+
 def test_force_route_on_cpu_is_the_plain_version():
     rng = np.random.default_rng(3)
     x = torch.as_tensor(rng.normal(size=(300, 34)).astype(np.float32))
     c = torch.as_tensor(rng.normal(size=(700, 34)).astype(np.float32))
     before = min_argmin_cuda.launches
     dp, ap = min_argmin_blocked(x, c)
-    for how in ("tiled", "rowscan", None):
+    for how in ("tiled", "rowscan", "chunked", None):
         d, a = _launch_route(how, x, c)
         assert torch.equal(a, ap) and torch.equal(d, dp)
     d, a = min_argmin_cuda(x, c)
@@ -95,17 +134,25 @@ def _sequential_scan(dist):
     return best, idx
 
 
-def _tiled_scan(dist, tile=64, per_thread=4):
+def _chunked_owner(j):
+    """The chunked route's thread (of 16) for column j: columns tx * 4 ..
+    + 3 and 64 + tx * 4 .. + 3 of every tile of 128."""
+    return (j % 64) // 4
+
+
+def _tiled_scan(dist, tile=64, per_thread=4, owner=None):
     """The tiled kernel's order: thread tx owns columns tx * 4 .. tx * 4 + 3
-    of every tile of 64, scans them in index order with a strict <, and the
-    16 threads of a row are reduced by the lexicographic (dist, idx)
-    minimum (index sentinel: none found, then 0)."""
+    of every tile of 64 (or those ``owner`` gives it), scans them in index
+    order with a strict <, and the 16 threads of a row are reduced by the
+    lexicographic (dist, idx) minimum (index sentinel: none found, then
+    0)."""
     n, m = dist.shape
     threads = tile // per_thread
+    owner = owner or (lambda j: (j % tile) // per_thread)
     sentinel = np.iinfo(np.int64).max
     bests, idxs = [], []
     for tx in range(threads):
-        cols = [j for j in range(m) if (j % tile) // per_thread == tx]
+        cols = [j for j in range(m) if owner(j) == tx]
         b = np.full(n, np.inf, np.float32)
         i = np.full(n, sentinel)
         for j in cols:
@@ -140,6 +187,53 @@ def test_tiled_reduction_is_the_sequential_scan(case):
     np.testing.assert_array_equal(got_d, want_d)
     if case == "ties":
         assert want_i[0] == 17 and want_i[3] == 0
+
+
+def _fma_chains(x, c, chunk=None):
+    """float32 distances x2 + c2 - 2 x.c (max 0) with every sum one chain
+    over f in order, step by step in float32; ``chunk``: the chunked
+    route's order, the partials carried from each chunk of coordinates to
+    the next (x2 summed in the first tile's chunks), else one pass."""
+    n, d = x.shape
+    bounds = [(0, d)] if chunk is None else [
+        (f0, min(d, f0 + chunk)) for f0 in range(0, d, chunk)]
+    dot = np.zeros((n, c.shape[0]), np.float32)
+    x2 = np.zeros(n, np.float32)
+    c2 = np.zeros(c.shape[0], np.float32)
+    for f0, f1 in bounds:
+        for f in range(f0, f1):
+            dot = (dot + np.float32(x[:, f:f + 1] * c[None, :, f])
+                   ).astype(np.float32)
+            x2 = (x2 + x[:, f] * x[:, f]).astype(np.float32)
+            c2 = (c2 + c[:, f] * c[:, f]).astype(np.float32)
+    dist = (x2[:, None] + c2[None, :]).astype(np.float32) \
+        - np.float32(2.0) * dot
+    return np.maximum(dist.astype(np.float32), np.float32(0.0))
+
+
+@pytest.mark.parametrize("d", [3, 32, 33, 100])
+def test_chunked_reduction_is_the_sequential_scan(d):
+    """The chunked route's order (chunks of 32 coordinates, the partials
+    carried across them, then its column partition and the lexicographic
+    minimum) gives the unchunked chains' distances and the sequential
+    strict-< scan's index, planted ties included: duplicate centers in one
+    thread's columns (5, 6 and 69), across tiles (130) and in the ragged
+    last tile, and rows equal to them."""
+    rng = np.random.default_rng(d)
+    x = rng.integers(-2, 3, size=(40, d)).astype(np.float32)
+    c = rng.integers(-2, 3, size=(203, d)).astype(np.float32)
+    c[6] = c[69] = c[130] = c[5]
+    c[202] = c[7]
+    x[0], x[1] = c[5], c[7]
+    dist = _fma_chains(x, c, chunk=32)
+    np.testing.assert_array_equal(dist, _fma_chains(x, c))
+    want_d, want_i = _sequential_scan(dist)
+    assert _chunked_owner(5) == _chunked_owner(6) == _chunked_owner(69)
+    got_d, got_i = _tiled_scan(dist, tile=128, owner=_chunked_owner)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got_d, want_d)
+    assert got_i[0] == 5 and got_i[1] == 7
+    assert len(set(dist[2].tolist())) < dist.shape[1]     # ties happen
 
 
 # ------------------------------------------------------------------ WKV

@@ -15,10 +15,11 @@ import pytest
 import torch
 
 from repro.kernels.lloyd.kernel import lloyd_step_pallas
-from repro_torch.kernels.lloyd.kernel import (FEW_CENTERS, MAX_CTAS, ROUTES,
-                                              SMEM_MAX, LloydPlan,
-                                              lloyd_plan, lloyd_step_cuda,
-                                              split_outputs)
+from repro_torch.kernels.lloyd.kernel import (CHUNKED_FROM_D, FEW_CENTERS,
+                                              MAX_CTAS, ROUTES, SMEM_MAX,
+                                              LloydPlan, lloyd_plan,
+                                              lloyd_step_cuda, split_outputs)
+from repro_torch.kernels.pdist.kernel import CK_SMEM
 from repro_torch.kernels.lloyd.ops import lloyd_step, lloyd_step_blocked
 from repro_torch.kernels.pdist.kernel import padded_width
 
@@ -43,8 +44,11 @@ PLANS = {
     (1025, 20, 130): ("serial", 128, 9),               # rows' blocks too big
     (874_751, 100, 34): ("serial", 13 * 256, 263),     # rows' blocks too big
     (3001, 2048, 130): ("serial", 128, 24),            # k2048_d130
-    (517, 65, 300): ("serial", 256, 3),                # generic width
-    (600, 3, 200): ("serial", 128, 5),                 # d > 160: two tiles
+    (517, 65, 300): ("chunked", 256, 3),               # generic width
+    (600, 3, 200): ("chunked", 128, 5),                # d > 160: two tiles
+    (366_000, 100, 768): ("chunked", 6 * 256, 239),    # curation's level
+    (151_962, 100, 18): ("rows", 3 * 256, 198),        # susy second level
+    (1_460_000, 3, 34): ("centers", 22 * 256, 260),    # kdd4 second level
 }
 
 
@@ -54,14 +58,22 @@ def test_lloyd_plan(shape):
     plan = lloyd_plan(n, k, d)
     assert isinstance(plan, LloydPlan)
     assert (plan.route, plan.rows, plan.grid) == PLANS[shape]
-    assert plan.rows % plan.threads == 0
+    # whole tiles: of `threads` rows, of 128 on the chunked route
+    assert plan.rows % (128 if plan.route == "chunked" else plan.threads) == 0
     assert plan.grid * plan.rows >= n
     assert n == 0 or (plan.grid - 1) * plan.rows < n
     assert plan.grid <= MAX_CTAS
     dp = padded_width(d)
-    assert plan.threads == (128 if dp > 128 else 256)
+    assert plan.threads == (256 if plan.route == "chunked"
+                            else 128 if dp > 128 else 256)
     assert 0 <= plan.smem_bytes <= SMEM_MAX
-    if plan.route != "serial":
+    k1 = k * (d + 1)
+    if plan.route == "chunked":
+        # pdist_common.cuh's chunked tile, then the serial route's partial
+        # (in shared memory up to 96 KB) over whole 128-row tiles
+        assert d >= CHUNKED_FROM_D and plan.rows % 128 == 0
+        assert plan.smem_bytes == CK_SMEM + (4 * k1 if k1 <= 24_576 else 0)
+    elif plan.route != "serial":
         # lloyd.cu: two buffers of xs (NT x (DP + 4)) and ws (NT) | k
         # centers and norms | one (k, d + 1) partial per warp, per half-warp
         # above FEW_CENTERS
@@ -73,7 +85,6 @@ def test_lloyd_plan(shape):
     else:
         # the per-CTA partial in shared memory up to 96 KB, else global;
         # plus RowScan's static tiles
-        k1 = k * (d + 1)
         assert plan.smem_bytes == (4 * k1 if k1 <= 24_576 else 0)
         tm = 16 if dp > 128 else (32 if dp > 64 else 64)
         static = 4 * (tm * max(dp, 1) + tm + 2 * plan.threads)
@@ -102,6 +113,18 @@ def test_lloyd_split_depends_on_n_and_d_only(n, d):
     assert len(splits) == 1
 
 
+@pytest.mark.parametrize("d", [161, 200, 256, 257, 768, 1024])
+@pytest.mark.parametrize("k", [1, 3, 100, 2048])
+def test_lloyd_plan_sends_past_160_to_the_chunked_assignment(d, k):
+    n = 366_000
+    plan = lloyd_plan(n, k, d)
+    assert plan.route == "chunked"
+    assert plan.threads == 256 and plan.rows % 128 == 0
+    # the serial route's split of rows over CTAs, so its sums' terms
+    assert plan[1:3] == lloyd_plan(n, k, d, "serial")[1:3]
+    assert lloyd_plan(n, k, 160).route != "chunked"
+
+
 @pytest.mark.parametrize("n, k, d", [(874_751, 3, 34), (180_040, 100, 5),
                                      (1025, 20, 130), (517, 65, 300)])
 def test_lloyd_plan_named_route(n, k, d):
@@ -116,7 +139,9 @@ def test_lloyd_plan_named_route(n, k, d):
             assert routed.route != route
             continue
         assert plan.route == route
-        assert plan[1:4] == routed[1:4]
+        assert plan[1:3] == routed[1:3]
+        if "chunked" not in (route, routed.route):   # 256 threads always
+            assert plan.threads == routed.threads
         assert plan.smem_bytes <= SMEM_MAX
     assert lloyd_plan(n, k, d, routed.route) == routed
 

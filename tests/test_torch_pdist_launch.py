@@ -20,8 +20,9 @@ import torch
 
 from repro.kernels.pdist.kernel import min_argmin_pallas
 from repro_torch.kernels.pdist import kernel as pk
-from repro_torch.kernels.pdist.kernel import (PADDED_WIDTHS, SMEM_MAX, SMS,
-                                              TILED_MAX_D, LaunchPlan,
+from repro_torch.kernels.pdist.kernel import (CK_SMEM, PADDED_WIDTHS,
+                                              SMEM_MAX, SMS, TILED_MAX_D,
+                                              LaunchPlan, chunked_min_m,
                                               launch_plan, min_argmin_cuda,
                                               padded_width, route,
                                               split_outputs, tiled_min_m)
@@ -37,10 +38,11 @@ WIDTHS = (1, 5, 16, 24, 32, 34, 48, 64, 65, 128, 130, 256, 300)
 
 
 def _small_ms(d):
-    """Center counts of the small-m route at width d: 3 and, where the
-    tiled route takes d, one below its threshold (else 2,048)."""
-    least = tiled_min_m(d)
-    return (3, least - 1 if least else 2_048)
+    """Center counts of the small-m route at width d: 3 and one below the
+    tiled or chunked route's threshold (none past d = 256, where the
+    chunked route takes every m)."""
+    least = tiled_min_m(d) or chunked_min_m(d)
+    return tuple(m for m in (3, least - 1) if 1 <= m < least)
 
 
 def _smem(rows, mc, d, dp, nbuf):
@@ -54,13 +56,16 @@ def _smem(rows, mc, d, dp, nbuf):
 @pytest.mark.parametrize("d", WIDTHS)
 def test_launch_plan_shape(n, d):
     dp = padded_width(d)
+    if dp == 0:    # the generic width, named, keeps its 256-row CTAs
+        for m in (3, 2_048):
+            assert launch_plan(n, m, d, "rowscan") == LaunchPlan(
+                "rowscan", 256, -(-n // 256), 0, m, 0)
+            assert launch_plan(n, m, d).route == ("chunked" if n else
+                                                  "rowscan")
     for m in _small_ms(d):
         plan = launch_plan(n, m, d)
         assert plan.route == "rowscan" == route(n, m, d)
         tiles = -(-n // plan.rows)
-        if dp == 0:        # the generic width keeps its 256-row CTAs
-            assert plan == LaunchPlan("rowscan", 256, tiles, 0, m, 0)
-            continue
         nt = 128 if dp > 128 else 256
         r = pk.rows_per_thread(dp)
         # whole warps of R rows a thread, at most 256 rows (128 past 128)
@@ -150,10 +155,11 @@ def test_every_center_below_the_threshold_fits(d):
 
 def test_wide_rows_stage_centers_in_chunks():
     """Past the tiled route's widths many centers do not fit at once: they
-    come in chunks that do, each at least a warp's worth."""
-    plan = launch_plan(3_001, 2_048, 130)
+    come in chunks that do, each at least a warp's worth (the small-m
+    route named; such a call is the chunked route's)."""
+    plan = launch_plan(3_001, 2_048, 130, "rowscan")
     assert 32 <= plan.centers < 2_048 and plan.smem_bytes <= SMEM_MAX
-    assert launch_plan(3_001, 2_048, 130, "rowscan") == plan
+    assert launch_plan(3_001, 2_048, 130).route == "chunked"
 
 
 def test_plan_is_cached_per_n_m_d():
@@ -169,7 +175,48 @@ def test_plan_is_cached_per_n_m_d():
     assert launch_plan(244_922, 26, 34) is first
 
 
+# The three cells' call shapes at d = 34 and 18 (Alg. 1's rounds and Alg.
+# 2's reassignment at each site size, the second level's last assignment,
+# the warm call) and their plans, as they were before the chunked route:
+# routes and plans there do not move.
+CELL_PLANS = {
+    (244_921, 26, 34): ("rowscan", 256, 528, 39_536, 26, 1),      # kdd
+    (244_921, 36_537, 34): ("tiled", 128, 1_914, 0, 64, 0),
+    (244_922, 26, 34): ("rowscan", 256, 528, 39_536, 26, 1),
+    (244_922, 36_537, 34): ("tiled", 128, 1_914, 0, 64, 0),
+    (874_751, 3, 34): ("rowscan", 256, 396, 70_224, 3, 2),
+    (250_000, 200, 18): ("rowscan", 256, 528, 41_664, 200, 1),    # susy
+    (250_000, 5_401, 18): ("tiled", 128, 1_954, 0, 64, 0),
+    (151_962, 100, 18): ("rowscan", 256, 528, 30_064, 100, 1),
+    (1_224_607, 30, 34): ("rowscan", 256, 528, 40_256, 30, 1),    # kdd4
+    (1_224_607, 182_281, 34): ("tiled", 128, 9_568, 0, 64, 0),
+    (1_460_000, 3, 34): ("rowscan", 256, 396, 70_224, 3, 2),
+    (1, 1, 34): ("rowscan", 64, 1, 17_648, 1, 2),                  # warm
+    (1, 1, 18): ("rowscan", 64, 1, 9_392, 1, 2),
+}
+
+
+@pytest.mark.parametrize("shape", list(CELL_PLANS))
+def test_cells_keep_their_routes_and_plans(shape):
+    plan = launch_plan(*shape)
+    assert tuple(plan) == CELL_PLANS[shape]
+    assert route(*shape) == plan.route
+
+
+def test_chunked_plan_is_fixed():
+    """The chunked route's shape: 128-row CTAs, 128-center tiles, its fixed
+    shared memory (two buffers of 32 coordinates of x and of the centers,
+    the rows' x2), whatever m, named at any width."""
+    assert CK_SMEM == 4 * (2 * 32 * ((128 + 4) + (128 + 4)) + 128)
+    for n, m, d in ((62_500, 10_801, 768), (1, 1, 257), (129, 3, 5)):
+        plan = launch_plan(n, m, d, "chunked")
+        assert plan == LaunchPlan("chunked", 128, -(-n // 128), CK_SMEM,
+                                  128, 0)
+
+
 def test_plan_named_route_matches_the_routed_one():
+    for n, m, d in ((62_500, 10_801, 768), (62_500, 200, 768)):
+        assert launch_plan(n, m, d) == launch_plan(n, m, d, "chunked")
     for n, m, d in ((244_922, 36_537, 34), (50_000, 5_001, 5)):
         assert launch_plan(n, m, d) == launch_plan(n, m, d, "tiled")
     for n, m, d in ((244_922, 26, 34), (1, 3, 5)):
